@@ -6,16 +6,27 @@ hand-written kernel of that path against its plain PyTorch version.
 
 Phases (any failed check raises, and the script exits non-zero):
 
-1. build kernel K1 (``epsm_mitsuba3_torch/csrc/mt_intersect.cu``) with
-   nvcc for sm_90a and print the card's name and power limit;
+1. build kernels K1 (``csrc/mt_intersect.cu``) and K2/K3
+   (``csrc/bvh_traverse.cu``) with nvcc for sm_90a and the BVH builder
+   (``native/bvh.cpp``) with g++, all at once, and print the card's name
+   and power limit and each kernel's registers, stack and spills;
 2. K1's closest-hit and any-hit entries against the plain versions on the
-   card, at the main path's shape (the Cornell box's 12 triangles against
-   2^20 camera and bounce rays, some dead) and at the largest scene K1
-   serves (4,096 triangles against 65,536 rays), and their times;
-3. the main path at full width: ``render(load_dict(cornell_box(512, 64,
+   card, at the Cornell box's shape (12 triangles against 2^20 camera and
+   bounce rays, some dead) and at the largest scene K1 serves (4,096
+   triangles against 65,536 rays), and their times;
+3. the Cornell box at full width: ``render(load_dict(cornell_box(512, 64,
    6)), spp=64, spp_chunk=4)``: a warm-up and five timed renders, with
-   K1's launch counts set to 0 before and read after each;
-4. the same small scene rendered on the card and on the CPU.
+   the launch counts set to 0 before and read after each;
+4. K2/K3 against their plain versions on ``cornell_box_mesh``'s 2^21
+   camera and bounce rays (a tenth dead), and on 65,536 of them against
+   K1's plain brute force over all 64,812 triangles; the stack-overflow
+   flag stays 0;
+5. K2/K3 times, with the rays unsorted and Morton-sorted (sort
+   included), beside the plain versions' and the bound;
+6. the BVH slice at full width: ``render(load_dict(cornell_box_mesh(512,
+   8, 6)), spp=16, spp_chunk=8)``: a warm-up and five timed renders, each
+   launching K2 and K3 12 times and K1 never;
+7. both scenes rendered small on the card and on the CPU.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -33,9 +44,17 @@ PEAK_FP32_FLOP_PER_S = 67e12
 #: float arithmetic of one ray-triangle test in K1: cross products 2 x 9,
 #: dot products 4 x 5, 1 reciprocal, 3 subtractions, 3 scalings, u + v
 FLOP_PER_TEST = 18 + 20 + 1 + 3 + 3 + 1
-#: Main-path workload: the Cornell box at 512^2, 64 spp in passes of 4,
-#: max depth 6 (one closest-hit and one shadow query a bounce)
+#: FP32 operations of one slab test in K2/K3: 6 subtractions, 6
+#: multiplies, 6 + 4 min/max, 3 compares
+OPS_PER_SLAB = 6 + 6 + 10 + 3
+#: K2 orders the pushed children: 12 compares of their keys a pop
+OPS_PER_ORDER = 12
+#: Cornell-box workload: 512^2, 64 spp in passes of 4, max depth 6 (one
+#: closest-hit and one shadow query a bounce)
 RES, SPP, SPP_CHUNK, DEPTH = 512, 64, 4, 6
+#: BVH-slice workload (bench.py's ``bvh`` section): cornell_box_mesh at
+#: 512^2, 16 spp in passes of 8, max depth 6
+MESH_SPP, MESH_CHUNK = 16, 8
 TIMED_RENDERS = 5
 
 
@@ -60,10 +79,10 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters):
+def cuda_ms(fn, iters, warm=3):
     """Mean ms a call of ``fn`` on the card, by CUDA events, after warm-up."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -75,17 +94,29 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def main_path_rays(scene, gen):
-    """2^20 rays of the main path's kinds: camera rays (even lanes) and
-    random bounce rays from the camera hits (odd lanes), some of finite
-    extent; a tenth of all lanes dead (maxt = 0)."""
+def timed(fn):
+    """(result, ms) of one call of ``fn``, by CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def main_path_rays(scene, gen, spp):
+    """A pass's rays of the main path's kinds: camera rays (even lanes)
+    and random bounce rays from the camera hits (odd lanes), some of
+    finite extent; a tenth of all lanes dead (maxt = 0)."""
     import torch
     from epsm_mitsuba3_torch.integrators import common
     from epsm_mitsuba3_torch.models import samplers as smp
     sensor = scene.sensors[0]
-    n = sensor.width * sensor.height * SPP_CHUNK
+    n = sensor.width * sensor.height * spp
     sampler = smp.seed(0, n, device=scene.device)
-    _, cam, _, _ = common.sample_rays(sensor, sampler, SPP_CHUNK)
+    _, cam, _, _ = common.sample_rays(sensor, sampler, spp)
     si = scene.ray_intersect(cam)
     dirs = torch.randn((n, 3), generator=gen, device=scene.device)
     bounce = si.spawn_ray(dirs / dirs.norm(dim=-1, keepdim=True))
@@ -138,17 +169,16 @@ def bound_ms(n_bytes, n_flop):
     return (t_bytes, "bytes") if t_bytes >= t_flop else (t_flop, "operations")
 
 
-def compare_k1(label, tri, o, d, maxt):
-    """Both K1 entries against the plain versions on the same inputs."""
+def hold(label, got, ref):
+    """Hold a kernel's (t, prim, u, v, occ) against a reference's on the
+    same rays: ``prim``, ``valid`` and ``occ`` equal on >= 99.99 % of the
+    lanes, |err| of t, u, v <= 1e-5 * max(|ref|, 1) where ``prim``
+    agrees, and the any hit equal to the closest hit's ``valid``.
+    Returns the largest absolute error of t, u, v and of ``occ``."""
     import torch
-    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
-    from epsm_mitsuba3_torch.ops import intersect as I
-    t, prim, u, v = CI.closest_hit(tri, o, d, maxt)
-    occ = CI.any_hit(tri, o, d, maxt)
-    torch.cuda.synchronize()
-    t_p, prim_p, u_p, v_p = I.ray_intersect_brute(tri, o, d, maxt)
-    occ_p = I.ray_test_brute(tri, o, d, maxt)
-    n = o.shape[0]
+    t, prim, u, v, occ = got
+    t_p, prim_p, u_p, v_p, occ_p = ref
+    n = prim.shape[0]
     same = prim == prim_p
     n_diff = int((~same).sum())
     n_valid_diff = int(((prim >= 0) != (prim_p >= 0)).sum())
@@ -161,22 +191,33 @@ def compare_k1(label, tri, o, d, maxt):
         errs[name] = (float(e.max()) if e.numel() else 0.0,
                       float(rel.max()) if rel.numel() else 0.0)
     self_consistent = bool(torch.equal(occ, prim >= 0))
-    say(f"[K1 {label}] rays {n} tris {tri.shape[0]} hits "
-        f"{int((prim_p >= 0).sum())}: prim differs on {n_diff} lanes, "
-        f"valid on {n_valid_diff}, any-hit on {n_occ_diff}; "
-        f"any-hit == closest valid: {self_consistent}; max |err| "
-        + ", ".join(f"{k} {a:.3g} (rel {r:.3g})" for k, (a, r)
-                    in errs.items())
+    say(f"[{label}] rays {n} hits {int((prim_p >= 0).sum())}: prim differs "
+        f"on {n_diff} lanes, valid on {n_valid_diff}, any-hit on "
+        f"{n_occ_diff}; any-hit == closest valid: {self_consistent}; "
+        "max |err| " + ", ".join(f"{k} {a:.3g} (rel {r:.3g})"
+                                 for k, (a, r) in errs.items())
         + "  [limits: >= 99.99 % agree, |err| <= 1e-5 * max(|ref|, 1)]")
     check(n_diff <= 1e-4 * n and n_valid_diff <= 1e-4 * n,
-          f"K1 {label}: closest hit disagrees on {n_diff} lanes")
+          f"{label}: closest hit disagrees on {n_diff} lanes")
     check(n_occ_diff <= 1e-4 * n,
-          f"K1 {label}: any hit disagrees on {n_occ_diff} lanes")
-    check(self_consistent, f"K1 {label}: any-hit != closest-hit valid")
+          f"{label}: any hit disagrees on {n_occ_diff} lanes")
+    check(self_consistent, f"{label}: any-hit != closest-hit valid")
     for k, (_, rel) in errs.items():
-        check(rel <= 1e-5, f"K1 {label}: {k} off by {rel} relative")
+        check(rel <= 1e-5, f"{label}: {k} off by {rel} relative")
     return (max(a for a, _ in errs.values()),
             float((occ != occ_p).float().max()) if n else 0.0)
+
+
+def compare_k1(label, tri, o, d, maxt):
+    """Both K1 entries against the plain versions on the same inputs."""
+    import torch
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import intersect as I
+    got = (*CI.closest_hit(tri, o, d, maxt), CI.any_hit(tri, o, d, maxt))
+    torch.cuda.synchronize()
+    ref = (*I.ray_intersect_brute(tri, o, d, maxt),
+           I.ray_test_brute(tri, o, d, maxt))
+    return hold(f"K1 {label}, {tri.shape[0]} tris", got, ref)
 
 
 def time_k1(tri, o, d, maxt):
@@ -201,6 +242,92 @@ def time_k1(tri, o, d, maxt):
     return out
 
 
+def compare_bvh(scene, o, d, maxt, n_brute=65536):
+    """K2 and K3 (default ray order) against their plain versions on the
+    same rays, and on the first ``n_brute`` rays against K1's plain brute
+    force over every triangle; the overflow flag must stay 0.  Returns
+    the errors against each, the plain versions' ms and their work
+    counts."""
+    import torch
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import intersect as I
+    from epsm_mitsuba3_torch.ops import traverse as TR
+    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+    order = scene.bvh.order.long()
+    t, slot, u, v = CT.closest_hit(nodes, tri, o, d, maxt)
+    occ = CT.any_hit(nodes, tri, o, d, maxt)
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(o.device)
+    say("[K2/K3] overflow flag: 0")
+    (t_p, slot_p, u_p, v_p, pops, tests), plain_ms_c = timed(
+        lambda: TR.bvh_ray_intersect_plain(nodes, tri, o, d, maxt,
+                                           counts=True))
+    (occ_p, pops_a, tests_a), plain_ms_a = timed(
+        lambda: TR.bvh_ray_test_plain(nodes, tri, o, d, maxt, counts=True))
+    err = hold("K2/K3 vs plain, main-path rays", (t, slot, u, v, occ),
+               (t_p, slot_p, u_p, v_p, occ_p))
+
+    def prim_of(s):
+        return torch.where(s >= 0, order[s.clamp(min=0).long()], -1)
+
+    k = slice(0, n_brute)
+    tri_all = CI.pack_tris(scene.vertices, scene.faces)
+    ref = (*I.ray_intersect_brute(tri_all, o[k], d[k], maxt[k]),
+           I.ray_test_brute(tri_all, o[k], d[k], maxt[k]))
+    ref = (ref[0], ref[1].long(), *ref[2:])
+    err_b = hold(f"K2/K3 vs K1 brute force, {tri_all.shape[0]} tris",
+                 (t[k], prim_of(slot[k]), u[k], v[k], occ[k]), ref)
+    live = maxt > 1e-6
+    say(f"[K2/K3] per live ray: closest hit {float(pops[live].float().mean()):.2f}"
+        f" pops, {float(tests[live].float().mean()):.2f} triangle tests; "
+        f"any hit {float(pops_a[live].float().mean()):.2f} pops, "
+        f"{float(tests_a[live].float().mean()):.2f} tests")
+    return dict(err=err, err_brute=err_b, plain_ms=(plain_ms_c, plain_ms_a),
+                work=(int(pops.sum()), int(tests.sum()), int(pops_a.sum()),
+                      int(tests_a.sum())))
+
+
+def time_bvh(scene, o, d, maxt, plain_ms, work):
+    """ms a launch of K2 and K3, rays unsorted and Morton-sorted (the
+    sort and un-sort included), the traversal alone on pre-sorted rays,
+    and each entry's bound on these rays from the plain versions' work
+    counts."""
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+    n = o.shape[0]
+    tree = 4 * (nodes.numel() + tri.numel())
+    pops, tests, pops_a, tests_a = work
+    perm = CT._morton_order(nodes, o, d, maxt)
+    pre = (o[perm].contiguous(), d[perm].contiguous(), maxt[perm].contiguous())
+    out = {}
+    default = CT.SORT_RAYS
+    for name, fn, out_bytes, ops, p_ms in (
+            ("bvh4_closest_hit", CT.closest_hit, 16 * n,
+             pops * (4 * OPS_PER_SLAB + OPS_PER_ORDER)
+             + tests * FLOP_PER_TEST, plain_ms[0]),
+            ("bvh4_any_hit", CT.any_hit, n,
+             pops_a * 4 * OPS_PER_SLAB + tests_a * FLOP_PER_TEST,
+             plain_ms[1])):
+        ms = {srt: cuda_ms(lambda: fn(nodes, tri, o, d, maxt, sort=srt), 20)
+              for srt in (False, True)}
+        # the traversal alone on rays already in Morton order
+        ms_pre = cuda_ms(lambda: fn(nodes, tri, *pre, sort=False), 20)
+        n_bytes = tree + 28 * n + out_bytes
+        b_ms, by = bound_ms(n_bytes, ops)
+        out[name] = dict(ms=ms[default], ms_unsorted=ms[False],
+                         ms_sorted=ms[True], ms_presorted=ms_pre,
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                         sort=default)
+        say(f"[time] {name} at {tri.shape[0]} tris x {n} rays: unsorted "
+            f"{ms[False]:.4f} ms, Morton-sorted {ms[True]:.4f} ms (sort "
+            f"included; default {'sorted' if default else 'unsorted'}), "
+            f"on pre-sorted rays {ms_pre:.4f} ms; plain version "
+            f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {by} ({ops / 1e9:.3f} "
+            f"G operations, {n_bytes / 1e6:.1f} MB)")
+    return out
+
+
 def image_checks(img, res):
     import torch
     check(tuple(img.shape) == (res, res, 3), f"image shape {img.shape}")
@@ -218,8 +345,47 @@ def image_checks(img, res):
     check(top > bottom, "the light is not in the top half")
 
 
-def profile_pass(scene):
-    """Device time by kernel over one 4-spp pass (torch.profiler); the
+def render_phase(label, scene, spp, chunk, expect):
+    """A warm-up and TIMED_RENDERS timed renders at full width; before
+    each every launch count is set to 0, and after it each count must be
+    ``expect``'s.  Returns the median wall ms and the last counts."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    walls = []
+    for run in ["warm-up"] + [f"timed {i + 1}" for i in range(TIMED_RENDERS)]:
+        for counts in (CI.launches, CT.launches):
+            for k in counts:
+                counts[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = mt.render(scene, spp=spp, spp_chunk=chunk, seed=0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = {**CI.launches, **CT.launches}
+        say(f"[{label}] {run}: {walls[-1]:.1f} ms, launches {counts}")
+        for k, n in expect.items():
+            check(counts[k] == n,
+                  f"{k} launched {counts[k]} times, expected {n}")
+        image_checks(img, scene.sensors[0].width)
+    CT.raise_on_overflow(scene.device)
+    timed_walls = sorted(walls[1:])
+    median = timed_walls[len(timed_walls) // 2]
+    sensor = scene.sensors[0]
+    n_passes = -(-spp // chunk)
+    rays = sensor.width * sensor.height * chunk * DEPTH * 2 * n_passes
+    say(f"[{label}] {sensor.width}^2 x {spp} spp ({n_passes} passes of "
+        f"{chunk}), depth {DEPTH}: wall median {median:.1f} ms of "
+        f"{len(timed_walls)} (min {timed_walls[0]:.1f}, max "
+        f"{timed_walls[-1]:.1f}); {rays / (median / 1e3) / 1e6:.2f} "
+        "physical Mrays/s at the median")
+    return median, counts
+
+
+def profile_pass(scene, spp, names):
+    """Device time by kernel over one ``spp`` pass (torch.profiler), with
+    the share of the kernels whose names contain one of ``names``; the
     full table goes to standard error."""
     import torch
     import epsm_mitsuba3_torch as mt
@@ -227,7 +393,7 @@ def profile_pass(scene):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mt.render(scene, spp=SPP_CHUNK, seed=7)
+        mt.render(scene, spp=spp, seed=7)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
@@ -236,21 +402,38 @@ def profile_pass(scene):
     # kernels only: an operator's device time repeats its kernels' time
     kernels = [e for e in avgs if getattr(e, key) > 0 and getattr(
         e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy = sum(getattr(e, key) for e in kernels) / 1e3
-    k1 = sum(getattr(e, key) for e in kernels
-             if "mt_closest" in e.key or "mt_any" in e.key) / 1e3
     print(avgs.table(sort_by=key, row_limit=30), file=sys.stderr)
     if not kernels:
         say(f"[profile] one pass: wall {wall:.1f} ms; the profiler saw no "
             "device time (not measured)")
         return
+    busy = sum(getattr(e, key) for e in kernels) / 1e3
+    ours = sum(getattr(e, key) for e in kernels
+               if any(nm in e.key for nm in names)) / 1e3
     top = sorted(kernels, key=lambda e: -getattr(e, key))[:8]
-    say("[profile] one pass: wall %.1f ms, device busy %.1f ms (%.1f %%), "
-        "K1 %.2f ms (%.1f %% of busy), %d kernel launches; top: %s" % (
-            wall, busy, 100 * busy / wall, k1, 100 * k1 / busy,
-            sum(e.count for e in kernels),
+    say("[profile] one %d-spp pass: wall %.1f ms, device busy %.1f ms "
+        "(%.1f %%), %s %.2f ms (%.1f %% of busy), %d kernel launches; "
+        "top: %s" % (
+            spp, wall, busy, 100 * busy / wall, "/".join(names), ours,
+            100 * ours / busy, sum(e.count for e in kernels),
             "; ".join(f"{e.key[:40]} {getattr(e, key) / 1e3:.2f} ms"
                       f" x{e.count}" for e in top)))
+
+
+def card_vs_cpu(label, d, spp):
+    """Render the scene dict ``d`` on the card and on the CPU."""
+    import epsm_mitsuba3_torch as mt
+    img_gpu = mt.render(mt.load_dict(d), spp=spp, seed=0).cpu()
+    img_cpu = mt.render(mt.load_dict(d, device="cpu"), spp=spp, seed=0,
+                        device="cpu")
+    diff = (img_gpu - img_cpu).abs()
+    mad, mean = float(diff.mean()), float(img_cpu.mean())
+    within = float((diff.amax(-1) <= 1e-3).float().mean())
+    say(f"[cpu] {label} 64^2 x {spp} spp: mean |gpu - cpu| {mad:.3g} (limit "
+        f"{1e-3 * mean:.3g} = 1e-3 x mean {mean:.4f}); {100 * within:.2f} % "
+        "of pixels within 1e-3 (limit 99 %)")
+    check(mad <= 1e-3 * mean and within >= 0.99,
+          f"{label}: card and CPU renders disagree")
 
 
 def main() -> int:
@@ -260,8 +443,11 @@ def main() -> int:
               "the GPU", file=sys.stderr)
         return 1
     import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import _native
+    from epsm_mitsuba3_torch.ops import bvh as BT
     from epsm_mitsuba3_torch.ops import cuda_intersect as CI
-    from epsm_mitsuba3_torch.scenes import cornell_box
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.scenes import cornell_box, cornell_box_mesh
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -269,20 +455,25 @@ def main() -> int:
     say(f"[device] {gpu} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {name} x{torch.cuda.device_count()}")
 
-    # -- 1. build ----------------------------------------------------------
+    # -- 1. build: every compiler at once ----------------------------------
     t0 = time.perf_counter()
+    _native.build([CI.SPEC, CT.SPEC, BT.SPEC])
     CI.build()
-    say(f"[build] K1 built in {time.perf_counter() - t0:.1f} s")
-    for line in CI.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[build] {line.strip()}")
+    CT.build()
+    say(f"[build] K1, K2/K3 (nvcc) and the BVH builder (g++) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lib in (CI.SPEC.name, CT.SPEC.name):
+        for line in _native.build_logs.get(lib, "").splitlines():
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line or "stack frame" in line:
+                say(f"[build] {lib}: {line.strip()}")
 
     # -- 2. K1 against its plain version ------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     box = mt.load_dict(cornell_box(res=RES, spp=SPP_CHUNK, max_depth=DEPTH))
     tri_box = CI.pack_tris(box.vertices, box.faces)
-    rays_box = main_path_rays(box, gen)
-    err_box = compare_k1("main-path shape", tri_box, *rays_box)
+    rays_box = main_path_rays(box, gen, SPP_CHUNK)
+    err_box = compare_k1("Cornell-box shape", tri_box, *rays_box)
     err_big = compare_k1("largest shape", *soup_rays(4096, 65536, gen, dev))
     times = time_k1(tri_box, *rays_box)
     for k, v in times.items():
@@ -294,63 +485,72 @@ def main() -> int:
         say(f"[time] {k} at 4096 tris x 65536 rays: {v['ms']:.4f} ms a "
             f"launch (plain {v['plain_ms']:.3f} ms), bound "
             f"{v['bound_ms']:.4f} ms by {v['bound_by']}")
+    del rays_box
 
-    # -- 3. the main path at full width ------------------------------------
+    # -- 3. the Cornell box at full width ----------------------------------
     scene = mt.load_dict(cornell_box(res=RES, spp=SPP, max_depth=DEPTH))
     n_passes = SPP // SPP_CHUNK
-    expect = DEPTH * n_passes
-    walls = []
-    for run in ["warm-up"] + [f"timed {i + 1}" for i in range(TIMED_RENDERS)]:
-        for k in CI.launches:
-            CI.launches[k] = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = mt.render(scene, spp=SPP, spp_chunk=SPP_CHUNK, seed=0)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        counts = dict(CI.launches)
-        say(f"[render] {run}: {walls[-1]:.1f} ms, K1 launches {counts}")
-        for k in counts:
-            check(counts[k] == expect,
-                  f"{k} launched {counts[k]} times, expected {expect}")
-        image_checks(img, RES)
-    timed = sorted(walls[1:])
-    median = timed[len(timed) // 2]
-    rays = RES * RES * SPP_CHUNK * DEPTH * 2 * n_passes
-    say(f"[render] {RES}^2 x {SPP} spp ({n_passes} passes of {SPP_CHUNK}),"
-        f" depth {DEPTH}: wall median {median:.1f} ms of {len(timed)} "
-        f"(min {timed[0]:.1f}, max {timed[-1]:.1f}); "
-        f"{rays / (median / 1e3) / 1e6:.2f} physical Mrays/s at the median;"
-        f" K1 {sum(counts.values())} launches a render, "
-        + ", ".join(f"{k} {v['ms']:.4f} ms a launch (bound "
-                    f"{v['bound_ms']:.4f})" for k, v in times.items()))
-    profile_pass(scene)
+    _, counts_box = render_phase(
+        "render box", scene, SPP, SPP_CHUNK,
+        {"mt_closest_hit": DEPTH * n_passes, "mt_any_hit": DEPTH * n_passes,
+         "bvh4_closest_hit": 0, "bvh4_any_hit": 0})
+    profile_pass(scene, SPP_CHUNK, ("mt_closest", "mt_any"))
+    del scene
 
-    # -- 4. card against CPU --------------------------------------------------
-    small = cornell_box(res=64, spp=4, max_depth=DEPTH)
-    img_gpu = mt.render(mt.load_dict(small), spp=4, seed=0).cpu()
-    img_cpu = mt.render(mt.load_dict(small, device="cpu"), spp=4, seed=0,
-                        device="cpu")
-    diff = (img_gpu - img_cpu).abs()
-    mad, mean = float(diff.mean()), float(img_cpu.mean())
-    within = float((diff.amax(-1) <= 1e-3).float().mean())
-    say(f"[cpu] 64^2 x 4 spp: mean |gpu - cpu| {mad:.3g} (limit "
-        f"{1e-3 * mean:.3g} = 1e-3 x mean {mean:.4f}); {100 * within:.2f} % "
-        "of pixels within 1e-3 (limit 99 %)")
-    check(mad <= 1e-3 * mean and within >= 0.99,
-          "card and CPU renders disagree")
+    # -- 4. K2/K3 against their plain versions --------------------------------
+    t0 = time.perf_counter()
+    mesh = mt.load_dict(cornell_box_mesh(res=RES, spp=MESH_CHUNK,
+                                         max_depth=DEPTH))
+    torch.cuda.synchronize()
+    say(f"[mesh] cornell_box_mesh: {mesh.faces.shape[0]} triangles, "
+        f"{mesh.bvh.meta.shape[0]} binary nodes over {mesh.bvh.n_levels} "
+        f"levels, {mesh.bvh_nodes.shape[0]} BVH4 records; loaded with its "
+        f"BVH in {time.perf_counter() - t0:.2f} s")
+    rays_mesh = main_path_rays(mesh, gen, MESH_CHUNK)
+    bvh = compare_bvh(mesh, *rays_mesh)
+
+    # -- 5. K2/K3 times ------------------------------------------------------
+    bvh_times = time_bvh(mesh, *rays_mesh, bvh["plain_ms"], bvh["work"])
+    del rays_mesh
+
+    # -- 6. the BVH slice at full width ------------------------------------
+    n_mesh = MESH_SPP // MESH_CHUNK
+    _, counts_mesh = render_phase(
+        "render mesh", mesh, MESH_SPP, MESH_CHUNK,
+        {"mt_closest_hit": 0, "mt_any_hit": 0,
+         "bvh4_closest_hit": DEPTH * n_mesh, "bvh4_any_hit": DEPTH * n_mesh})
+    profile_pass(mesh, MESH_CHUNK, ("bvh4_closest", "bvh4_any"))
+    del mesh
+
+    # -- 7. card against CPU --------------------------------------------------
+    card_vs_cpu("cornell_box", cornell_box(res=64, spp=4, max_depth=DEPTH), 4)
+    card_vs_cpu("cornell_box_mesh",
+                cornell_box_mesh(res=64, spp=4, max_depth=DEPTH), 4)
 
     # -- kernels line -------------------------------------------------------
     kernels = []
     for i, k in enumerate(("mt_closest_hit", "mt_any_hit")):
-        err = max(err_box[i], err_big[i])
         v = times[k]
         kernels.append({
             "name": k, "route": "cuda",
             "source": "epsm_mitsuba3_torch/csrc/mt_intersect.cu",
             "replaces": "epsm_mitsuba3_tpu/ops/pallas_intersect.py:25",
-            "launches": counts[k], "max_abs_err": err,
+            "launches": counts_box[k],
+            "max_abs_err": max(err_box[i], err_big[i]),
             "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": None})
+    for i, (k, line) in enumerate((("bvh4_closest_hit", 164),
+                                   ("bvh4_any_hit", 446))):
+        v = bvh_times[k]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "epsm_mitsuba3_torch/csrc/bvh_traverse.cu",
+            "replaces": f"epsm_mitsuba3_tpu/ops/pallas_traverse.py:{line}",
+            "launches": counts_mesh[k], "max_abs_err": bvh["err"][i],
+            "ms": v["ms"], "ms_unsorted": v["ms_unsorted"],
+            "ms_sorted": v["ms_sorted"], "ms_presorted": v["ms_presorted"],
+            "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None})
     say(json.dumps({"kernels": kernels}))

@@ -8,6 +8,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.films import kahan_add
+from ..ops import cuda_traverse as CT
 from . import prb
 
 
@@ -30,7 +31,9 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
     and average them with Kahan-compensated sums; pass p is seeded
     ``seed * n_passes + p`` (integrator.cpp:201-219).  ``device=None``
     means the GPU and raises without CUDA; the scene must live on the
-    device the call names."""
+    device the call names.  On a BVH scene on the GPU the render waits
+    for the device at its end and raises ``StackOverflow`` if a ray ran
+    out of traversal stack."""
     device = resolve_device(device)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, render was asked "
@@ -41,17 +44,26 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
             f"integrator '{cfg['type']}' is not ported")
     if spp == 0:
         spp = scene.static.spp
+
+    def one_pass(pass_seed, pass_spp):
+        return prb.render_prb(scene, seed=pass_seed, sensor_idx=sensor,
+                              spp=pass_spp, max_depth=int(cfg["max_depth"]),
+                              rr_depth=int(cfg["rr_depth"]))
+
     if spp_chunk and spp > spp_chunk:
         n_passes = -(-spp // spp_chunk)
         acc = comp = None
         for p in range(n_passes):
-            img = render(scene, seed * n_passes + p, spp_chunk, sensor,
-                         integrator, device=device)
+            img = one_pass(seed * n_passes + p, spp_chunk)
             if acc is None:
                 acc, comp = img, torch.zeros_like(img)
             else:
                 acc, comp = kahan_add(acc, comp, img)
-        return acc / n_passes
-    return prb.render_prb(scene, seed=seed, sensor_idx=sensor, spp=spp,
-                          max_depth=int(cfg["max_depth"]),
-                          rr_depth=int(cfg["rr_depth"]))
+        img = acc / n_passes
+    else:
+        img = one_pass(seed, spp)
+    if scene.bvh is not None and device.type == "cuda":
+        # a ray that ran out of traversal stack lost hits: raise, once a
+        # render, rather than return a wrong image (waits for the device)
+        CT.raise_on_overflow(device)
+    return img

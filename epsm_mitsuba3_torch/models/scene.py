@@ -4,9 +4,12 @@
 Geometry is one flat set of arrays (all meshes concatenated); structure
 (kinds present, integrator settings, film sizes) is static metadata.
 ``load_dict`` takes the subset of the reference schema that the port's
-scenes use: ``rectangle``/``cube`` shapes, ``diffuse`` (optionally
-``twosided``), ``area``, ``perspective``, ``independent``, ``hdrfilm``
-with a ``box`` filter, and the ``path`` integrator.
+scenes use: ``rectangle``/``cube`` shapes and in-memory ``mesh`` shapes,
+``diffuse`` (optionally ``twosided``), ``area``, ``perspective``,
+``independent``, ``hdrfilm`` with a ``box`` filter, and the ``path``
+integrator.  A scene of more than ``ops/accel.py``
+``BRUTE_FORCE_MAX_TRIS`` triangles gets a BVH at load, packed once into
+the records of kernels K2/K3.
 
 ``scene_from_arrays`` builds a scene from numpy arrays under the JAX
 ``Scene``'s field names: it carries the scene state between the two
@@ -15,13 +18,16 @@ packages, so that both render the very same scene.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
 from ..core.transform import ScalarTransform4f
+from ..ops import accel
+from ..ops import bvh as bvh_mod
+from ..ops import cuda_traverse as CT
 from . import bsdf as bsdf_mod
 from . import emitters as em_mod
 from . import shapes as shapes_mod
@@ -56,6 +62,12 @@ class Scene:
     em_faces: torch.Tensor       # (E, Tmax) int32 global face ids, -1 pad
     sensors: Tuple[Sensor, ...] = ()
     static: SceneStatic = field(default_factory=SceneStatic)
+    #: BVH above ``accel.BRUTE_FORCE_MAX_TRIS`` triangles, else None
+    bvh: Optional[bvh_mod.BVH] = None
+    #: its K2/K3 inputs (``cuda_traverse.pack_bvh4``): node records
+    #: (n4, 32) and leaf-ordered triangles (F, 9)
+    bvh_nodes: Optional[torch.Tensor] = None
+    bvh_tris: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -63,7 +75,6 @@ class Scene:
 
     # -- ray queries (scene.cpp:116-142) ------------------------------------
     def ray_intersect_preliminary(self, ray: Ray):
-        from ..ops import accel
         return accel.ray_intersect(self, ray)
 
     def ray_intersect(self, ray: Ray, ray_flags: int = RayFlags.All):
@@ -72,7 +83,6 @@ class Scene:
         return I.compute_surface_interaction(self, ray, pi, ray_flags)
 
     def ray_test(self, ray: Ray):
-        from ..ops import accel
         return accel.ray_test(self, ray)
 
 
@@ -158,17 +168,33 @@ class _Builder:
     # -- shapes (_Builder.add_shape) ----------------------------------------
     def add_shape(self, d: dict):
         t = d["type"]
-        mesh = _SHAPE_FNS[t]()
+        if t == "mesh":
+            # raw in-memory mesh: vertex and face arrays
+            mesh = {"vertices": np.asarray(d["vertices"], np.float32),
+                    "faces": np.asarray(d["faces"], np.int32)}
+            for k in ("normals", "uvs"):
+                if k in d:
+                    mesh[k] = np.asarray(d[k], np.float32)
+        else:
+            mesh = _SHAPE_FNS[t]()
         to_world = _transform(d.get("to_world"))
         v = mesh["vertices"]
         vh = np.concatenate([v, np.ones((len(v), 1), np.float32)], -1)
         v = (vh @ to_world.T)[:, :3]
-        n = mesh["normals"] @ np.linalg.inv(to_world[:3, :3])
-        n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+        n = mesh.get("normals")
+        if n is None or bool(d.get("face_normals", False)):
+            n = np.zeros_like(v)     # zero rows: the face normal at a hit
+        else:
+            n = n @ np.linalg.inv(to_world[:3, :3])
+            n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True),
+                               1e-20)
         uv = mesh.get("uvs")
         if uv is None:
             uv = np.zeros((len(v), 2), np.float32)
         f = mesh["faces"]
+        if bool(d.get("flip_normals", False)):
+            f = f[:, ::-1].copy()
+            n = -n
 
         shape_index = len(self.shape_bsdf)
         bsdf_idx = em_idx = -1
@@ -265,7 +291,7 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
             b.add_sensor(val)
         elif t in _INTEGRATOR_TYPES:
             b.integrator = dict(val)
-        elif t in _SHAPE_FNS:
+        elif t in _SHAPE_FNS or t == "mesh":
             b.add_shape(val)
         else:
             raise NotImplementedError(
@@ -293,7 +319,12 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     ``sensors``: per sensor, the static fields of ``Sensor`` other than
     ``to_world`` (kind, fov_x, width, height, rfilter, ...).
     ``integrator``: the scene's integrator properties (type, max_depth,
-    rr_depth).  ``device=None`` means the GPU; without CUDA that raises."""
+    rr_depth).  ``device=None`` means the GPU; without CUDA that raises.
+
+    The BVH of a scene of more than ``accel.BRUTE_FORCE_MAX_TRIS``
+    triangles is taken from the arrays ``bvh.<field>`` (the reference
+    BVH's ``bmin``, ``bmax``, ``meta``, ``order``, ``levels``, ``c4_id``,
+    ``c4_cnt``, ``c4_node``) where they are given, and built otherwise."""
     device = resolve_device(device)
 
     def t(x, dtype):
@@ -326,5 +357,15 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
         bsdf_kinds=bsdf_kinds, emitter_kinds=emitter_kinds,
         integrator=tuple(sorted(dict(integrator or {}).items())),
         spp=int(spp), sampler_kind=sampler_kind)
+    bvh = nodes = tris = None
+    if geo["faces"].shape[0] > accel.BRUTE_FORCE_MAX_TRIS:
+        if "bvh.order" in arrays:
+            bvh = bvh_mod.from_arrays(
+                {k: arrays[f"bvh.{k}"] for k in bvh_mod.ARRAY_FIELDS},
+                device)
+        else:
+            bvh = bvh_mod.build(arrays["vertices"], arrays["faces"], device)
+        nodes, tris = CT.pack_bvh4(bvh, geo["vertices"], geo["faces"])
     return Scene(bsdfs=bsdfs, emitters=emitters, sensors=sensor_objs,
-                 static=static, **geo)
+                 static=static, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris,
+                 **geo)

@@ -1,8 +1,9 @@
 """Acceleration dispatch (counterpart of ``ops/accel.py``).
 
-Scenes of at most ``BRUTE_FORCE_MAX_TRIS`` triangles go to kernel K1 on
-CUDA tensors, for every ray count, and to its plain versions on CPU
-tensors.  Larger scenes need the BVH kernels, which are not ported yet.
+Scenes of at most ``BRUTE_FORCE_MAX_TRIS`` triangles, and scenes without
+a BVH, go to kernel K1 (brute force); every other scene goes through its
+BVH4 to kernels K2 (closest hit) and K3 (any hit).  On CPU tensors each
+kernel's plain version runs instead.
 """
 from __future__ import annotations
 
@@ -10,28 +11,38 @@ import torch
 
 from ..models.records import PreliminaryIntersection, Ray
 from . import cuda_intersect as CI
+from . import cuda_traverse as CT
 
 #: scenes with at most this many triangles use brute force
 BRUTE_FORCE_MAX_TRIS = 4096
 
 
-def _k1_inputs(scene, ray: Ray):
-    nf = scene.faces.shape[0]
-    if nf > BRUTE_FORCE_MAX_TRIS:
-        raise NotImplementedError(
-            f"scene has {nf} triangles: above {BRUTE_FORCE_MAX_TRIS} the "
-            "reference traverses a BVH (kernels K2/K3), which the port "
-            "gains with its BVH slice")
-    return (CI.pack_tris(scene.vertices, scene.faces), ray.o.contiguous(),
-            ray.d.contiguous(), ray.maxt.contiguous())
+def use_brute_force(scene) -> bool:
+    return (scene.faces.shape[0] <= BRUTE_FORCE_MAX_TRIS
+            or scene.bvh is None)
+
+
+def _rays(ray: Ray):
+    return ray.o.contiguous(), ray.d.contiguous(), ray.maxt.contiguous()
 
 
 def ray_intersect(scene, ray: Ray) -> PreliminaryIntersection:
-    t, prim, u, v = CI.closest_hit(*_k1_inputs(scene, ray))
+    if use_brute_force(scene):
+        t, prim, u, v = CI.closest_hit(
+            CI.pack_tris(scene.vertices, scene.faces), *_rays(ray))
+        valid = prim >= 0
+    else:
+        t, slot, u, v = CT.closest_hit(scene.bvh_nodes, scene.bvh_tris,
+                                       *_rays(ray))
+        valid = slot >= 0
+        prim = scene.bvh.order[slot.clamp(min=0).long()]
     return PreliminaryIntersection(
         t=t, prim_uv=torch.stack([u, v], dim=-1),
-        prim_index=torch.clamp(prim, min=0), valid=prim >= 0)
+        prim_index=torch.where(valid, prim, 0), valid=valid)
 
 
 def ray_test(scene, ray: Ray) -> torch.Tensor:
-    return CI.any_hit(*_k1_inputs(scene, ray))
+    if use_brute_force(scene):
+        return CI.any_hit(CI.pack_tris(scene.vertices, scene.faces),
+                          *_rays(ray))
+    return CT.any_hit(scene.bvh_nodes, scene.bvh_tris, *_rays(ray))

@@ -3,9 +3,13 @@
 ``cornell_box`` is the classic Cornell box of the reference's test scenes
 (``tests/scenes.py`` of the JAX package): white floor, ceiling and back
 wall, red left and green right walls, a small area light under the
-ceiling; 12 triangles.
+ceiling; 12 triangles.  ``cornell_box_mesh`` adds the displaced sphere
+``bumpy_sphere`` (64,800 triangles at the default ``subdiv``), so that
+every ray query goes through the BVH.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from .core.transform import ScalarTransform4f as T
 
@@ -58,3 +62,46 @@ def cornell_box(res: int = 64, spp: int = 16, max_depth: int = 4,
                      "reflectance": {"type": "rgb", "value": [0, 0, 0]}},
         },
     }
+
+
+def bumpy_sphere(subdiv: int = 180, radius: float = 0.55,
+                 center=(0.0, 0.7, 0.0), bump: float = 0.08):
+    """Displaced UV sphere of 2 * subdiv^2 triangles of incoherent
+    geometry: (vertices (V, 3) float32, faces (F, 3) int32)."""
+    th = np.linspace(1e-3, np.pi - 1e-3, subdiv + 1)
+    ph = np.linspace(0, 2 * np.pi, subdiv + 1)[:-1]
+    TH, PH = np.meshgrid(th, ph, indexing="ij")
+    r = radius * (1.0 + bump * (np.sin(6 * TH) * np.cos(5 * PH)
+                                + 0.5 * np.sin(11 * PH + 2 * TH)))
+    x = r * np.sin(TH) * np.cos(PH) + center[0]
+    y = r * np.cos(TH) + center[1]
+    z = r * np.sin(TH) * np.sin(PH) + center[2]
+    V = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+    n_ph = subdiv
+    faces = []
+    for i in range(subdiv):
+        for j in range(n_ph):
+            a = i * n_ph + j
+            b = i * n_ph + (j + 1) % n_ph
+            c = (i + 1) * n_ph + j
+            d = (i + 1) * n_ph + (j + 1) % n_ph
+            faces.append([a, c, b])
+            faces.append([b, c, d])
+    F = np.asarray(faces, np.int32)
+    return V, F
+
+
+def cornell_box_mesh(res: int = 64, spp: int = 16, max_depth: int = 4,
+                     subdiv: int = 180):
+    """The Cornell box with ``bumpy_sphere`` in it: 64,812 triangles at
+    the default ``subdiv``."""
+    d = cornell_box(res=res, spp=spp, max_depth=max_depth)
+    V, F = bumpy_sphere(subdiv=subdiv)
+    d["blob"] = {
+        "type": "mesh",
+        "vertices": V,
+        "faces": F,
+        "bsdf": {"type": "diffuse",
+                 "reflectance": {"type": "rgb", "value": [0.55, 0.45, 0.3]}},
+    }
+    return d

@@ -1,5 +1,6 @@
-"""Kernel K1 on the card against its plain version, at small and ragged
-shapes.  These tests need CUDA and nvcc; without a card they skip.
+"""Kernels K1, K2 and K3 on the card against their plain versions, at
+small and ragged shapes.  These tests need CUDA and nvcc; without a card
+they skip.
 
 Run them on a GPU machine (the suite's conftest imports JAX, which the
 port does not need):
@@ -13,8 +14,10 @@ import torch
 
 import epsm_mitsuba3_torch as mt
 from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+from epsm_mitsuba3_torch.ops import cuda_traverse as CT
 from epsm_mitsuba3_torch.ops import intersect as I
-from epsm_mitsuba3_torch.scenes import cornell_box
+from epsm_mitsuba3_torch.ops import traverse as TR
+from epsm_mitsuba3_torch.scenes import cornell_box, cornell_box_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +78,88 @@ def test_render_cuda_matches_cpu(cuda):
     """The RNG is bit-exact on both devices: a small render agrees."""
     d = cornell_box(res=16, spp=2, max_depth=4)
     img_c = mt.render(mt.load_dict(d, device=cuda), spp=2, seed=0)
+    img_h = mt.render(mt.load_dict(d, device="cpu"), spp=2, seed=0,
+                      device="cpu")
+    diff = (img_c.cpu() - img_h).abs()
+    assert float(diff.mean()) <= 1e-3 * float(img_h.mean())
+    assert float((diff.amax(-1) <= 1e-3).float().mean()) >= 0.99
+
+
+def _mesh_rays(n_rays, seed):
+    """Rays from inside the Cornell box in every direction, some of
+    finite extent, a tenth dead."""
+    r = np.random.default_rng(seed)
+    o = r.uniform(-0.95, 0.95, (n_rays, 3)).astype(np.float32)
+    o[:, 1] += 1.0
+    d = r.normal(size=(n_rays, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    maxt = np.where(r.random(n_rays) < 0.3, r.uniform(0.1, 2.0, n_rays),
+                    np.inf).astype(np.float32)
+    maxt[r.random(n_rays) < 0.1] = 0.0
+    return torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(maxt)
+
+
+@pytest.fixture(scope="module")
+def mesh_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return mt.load_dict(cornell_box_mesh(res=16, spp=1, subdiv=46),
+                        device="cuda")
+
+
+@pytest.mark.parametrize("n_rays,sort", [
+    (1, False), (129, False), (4133, False), (4133, True), (65536, True)])
+def test_k2_k3_kernels_equal_plain(mesh_scene, n_rays, sort):
+    """Built with --fmad=false, walking the tree in the plain version's
+    order: slots and t/u/v equal the plain version on the same card, and
+    no ray runs out of stack."""
+    sc = mesh_scene
+    args = [x.to(sc.device) for x in _mesh_rays(n_rays, n_rays)]
+    before = dict(CT.launches)
+    t, slot, u, v = CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args,
+                                   sort=sort)
+    occ = CT.any_hit(sc.bvh_nodes, sc.bvh_tris, *args, sort=sort)
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(sc.device)
+    assert CT.launches["bvh4_closest_hit"] == before["bvh4_closest_hit"] + 1
+    assert CT.launches["bvh4_any_hit"] == before["bvh4_any_hit"] + 1
+    t_p, slot_p, u_p, v_p = TR.bvh_ray_intersect_plain(
+        sc.bvh_nodes, sc.bvh_tris, *args)
+    assert torch.equal(slot, slot_p)
+    assert torch.equal(occ, slot_p >= 0)
+    assert torch.equal(occ, TR.bvh_ray_test_plain(sc.bvh_nodes,
+                                                  sc.bvh_tris, *args))
+    for a, b in ((t, t_p), (u, u_p), (v, v_p)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_k2_k3_overflow_is_flagged(mesh_scene, monkeypatch):
+    """A stack too small for the tree sets the device flag, and
+    raise_on_overflow raises once and clears it."""
+    sc = mesh_scene
+    args = [x.to(sc.device) for x in _mesh_rays(1024, 5)]
+    monkeypatch.setattr(TR, "STACK_SIZE", 2)
+    for fn in (CT.closest_hit, CT.any_hit):
+        fn(sc.bvh_nodes, sc.bvh_tris, *args)
+        with pytest.raises(TR.StackOverflow):
+            CT.raise_on_overflow(sc.device)
+        CT.raise_on_overflow(sc.device)
+
+
+def test_k2_rejects_mixed_devices(mesh_scene):
+    o, d, maxt = _mesh_rays(8, 0)
+    with pytest.raises(ValueError):
+        CT.closest_hit(mesh_scene.bvh_nodes, mesh_scene.bvh_tris, o, d, maxt)
+
+
+def test_bvh_render_cuda_matches_cpu(mesh_scene):
+    """A BVH scene renders through K2/K3 on the card as through their
+    plain versions on the CPU."""
+    d = cornell_box_mesh(res=16, spp=2, max_depth=4, subdiv=46)
+    before = dict(CT.launches)
+    img_c = mt.render(mt.load_dict(d, device="cuda"), spp=2, seed=0)
+    assert CT.launches["bvh4_closest_hit"] == before["bvh4_closest_hit"] + 4
+    assert CT.launches["bvh4_any_hit"] == before["bvh4_any_hit"] + 4
     img_h = mt.render(mt.load_dict(d, device="cpu"), spp=2, seed=0,
                       device="cpu")
     diff = (img_c.cpu() - img_h).abs()

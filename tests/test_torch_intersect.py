@@ -182,12 +182,35 @@ def test_k1_wrapper_rejects_bad_inputs():
 
 
 def test_accel_refuses_bvh_sized_scene():
+    """A scene above BRUTE_FORCE_MAX_TRIS is no longer refused: as in the
+    reference (``use_brute_force``), without a BVH it goes to K1's brute
+    force, and with one to K2/K3, with the same hits."""
+    from epsm_mitsuba3_torch.ops import bvh as BT
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     sj = mi.load_dict(cornell_box_jax(res=8, spp=1))
     st = port_scene_of(sj)
     big = dataclasses.replace(st, faces=st.faces.repeat(400, 1))
-    ray = RayT.make(torch.zeros(4, 3), torch.ones(4, 3))
-    with pytest.raises(NotImplementedError, match="BVH"):
-        accel.ray_intersect(big, ray)
+    assert big.bvh is None and accel.use_brute_force(big)
+    o, d = _cornell_rays(sj)
+    ray = RayT.make(torch.from_numpy(o), torch.from_numpy(d))
+    ref = IT.ray_intersect_brute(CI.pack_tris(big.vertices, big.faces),
+                                 ray.o, ray.d, ray.maxt)
+    pi = accel.ray_intersect(big, ray)
+    assert torch.equal(pi.valid, ref[1] >= 0)
+    assert torch.equal(pi.prim_index, ref[1].clamp(min=0))
+    tree = BT.build(big.vertices, big.faces)
+    nodes, tris = CT.pack_bvh4(tree, big.vertices, big.faces)
+    with_bvh = dataclasses.replace(big, bvh=tree, bvh_nodes=nodes,
+                                   bvh_tris=tris)
+    assert not accel.use_brute_force(with_bvh)
+    pi_b = accel.ray_intersect(with_bvh, ray)
+    assert torch.equal(pi_b.valid, pi.valid)
+    # repeated faces tie exactly: the tree may report another copy
+    same_tri = (with_bvh.faces[pi_b.prim_index.long()]
+                == big.faces[pi.prim_index.long()]).all(-1)
+    assert bool(same_tri[pi.valid].all())
+    torch.testing.assert_close(pi_b.t, pi.t, rtol=0, atol=0)
+    assert torch.equal(accel.ray_test(with_bvh, ray), pi.valid)
 
 
 def _cornell_rays(sj, seed=0):

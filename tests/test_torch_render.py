@@ -23,6 +23,7 @@ from epsm_mitsuba3_torch.integrators import path as path_t
 from epsm_mitsuba3_torch.models import films as films_t
 from epsm_mitsuba3_torch.models import samplers as smp_t
 from epsm_mitsuba3_torch.models.scene import GEOMETRY_FIELDS
+from epsm_mitsuba3_torch.ops.bvh import ARRAY_FIELDS as BVH_FIELDS
 from epsm_mitsuba3_torch.scenes import cornell_box
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -37,6 +38,9 @@ def jax_arrays(sj) -> dict:
                 for k, v in sj.emitters.items()})
     for i, s in enumerate(sj.sensors):
         out[f"sensors.{i}.to_world"] = np.asarray(s.to_world)
+    if sj.bvh is not None:
+        out.update({f"bvh.{k}": np.asarray(getattr(sj.bvh, k))
+                    for k in BVH_FIELDS})
     return out
 
 
