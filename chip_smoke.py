@@ -6,7 +6,7 @@ hand-written kernel of that path against its plain PyTorch version.
 
 Phases (any failed check raises, and the script exits non-zero):
 
-1. build kernels K1 (``csrc/mt_intersect.cu``) and K2/K3
+1. build kernels K1 (``csrc/mt_intersect.cu``) and K2/K4/K3
    (``csrc/bvh_traverse.cu``) with nvcc for sm_90a and the BVH builder
    (``native/bvh.cpp``) with g++, all at once, and print the card's name
    and power limit and each kernel's registers, stack and spills;
@@ -14,19 +14,36 @@ Phases (any failed check raises, and the script exits non-zero):
    card, at the Cornell box's shape (12 triangles against 2^20 camera and
    bounce rays, some dead) and at the largest scene K1 serves (4,096
    triangles against 65,536 rays), and their times;
-3. the Cornell box at full width: ``render(load_dict(cornell_box(512, 64,
-   6)), spp=64, spp_chunk=4)``: a warm-up and five timed renders, with
-   the launch counts set to 0 before and read after each;
+3. the Cornell box's primal render at full width: ``render(load_dict(
+   cornell_box(512, 64, 6)), spp=64, spp_chunk=4)``: a warm-up and five
+   timed renders, with the launch counts set to 0 before and read after
+   each;
 4. K2/K3 against their plain versions on ``cornell_box_mesh``'s 2^21
    camera and bounce rays (a tenth dead), and on 65,536 of them against
    K1's plain brute force over all 64,812 triangles; the stack-overflow
    flag stays 0;
 5. K2/K3 times, with the rays unsorted and Morton-sorted (sort
-   included), beside the plain versions' and the bound;
-6. the BVH slice at full width: ``render(load_dict(cornell_box_mesh(512,
-   8, 6)), spp=16, spp_chunk=8)``: a warm-up and five timed renders, each
-   launching K2 and K3 12 times and K1 never;
-7. both scenes rendered small on the card and on the CPU.
+   included), beside the plain versions' and the bound; then K4 at P = 2
+   and 4 on the same rays against its plain version (every output
+   equal), against K2 (t and valid equal, tie rays counted) and against
+   the brute force, timed beside K2 in the same call;
+6. the mesh's primal render at full width: ``render(load_dict(
+   cornell_box_mesh(512, 8, 6)), spp=16, spp_chunk=8)``, each launching
+   K2 and K3 12 times and K1 never;
+7. both scenes rendered small on the card and on the CPU;
+8. bench.py's fwd+bwd cells at full width, the loss ``mean(img^2)``
+   differentiated w.r.t. the vertices, reflectances and radiance: the
+   box, 16 passes of 1,048,576 lanes (K1 6 + 6 launches in each forward),
+   and the mesh, 2 passes of 2,097,152 lanes (K2 and K3 6 each), again
+   with ``multi_pop`` 4 (K4 6, K2 none) and the gradients compared; no
+   kernel launches in any backward; a warm-up and 3 timed runs each, and
+   one profiled pass;
+9. three iterations of ``app/optim.run("prb", ...)`` on the mesh at 512^2
+   x 8 spp, theta a translation of the sphere through ``set_vertices``;
+   then K2 on the re-packed scene against K1's brute force over the moved
+   vertices;
+10. the fwd+bwd gradients at 64^2 x 4 spp on the card against the CPU's,
+    for both scenes.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -56,6 +73,11 @@ RES, SPP, SPP_CHUNK, DEPTH = 512, 64, 4, 6
 #: 512^2, 16 spp in passes of 8, max depth 6
 MESH_SPP, MESH_CHUNK = 16, 8
 TIMED_RENDERS = 5
+#: fwd+bwd cells (bench.py's ``_bench_scene``): the box's 16 passes of 4
+#: spp (``sec_toy``) and the mesh's 2 passes of 8 spp (``sec_bvh``)
+BOX_PASSES, MESH_PASSES = 16, 2
+#: the ground truth of the [adam] phase
+ADAM_GT_SPP = 16
 
 
 class CheckFailed(AssertionError):
@@ -351,19 +373,16 @@ def render_phase(label, scene, spp, chunk, expect):
     ``expect``'s.  Returns the median wall ms and the last counts."""
     import torch
     import epsm_mitsuba3_torch as mt
-    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     walls = []
     for run in ["warm-up"] + [f"timed {i + 1}" for i in range(TIMED_RENDERS)]:
-        for counts in (CI.launches, CT.launches):
-            for k in counts:
-                counts[k] = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = mt.render(scene, spp=spp, spp_chunk=chunk, seed=0)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        counts = {**CI.launches, **CT.launches}
+        counts = read_counts()
         say(f"[{label}] {run}: {walls[-1]:.1f} ms, launches {counts}")
         for k, n in expect.items():
             check(counts[k] == n,
@@ -383,17 +402,16 @@ def render_phase(label, scene, spp, chunk, expect):
     return median, counts
 
 
-def profile_pass(scene, spp, names):
-    """Device time by kernel over one ``spp`` pass (torch.profiler), with
-    the share of the kernels whose names contain one of ``names``; the
-    full table goes to standard error."""
+def profile_pass(label, fn, names):
+    """Device time by kernel over one call of ``fn`` (torch.profiler),
+    with the share of the kernels whose names contain one of ``names``;
+    the full table goes to standard error."""
     import torch
-    import epsm_mitsuba3_torch as mt
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mt.render(scene, spp=spp, seed=7)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
@@ -402,22 +420,299 @@ def profile_pass(scene, spp, names):
     # kernels only: an operator's device time repeats its kernels' time
     kernels = [e for e in avgs if getattr(e, key) > 0 and getattr(
         e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    print(f"== profile: {label}", file=sys.stderr)
     print(avgs.table(sort_by=key, row_limit=30), file=sys.stderr)
     if not kernels:
-        say(f"[profile] one pass: wall {wall:.1f} ms; the profiler saw no "
+        say(f"[profile] {label}: wall {wall:.1f} ms; the profiler saw no "
             "device time (not measured)")
-        return
+        return None
     busy = sum(getattr(e, key) for e in kernels) / 1e3
     ours = sum(getattr(e, key) for e in kernels
                if any(nm in e.key for nm in names)) / 1e3
     top = sorted(kernels, key=lambda e: -getattr(e, key))[:8]
-    say("[profile] one %d-spp pass: wall %.1f ms, device busy %.1f ms "
-        "(%.1f %%), %s %.2f ms (%.1f %% of busy), %d kernel launches; "
-        "top: %s" % (
-            spp, wall, busy, 100 * busy / wall, "/".join(names), ours,
-            100 * ours / busy, sum(e.count for e in kernels),
+    n_launch = sum(e.count for e in kernels)
+    say("[profile] %s: wall %.1f ms, device busy %.1f ms (%.1f %%), %s "
+        "%.2f ms (%.1f %% of busy), %d kernel launches; top: %s" % (
+            label, wall, busy, 100 * busy / wall, "/".join(names), ours,
+            100 * ours / busy, n_launch,
             "; ".join(f"{e.key[:40]} {getattr(e, key) / 1e3:.2f} ms"
                       f" x{e.count}" for e in top)))
+    return dict(wall=wall, busy=busy, launches=n_launch)
+
+
+def compare_k4(scene, o, d, maxt, n_brute=65536):
+    """K4 at each multi-pop width against its plain version (every output
+    equal), against K2 (t and valid equal; the rays where the two keep
+    different triangles at the same t counted) and, on the first
+    ``n_brute`` rays, against K1's plain brute force.  Returns per width
+    the errors, the plain version's ms and its work counts."""
+    import torch
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import intersect as I
+    from epsm_mitsuba3_torch.ops import traverse as TR
+    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+    order = scene.bvh.order.long()
+    k2 = CT.closest_hit(nodes, tri, o, d, maxt, multi_pop=0)
+    k = slice(0, n_brute)
+    tri_all = CI.pack_tris(scene.vertices, scene.faces)
+    brute = I.ray_intersect_brute(tri_all, o[k], d[k], maxt[k])
+    brute = (brute[0], brute[1].long(), *brute[2:],
+             brute[1] >= 0)
+    out = {}
+    for width in CT.K4_WIDTHS:
+        got = CT.closest_hit(nodes, tri, o, d, maxt, multi_pop=width)
+        torch.cuda.synchronize()
+        CT.raise_on_overflow(o.device)
+        (*plain, pops, tests), plain_ms = timed(
+            lambda: TR.bvh_ray_intersect_plain(nodes, tri, o, d, maxt,
+                                               counts=True,
+                                               multi_pop=width))
+        n_diff = sum(int((a != b).sum()) for a, b in zip(got, plain))
+        # t is +inf on a miss in both: compare the finite entries
+        err = max(float(torch.where(torch.isfinite(b), a - b, 0.0).abs()
+                        .max()) for a, b in zip((got[0], got[2], got[3]),
+                                                (plain[0], plain[2],
+                                                 plain[3])))
+        t_same = bool(torch.equal(got[0], k2[0]))
+        valid_same = bool(torch.equal(got[1] >= 0, k2[1] >= 0))
+        ties = int((got[1] != k2[1]).sum())
+        say(f"[k4] P={width} on {o.shape[0]} main-path rays: against its "
+            f"plain version {n_diff} lanes differ, max |err| {err:.3g} "
+            f"(limit 0); against K2 t equal: {t_same}, valid equal: "
+            f"{valid_same}, {ties} tie rays keep another triangle; "
+            "overflow flag 0")
+        check(n_diff == 0, f"K4 P={width} differs from its plain version")
+        check(t_same and valid_same, f"K4 P={width}: t/valid != K2's")
+
+        def prim_of(s_):
+            return torch.where(s_ >= 0, order[s_.clamp(min=0).long()], -1)
+
+        err_b = hold(f"K4 P={width} vs K1 brute force, "
+                     f"{tri_all.shape[0]} tris",
+                     (got[0][k], prim_of(got[1][k]), got[2][k], got[3][k],
+                      got[1][k] >= 0), brute)
+        out[width] = dict(err=err, err_brute=err_b[0], ties=ties,
+                          plain_ms=plain_ms,
+                          work=(int(pops.sum()), int(tests.sum())))
+    return out
+
+
+def time_k4(scene, o, d, maxt, k4):
+    """ms a launch of K4 at each width, with K2 timed beside it in the
+    same call, and the bound of each on these rays from its plain
+    version's work counts."""
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+    n = o.shape[0]
+    n_bytes = 4 * (nodes.numel() + tri.numel()) + 28 * n + 16 * n
+    out = {}
+    for width in CT.K4_WIDTHS:
+        ms = cuda_ms(lambda: CT.closest_hit(nodes, tri, o, d, maxt,
+                                            multi_pop=width), 20)
+        ms_k2 = cuda_ms(lambda: CT.closest_hit(nodes, tri, o, d, maxt,
+                                               multi_pop=0), 20)
+        pops, tests = k4[width]["work"]
+        ops = pops * (4 * OPS_PER_SLAB + OPS_PER_ORDER) + tests * FLOP_PER_TEST
+        b_ms, by = bound_ms(n_bytes, ops)
+        out[width] = dict(ms=ms, ms_k2=ms_k2, bound_ms=b_ms, bound_by=by,
+                          plain_ms=k4[width]["plain_ms"])
+        say(f"[time] K4 P={width} at {tri.shape[0]} tris x {n} rays: "
+            f"{ms:.4f} ms a launch, K2 {ms_k2:.4f} ms in the same call; "
+            f"plain version {k4[width]['plain_ms']:.1f} ms; bound "
+            f"{b_ms:.4f} ms by {by} ({pops / n:.2f} pops, {tests / n:.2f} "
+            "tests a ray)")
+    return out
+
+
+#: the leaves the training phases differentiate
+TRAIN_LEAVES = ("vertices", "bsdfs.reflectance", "emitters.radiance")
+
+
+def trainable(scene):
+    """The scene with TRAIN_LEAVES replaced by copies that require grad,
+    and those copies."""
+    leaves = {k: v.clone().requires_grad_(True)
+              for k, v in scene.leaves().items() if k in TRAIN_LEAVES}
+    return scene.with_leaves(leaves), leaves
+
+
+def zero_counts():
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    for counts in (CI.launches, CT.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts():
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    return {**CI.launches, **CT.launches}
+
+
+def fwd_bwd(scene, leaves, spp, seed, integrator=None):
+    """One fwd+bwd pass as bench.py's ``_bench_scene`` times it: the loss
+    ``mean((img - 0)^2)`` and its gradient w.r.t. ``leaves``.  Returns
+    (loss, grads, launches in the forward, launches in the backward)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    zero_counts()
+    img = mt.render(scene, spp=spp, seed=seed, integrator=integrator)
+    loss = torch.mean((img - 0.0) ** 2)
+    fwd = read_counts()
+    zero_counts()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss, grads, fwd, read_counts()
+
+
+def train_phase(label, scene, spp, passes, expect_fwd, integrator=None):
+    """bench.py's fwd+bwd cell at full width: a warm-up and 3 timed runs
+    of ``passes`` fwd+bwd passes.  Every pass must launch ``expect_fwd``
+    in the forward and no kernel in the backward (the replay reads the
+    recorded trace).  Prints the median wall ms with the range and the
+    physical Mrays/s; returns (median ms, Mrays/s, the forward's counts
+    of the last run, the trainable scene and its leaves)."""
+    import torch
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    walls = []
+    sc, leaves = trainable(scene)
+    sensor = scene.sensors[0]
+    lanes = sensor.width * sensor.height * spp
+    torch.cuda.reset_peak_memory_stats()
+    for run in ["warm-up", "timed 1", "timed 2", "timed 3"]:
+        run_counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(passes):
+            loss, grads, fwd, bwd = fwd_bwd(sc, leaves, spp, p + 1,
+                                            integrator)
+            for k, n in fwd.items():
+                run_counts[k] = run_counts.get(k, 0) + n
+            for k, n in expect_fwd.items():
+                check(fwd[k] == n, f"{label}: {k} launched {fwd[k]} times "
+                      f"in a forward, expected {n}")
+            check(sum(bwd.values()) == 0,
+                  f"{label}: the replay launched kernels: {bwd}")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        say(f"[{label}] {run}: {walls[-1]:.1f} ms for {passes} passes, "
+            f"loss {float(loss.detach()):.6g}, gradients finite: {finite}; "
+            "forward "
+            f"launches {run_counts}, backward 0")
+        check(finite, f"{label}: loss or gradients not finite")
+    rays = lanes * DEPTH * 2 * passes
+    timed_walls = sorted(walls[1:])
+    median = timed_walls[1]
+    mrays = rays / (median / 1e3) / 1e6
+    say(f"[{label}] {sensor.width}^2 x {spp} spp, {passes} fwd+bwd passes "
+        f"of {lanes} lanes, depth {DEPTH}: wall median {median:.1f} ms "
+        f"(range {timed_walls[0]:.1f}-{timed_walls[-1]:.1f}); "
+        f"{mrays:.2f} physical Mrays/s fwd+bwd; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    CT.raise_on_overflow(scene.device)
+    return median, mrays, run_counts, (sc, leaves)
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def blob_normals(d):
+    """``cornell_box_mesh``'s dict with outward vertex normals on the
+    sphere.  Its faces wind inward, so without normals the one-sided
+    diffuse sphere is black from outside and detached PRB gives its
+    vertices no gradient; with interpolated normals the hit's
+    barycentrics carry the vertices' gradient into the shading."""
+    import numpy as np
+    v = np.asarray(d["blob"]["vertices"])
+    d["blob"]["normals"] = v - np.asarray([0.0, 0.7, 0.0], np.float32)
+    return d
+
+
+def grad_card_vs_cpu(label, d, spp):
+    """The fwd+bwd gradient of every TRAIN_LEAVES leaf on the card
+    (kernels) against the CPU's (plain versions)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sc, leaves = trainable(mt.load_dict(d, device=dev))
+        img = mt.render(sc, spp=spp, seed=0, device=dev)
+        loss = (img ** 2).mean()
+        out[dev] = torch.autograd.grad(loss, list(leaves.values()))
+    errs = {k: rel_l2(a.cpu(), b) for k, a, b in
+            zip(TRAIN_LEAVES, out["cuda"], out["cpu"])}
+    norms = {k: float(b.norm()) for k, b in zip(TRAIN_LEAVES, out["cpu"])}
+    res = d["sensor"]["film"]["width"]
+    say(f"[grad cpu] {label} {res}^2 x {spp} spp: |g_gpu - g_cpu| / |g_cpu| "
+        + ", ".join(f"{k} {e:.3g} (|g| {norms[k]:.4g})"
+                    for k, e in errs.items())
+        + "  [limit 1e-3 each]")
+    for k, e in errs.items():
+        check(e <= 1e-3, f"{label}: card and CPU gradients of {k} differ "
+              f"by {e} relative")
+
+
+def adam_phase(mesh_dict, gen):
+    """The port's ``app/optim.run("prb", ...)`` for 3 iterations on
+    cornell_box_mesh: theta is a translation of the sphere's vertices,
+    applied through ``set_vertices``.  Afterwards K2 on the re-packed
+    scene must equal K1's brute force over the moved vertices."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.app import optim
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import intersect as I
+    scene = mt.load_dict(blob_normals(mesh_dict))
+    blob = (scene.face_shape == scene.face_shape.max())
+    moving = torch.zeros(scene.vertices.shape[0], dtype=torch.bool,
+                         device=scene.device)
+    moving[scene.faces[blob].long().flatten()] = True
+    v0 = scene.vertices
+
+    def apply(sc, theta):
+        return sc.set_vertices(
+            v0 + torch.where(moving[:, None], theta["t"][None, :], 0.0))
+
+    exp = dict(scene=scene, apply=apply,
+               init_theta={"t": torch.zeros(3)},
+               target_theta={"t": torch.tensor([0.1, -0.05, 0.08],
+                                               device=scene.device)},
+               gt_spp=ADAM_GT_SPP, it=3, spp=MESH_CHUNK, resolution=RES,
+               max_depth=DEPTH, match_res=64, output=str)
+    losses = []
+    t0 = time.perf_counter()
+    opt, history = optim.run(
+        "prb", exp, iters=3,
+        log=lambda it, loss, theta: losses.append(loss))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    for it, (loss, h) in enumerate(zip(losses, history)):
+        say(f"[adam] iteration {it}: loss {loss:.6g}, theta "
+            f"{[round(float(x), 6) for x in h['t']]}")
+    thetas = [h["t"] for h in history]
+    import numpy as np
+    check(all(np.isfinite(x).all() for x in thetas)
+          and all(np.isfinite(x) for x in losses), "adam: not finite")
+    check(float(np.abs(thetas[-1]).max()) > 0, "adam: theta did not move")
+    say(f"[adam] 3 iterations at {RES}^2 x {MESH_CHUNK} spp, ground truth "
+        f"at {ADAM_GT_SPP} spp: {wall:.1f} ms in all")
+    final = apply(scene, {"t": opt["t"]})
+    o, d, maxt = main_path_rays(final, gen, MESH_CHUNK)
+    k = slice(0, 65536)
+    t, slot, u, v = CT.closest_hit(final.bvh_nodes, final.bvh_tris, o[k],
+                                   d[k], maxt[k])
+    prim = torch.where(slot >= 0, final.bvh.order[slot.clamp(min=0).long()],
+                       -1)
+    tri = CI.pack_tris(final.vertices, final.faces)
+    ref = I.ray_intersect_brute(tri, o[k], d[k], maxt[k])
+    hold("adam: K2 on the re-packed scene vs K1 brute force, moved "
+         "vertices", (t, prim, u, v, slot >= 0),
+         (ref[0], ref[1].long(), ref[2], ref[3], ref[1] >= 0))
 
 
 def card_vs_cpu(label, d, spp):
@@ -460,7 +755,7 @@ def main() -> int:
     _native.build([CI.SPEC, CT.SPEC, BT.SPEC])
     CI.build()
     CT.build()
-    say(f"[build] K1, K2/K3 (nvcc) and the BVH builder (g++) built in "
+    say(f"[build] K1, K2/K4/K3 (nvcc) and the BVH builder (g++) built in "
         f"{time.perf_counter() - t0:.1f} s")
     for lib in (CI.SPEC.name, CT.SPEC.name):
         for line in _native.build_logs.get(lib, "").splitlines():
@@ -494,7 +789,9 @@ def main() -> int:
         "render box", scene, SPP, SPP_CHUNK,
         {"mt_closest_hit": DEPTH * n_passes, "mt_any_hit": DEPTH * n_passes,
          "bvh4_closest_hit": 0, "bvh4_any_hit": 0})
-    profile_pass(scene, SPP_CHUNK, ("mt_closest", "mt_any"))
+    profile_pass(f"render box, one {SPP_CHUNK}-spp pass",
+                 lambda: mt.render(scene, spp=SPP_CHUNK, seed=7),
+                 ("mt_closest", "mt_any"))
     del scene
 
     # -- 4. K2/K3 against their plain versions --------------------------------
@@ -511,6 +808,10 @@ def main() -> int:
 
     # -- 5. K2/K3 times ------------------------------------------------------
     bvh_times = time_bvh(mesh, *rays_mesh, bvh["plain_ms"], bvh["work"])
+
+    # -- 5b. K4 against its plain version, K2 and the brute force ---------
+    k4 = compare_k4(mesh, *rays_mesh)
+    k4_times = time_k4(mesh, *rays_mesh, k4)
     del rays_mesh
 
     # -- 6. the BVH slice at full width ------------------------------------
@@ -519,7 +820,9 @@ def main() -> int:
         "render mesh", mesh, MESH_SPP, MESH_CHUNK,
         {"mt_closest_hit": 0, "mt_any_hit": 0,
          "bvh4_closest_hit": DEPTH * n_mesh, "bvh4_any_hit": DEPTH * n_mesh})
-    profile_pass(mesh, MESH_CHUNK, ("bvh4_closest", "bvh4_any"))
+    profile_pass(f"render mesh, one {MESH_CHUNK}-spp pass",
+                 lambda: mt.render(mesh, spp=MESH_CHUNK, seed=7),
+                 ("bvh4_closest", "bvh4_any"))
     del mesh
 
     # -- 7. card against CPU --------------------------------------------------
@@ -527,7 +830,54 @@ def main() -> int:
     card_vs_cpu("cornell_box_mesh",
                 cornell_box_mesh(res=64, spp=4, max_depth=DEPTH), 4)
 
-    # -- kernels line -------------------------------------------------------
+    # -- 8. fwd+bwd at full width: bench.py's toy and bvh cells -------------
+    box = mt.load_dict(cornell_box(res=RES, spp=SPP_CHUNK, max_depth=DEPTH))
+    _, _, train_box, (sc_box, lv_box) = train_phase(
+        "train box", box, SPP_CHUNK, BOX_PASSES,
+        {"mt_closest_hit": DEPTH, "mt_any_hit": DEPTH,
+         "bvh4_closest_hit": 0, "bvh4_any_hit": 0})
+    profile_pass(f"train box, one {SPP_CHUNK}-spp fwd+bwd pass",
+                 lambda: fwd_bwd(sc_box, lv_box, SPP_CHUNK, 99),
+                 ("mt_closest", "mt_any"))
+    del box, sc_box, lv_box
+    mesh = mt.load_dict(cornell_box_mesh(res=RES, spp=MESH_CHUNK,
+                                         max_depth=DEPTH))
+    _, _, train_mesh, (sc_mesh, lv_mesh) = train_phase(
+        "train mesh", mesh, MESH_CHUNK, MESH_PASSES,
+        {"bvh4_closest_hit": DEPTH, "bvh4_closest_hit_mp": 0,
+         "bvh4_any_hit": DEPTH, "mt_closest_hit": 0, "mt_any_hit": 0})
+    profile_pass(f"train mesh, one {MESH_CHUNK}-spp fwd+bwd pass",
+                 lambda: fwd_bwd(sc_mesh, lv_mesh, MESH_CHUNK, 99),
+                 ("bvh4_closest", "bvh4_any"))
+    mp = {"multi_pop": 4}
+    _, _, train_mp, _ = train_phase(
+        "train mesh K4", mesh, MESH_CHUNK, MESH_PASSES,
+        {"bvh4_closest_hit": 0, "bvh4_closest_hit_mp": DEPTH,
+         "bvh4_any_hit": DEPTH, "mt_closest_hit": 0, "mt_any_hit": 0}, mp)
+    l2, g2, _, _ = fwd_bwd(sc_mesh, lv_mesh, MESH_CHUNK, 1)
+    l4, g4, _, _ = fwd_bwd(sc_mesh, lv_mesh, MESH_CHUNK, 1, mp)
+    errs = {k: rel_l2(a, b) for k, a, b in zip(TRAIN_LEAVES, g4, g2)}
+    say(f"[train mesh K4] one pass, seed 1: loss K4 {float(l4):.8g}, K2 "
+        f"{float(l2):.8g}; |g_K4 - g_K2| / |g_K2| "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + "  [limit 1e-4 each: only tie rays may differ]")
+    for k, e in errs.items():
+        check(e <= 1e-4, f"K4 and K2 gradients of {k} differ by {e}")
+    del mesh, sc_mesh, lv_mesh
+
+    # -- 9. Adam on the mesh, through set_vertices -----------------------------
+    adam_phase(cornell_box_mesh(res=RES, spp=MESH_CHUNK, max_depth=DEPTH),
+               gen)
+
+    # -- 10. gradients on the card against the CPU -----------------------------
+    box64 = cornell_box(res=64, spp=4, max_depth=DEPTH)
+    for k in ("floor", "ceiling", "back", "left", "right"):
+        box64[k]["face_normals"] = True
+    grad_card_vs_cpu("cornell_box (face normals)", box64, 4)
+    grad_card_vs_cpu("cornell_box_mesh (sphere normals)", blob_normals(
+        cornell_box_mesh(res=64, spp=4, max_depth=DEPTH)), 4)
+
+    # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []
     for i, k in enumerate(("mt_closest_hit", "mt_any_hit")):
         v = times[k]
@@ -535,7 +885,7 @@ def main() -> int:
             "name": k, "route": "cuda",
             "source": "epsm_mitsuba3_torch/csrc/mt_intersect.cu",
             "replaces": "epsm_mitsuba3_tpu/ops/pallas_intersect.py:25",
-            "launches": counts_box[k],
+            "launches": train_box[k],
             "max_abs_err": max(err_box[i], err_big[i]),
             "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
@@ -547,12 +897,24 @@ def main() -> int:
             "name": k, "route": "cuda",
             "source": "epsm_mitsuba3_torch/csrc/bvh_traverse.cu",
             "replaces": f"epsm_mitsuba3_tpu/ops/pallas_traverse.py:{line}",
-            "launches": counts_mesh[k], "max_abs_err": bvh["err"][i],
+            "launches": train_mesh[k], "max_abs_err": bvh["err"][i],
             "ms": v["ms"], "ms_unsorted": v["ms_unsorted"],
             "ms_sorted": v["ms_sorted"], "ms_presorted": v["ms_presorted"],
             "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None})
+    v = k4_times[4]
+    kernels.append({
+        "name": "bvh4_closest_hit_mp", "route": "cuda",
+        "source": "epsm_mitsuba3_torch/csrc/bvh_traverse.cu",
+        "replaces": "epsm_mitsuba3_tpu/ops/pallas_traverse.py:308",
+        "multi_pop": 4, "launches": train_mp["bvh4_closest_hit_mp"],
+        "max_abs_err": k4[4]["err"], "tie_rays": k4[4]["ties"],
+        "ms": v["ms"], "ms_k2_same_call": v["ms_k2"],
+        "ms_p2": k4_times[2]["ms"], "plain_ms": v["plain_ms"],
+        "plain_ms_p2": k4_times[2]["plain_ms"],
+        "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+        "library_ms": None})
     say(json.dumps({"kernels": kernels}))
     say(f"[device] {gpu}")
     say(json.dumps({"ok": True, "device": {

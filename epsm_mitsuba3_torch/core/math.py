@@ -1,8 +1,11 @@
 """Vector math and orthonormal frames (counterpart of ``core/math.py``).
 
-Vectors are ``(..., 3)`` tensors.  Only the forward functions that the
-primal path tracer calls are here; their custom tangent rules come with
-the gradient slice.
+Vectors are ``(..., 3)`` tensors.  The guarded functions (``normalize``,
+``safe_sqrt``, ``safe_rsqrt``, ``safe_acos``, ``safe_rcp``, ``safe_div``)
+are ``torch.autograd.Function``s with the reference's custom tangent
+rules: their primal is the plain clamped formula, and their derivative is
+finite (zero) where the plain formula's would overflow float32, so a zero
+cotangent on a masked lane never turns into ``0 * inf = NaN``.
 """
 from __future__ import annotations
 
@@ -21,24 +24,157 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.sqrt(x)
+
+
+def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
+    """Reduce a broadcast gradient back to an input's shape."""
+    if g.shape == shape:
+        return g
+    lead = g.dim() - len(shape)
+    g = g.sum(dim=tuple(range(lead))) if lead else g
+    dims = tuple(i for i, s in enumerate(shape) if s == 1 and g.shape[i] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
+
+
+class _Normalize(torch.autograd.Function):
+    """``a / |a|`` with ``|a|^2`` clamped to 1e-37; the tangent is
+    detached where ``|a|^2 <= 1e-24`` (``_normalize_jvp``, :38-48)."""
+
+    @staticmethod
+    def forward(ctx, a):
+        n2 = squared_norm(a, keepdim=True)
+        r = _rsqrt(torch.clamp(n2, min=1e-37))
+        out = a * r
+        ctx.save_for_backward(a, n2, r, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, n2, r, out = ctx.saved_tensors
+        w = torch.where(n2 > 1e-24, g, 0.0)
+        return w * r - a * (r * r * dot(w, out, keepdim=True))
+
+
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt clamped to 0 below zero; zero derivative at and below zero
+    (``_safe_sqrt_jvp``, :85-90)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.sqrt(torch.clamp(x, min=0.0))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return torch.where(x > 0.0, 0.5 * g / torch.clamp(out, min=1e-37),
+                           0.0)
+
+
+class _SafeRsqrt(torch.autograd.Function):
+    """1/sqrt with the argument clamped to 1e-37; detached where
+    ``x <= 1e-24`` (``_safe_rsqrt_jvp``, :101-106)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = _rsqrt(torch.clamp(x, min=1e-37))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return torch.where(x > 1e-24, -0.5 * out * out * out * g, 0.0)
+
+
+class _SafeAcos(torch.autograd.Function):
+    """arccos of x clamped to [-1, 1]; zero derivative where
+    ``|x| >= 1 - 1e-6`` (``_safe_acos_jvp``, :118-125)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.arccos(torch.clamp(x, -1.0, 1.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xg = torch.clamp(x, -1.0 + 1e-6, 1.0 - 1e-6)
+        return torch.where(torch.abs(x) < 1.0 - 1e-6,
+                           -g * _rsqrt(1.0 - xg * xg), 0.0)
+
+
+class _SafeRcp(torch.autograd.Function):
+    """1/x, and 0 where x == 0; derivative -out^2 (``_safe_rcp_jvp``,
+    :143-147)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        nz = x != 0.0
+        out = torch.where(nz, 1.0 / torch.where(nz, x, 1.0), 0.0)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return -out * out * g
+
+
+class _SafeDiv(torch.autograd.Function):
+    """``x / max(y, eps)``; the denominator's partial only where
+    ``y > 1e-18`` (``_safe_div_jvp``, :156-165)."""
+
+    @staticmethod
+    def forward(ctx, x, y, eps):
+        ctx.save_for_backward(x, y)
+        ctx.eps = eps
+        return x / torch.clamp(y, min=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        r = 1.0 / torch.clamp(y, min=ctx.eps)
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = _sum_to(g * r, x.shape)
+        if ctx.needs_input_grad[1]:
+            gy = _sum_to(-torch.where(y > 1e-18, x * r * r, 0.0) * g,
+                         y.shape)
+        return gx, gy, None
+
+
 def normalize(a: torch.Tensor) -> torch.Tensor:
     """``a / |a|``, with ``|a|^2`` clamped to 1e-37."""
-    return a * safe_rsqrt(squared_norm(a, keepdim=True))
+    return _Normalize.apply(a)
 
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     """sqrt clamped to 0 below zero."""
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return _SafeSqrt.apply(x)
 
 
 def safe_rsqrt(x: torch.Tensor) -> torch.Tensor:
     """1/sqrt with the argument clamped to 1e-37."""
-    return 1.0 / torch.sqrt(torch.clamp(x, min=1e-37))
+    return _SafeRsqrt.apply(x)
+
+
+def safe_acos(x: torch.Tensor) -> torch.Tensor:
+    """arccos with the argument clamped to [-1, 1]."""
+    return _SafeAcos.apply(x)
+
+
+def safe_rcp(x: torch.Tensor) -> torch.Tensor:
+    """Reciprocal that is 0 where ``x == 0``."""
+    return _SafeRcp.apply(x)
 
 
 def safe_div(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-20):
     """``x / max(y, eps)``."""
-    return x / torch.clamp(y, min=eps)
+    return _SafeDiv.apply(x, y, eps)
 
 
 def mulsign(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

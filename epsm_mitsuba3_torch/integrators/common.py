@@ -1,6 +1,6 @@
 """Shared integrator machinery (counterpart of ``integrators/common.py``):
 camera rays in the pixel-major lane order (lane = pixel * spp + s) and
-the MIS power heuristic."""
+the MIS power heuristic, which is detached as in the reference."""
 from __future__ import annotations
 
 import torch
@@ -10,8 +10,9 @@ from ..models import sensors as sns
 
 
 def mis_weight(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
-    """Power heuristic (beta = 2) as 1 / (1 + (b/a)^2): squaring pdfs near
-    the 1e20 emitter-sample floor would overflow float32."""
+    """Power heuristic (beta = 2) as 1 / (1 + (b/a)^2), detached: squaring
+    pdfs near the 1e20 emitter-sample floor would overflow float32."""
+    pdf_a, pdf_b = pdf_a.detach(), pdf_b.detach()
     r = pdf_b / torch.where(pdf_a > 0.0, pdf_a, 1.0)
     w = 1.0 / (1.0 + r * r)
     return torch.where(pdf_a > 0.0, w, 0.0)

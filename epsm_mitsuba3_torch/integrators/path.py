@@ -1,23 +1,25 @@
-"""Path tracer with NEE + MIS, primal only (counterpart of
-``integrators/path.py``).
+"""Path tracer with NEE + MIS (counterpart of ``integrators/path.py``):
+the detached primal, and the recording primal whose per-bounce hits and
+shadow visibilities the PRB replay (``ad/prb.py``) reads back.
 
 Every lane runs every bounce; lanes that have left the path are masked.
 Each bounce issues one closest-hit query and one shadow-ray query for the
 whole wavefront (dead lanes carry zero-extent rays), and every lane draws
 from its sampler in the same order whether it is active or not — next_2d
 for NEE, next_1d and next_2d for the BSDF, next_1d for Russian roulette —
-so the streams stay in step with the reference.
+so the streams stay in step with the reference.  A bounce given its
+recorded ``cached`` trace traverses nothing.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
 from ..models import bsdf as B
 from ..models import emitters as E
 from ..models import samplers as smp
-from ..models.records import Ray, RayFlags
+from ..models.records import PreliminaryIntersection, Ray, RayFlags
 from ..ops import intersect as I
 from .common import mis_weight
 
@@ -55,18 +57,23 @@ def _emitter_hit_le(scene, si, ray_d, prev_p, prev_bsdf_pdf, prev_bsdf_delta,
     return mis[..., None] * le_surf + le_env
 
 
-def _nee(scene, si, sampler, active_em):
-    """Emitter sampling with visibility (epsm.py:585-605)."""
+def _nee(scene, si, sampler, active_em, occl_cached=None):
+    """Emitter sampling with visibility (epsm.py:585-605).  With
+    ``occl_cached`` (the recorded visibility) no shadow ray is traced.
+    Returns (sampler, lr_dir, occluded)."""
     sampler, s2 = smp.next_2d(sampler)
     ds, em_weight = E.sample_direction(
         scene.emitters, scene.static.emitter_kinds, si.p, s2,
         scene.vertices, scene.faces, scene.em_faces)
     active_em = active_em & (ds.pdf != 0.0)
-    # lanes with no NEE work carry zero-extent shadow rays
-    shadow_ray = si.spawn_ray(ds.d)
-    shadow_ray = shadow_ray.replace(
-        maxt=torch.where(active_em, ds.dist * (1.0 - 1e-3), 0.0))
-    occluded = scene.ray_test(shadow_ray)
+    if occl_cached is not None:
+        occluded = occl_cached
+    else:
+        # lanes with no NEE work carry zero-extent shadow rays
+        shadow_ray = si.spawn_ray(ds.d)
+        shadow_ray = shadow_ray.replace(
+            maxt=torch.where(active_em, ds.dist * (1.0 - 1e-3), 0.0))
+        occluded = scene.ray_test(shadow_ray)
     em_weight = torch.where((active_em & ~occluded)[..., None], em_weight,
                             0.0)
     wo = si.to_local(ds.d)
@@ -74,36 +81,22 @@ def _nee(scene, si, sampler, active_em):
         scene.bsdfs, scene.static.bsdf_kinds, si.bsdf_index, si.wi, wo,
         active_em)
     mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf_em))
-    return sampler, mis_em[..., None] * bsdf_val_em * em_weight
+    return sampler, mis_em[..., None] * bsdf_val_em * em_weight, occluded
 
 
-def bounce(scene, st: LoopState, max_depth: int, rr_depth: int) -> LoopState:
-    """One path-tracing bounce of the whole wavefront."""
-    ray = Ray.make(st.ray_o, st.ray_d,
-                   maxt=torch.where(st.active, _INF, 0.0))
-    pi = scene.ray_intersect_preliminary(ray)
-    pi = pi.replace(valid=pi.valid & st.active)
-    si = I.compute_surface_interaction(scene, ray, pi, RayFlags.All)
-
-    le = st.beta * _emitter_hit_le(scene, si, st.ray_d, st.prev_p,
-                                   st.prev_bsdf_pdf, st.prev_bsdf_delta,
-                                   st.active)
-
-    bsdf_flags = B.flags_of(scene.bsdfs, si.bsdf_index)
-    active_next = (st.depth + 1 < max_depth) & si.valid & st.active
-    active_em = active_next & B.has_flag(bsdf_flags, B.BSDFFlags.Smooth)
-
-    sampler, lr_dir = _nee(scene, si, st.sampler, active_em)
-    lr_dir = st.beta * lr_dir
-
+def advance(st: LoopState, si, sampler, bsdfs, bsdf_kinds, active_next,
+            rr_depth: int):
+    """BSDF sampling, throughput and Russian roulette: the next loop state
+    from this bounce's (detached) interaction ``si``.  Draws next_1d and
+    next_2d for the BSDF, then next_1d for the roulette.  Returns (the
+    state with ``st.L`` carried over, the sampled direction in world
+    space)."""
     sampler, s1 = smp.next_1d(sampler)
     sampler, s2 = smp.next_2d(sampler)
-    bs, bsdf_weight, ok = B.sample(
-        scene.bsdfs, scene.static.bsdf_kinds, si.bsdf_index, si.wi, s1, s2,
-        active_next)
-
-    L = st.L + torch.where(st.active[..., None], le + lr_dir, 0.0)
-    new_ray = si.spawn_ray(si.to_world(bs.wo))
+    bs, bsdf_weight, ok = B.sample(bsdfs, bsdf_kinds, si.bsdf_index, si.wi,
+                                   s1, s2, active_next)
+    wo_world = si.to_world(bs.wo)
+    new_ray = si.spawn_ray(wo_world)
     eta = st.eta * torch.where(ok, bs.eta, 1.0)
     beta = st.beta * torch.where(ok[..., None], bsdf_weight, 0.0)
 
@@ -115,12 +108,48 @@ def bounce(scene, st: LoopState, max_depth: int, rr_depth: int) -> LoopState:
                        beta / torch.clamp(rr_prob, min=1e-8)[..., None], beta)
     sampler, rr_u = smp.next_1d(sampler)
     active_next = active_next & (~rr_active | (rr_u < rr_prob))
-
-    return LoopState(
+    st2 = LoopState(
         sampler=sampler, ray_o=new_ray.o, ray_d=new_ray.d,
-        depth=st.depth + si.valid.to(st.depth.dtype), L=L, beta=beta,
-        eta=eta, active=active_next, prev_p=si.p, prev_bsdf_pdf=bs.pdf,
+        depth=st.depth + si.valid.to(st.depth.dtype), L=st.L, beta=beta,
+        eta=eta, active=active_next, prev_p=si.p.detach(),
+        prev_bsdf_pdf=bs.pdf,
         prev_bsdf_delta=B.has_flag(bs.sampled_type, B.BSDFFlags.Delta))
+    return st2, wo_world
+
+
+def bounce(scene, st: LoopState, max_depth: int, rr_depth: int,
+           cached: dict = None, multi_pop: int = 0):
+    """One path-tracing bounce of the whole wavefront.  Returns (state,
+    record): the record holds the hit ``pi`` and the shadow visibility
+    ``occl`` (``bounce`` :204-219).  Given a recorded ``cached`` record,
+    the bounce traverses nothing (:134-135).  ``multi_pop``: K2's
+    schedule for the closest hit (``ops/cuda_traverse.py``)."""
+    ray = Ray.make(st.ray_o, st.ray_d,
+                   maxt=torch.where(st.active, _INF, 0.0))
+    if cached is not None:
+        pi = cached["pi"]
+    else:
+        pi = scene.ray_intersect_preliminary(ray, multi_pop=multi_pop)
+        pi = pi.replace(valid=pi.valid & st.active)
+    si = I.compute_surface_interaction(scene, ray, pi, RayFlags.All)
+
+    le = st.beta * _emitter_hit_le(scene, si, st.ray_d, st.prev_p,
+                                   st.prev_bsdf_pdf, st.prev_bsdf_delta,
+                                   st.active)
+
+    bsdf_flags = B.flags_of(scene.bsdfs, si.bsdf_index)
+    active_next = (st.depth + 1 < max_depth) & si.valid & st.active
+    active_em = active_next & B.has_flag(bsdf_flags, B.BSDFFlags.Smooth)
+
+    sampler, lr_dir, occl = _nee(
+        scene, si, st.sampler, active_em,
+        occl_cached=None if cached is None else cached["occl"])
+    lr_dir = st.beta * lr_dir
+
+    st2, _ = advance(st, si, sampler, scene.bsdfs, scene.static.bsdf_kinds,
+                     active_next, rr_depth)
+    L = st.L + torch.where(st.active[..., None], le + lr_dir, 0.0)
+    return replace(st2, L=L), {"pi": pi, "occl": occl}
 
 
 def init_state(sampler, ray: Ray, n: int) -> LoopState:
@@ -138,9 +167,47 @@ def init_state(sampler, ray: Ray, n: int) -> LoopState:
 
 
 def sample_primal(scene, sampler, ray: Ray, max_depth: int,
-                  rr_depth: int = 5):
+                  rr_depth: int = 5, multi_pop: int = 0):
     """Primal radiance estimate: (L (N, 3), valid (N,))."""
+    L, valid, _ = _primal(scene, sampler, ray, max_depth, rr_depth,
+                          multi_pop, record=False)
+    return L, valid
+
+
+def sample_primal_recorded(scene, sampler, ray: Ray, max_depth: int,
+                           rr_depth: int = 5, multi_pop: int = 0):
+    """Primal estimate that also records each bounce's traversal results
+    (:265-298).  Returns (L, valid, trace): ``trace`` holds ``pi``, a
+    PreliminaryIntersection of (D, N, ...) tensors, and ``occl`` (D, N),
+    stacked over the depth D; about 18 B a lane a bounce.  The replay
+    (``bounce(..., cached=...)``) then traverses nothing."""
+    return _primal(scene, sampler, ray, max_depth, rr_depth, multi_pop,
+                   record=True)
+
+
+def _primal(scene, sampler, ray, max_depth, rr_depth, multi_pop, record):
     st = init_state(sampler, ray, ray.o.shape[0])
+    recs = []
     for _ in range(max_depth):
-        st = bounce(scene, st, max_depth, rr_depth)
-    return st.L, st.depth > 0
+        st, rec = bounce(scene, st, max_depth, rr_depth,
+                         multi_pop=multi_pop)
+        if record:
+            recs.append(rec)
+    trace = None
+    if record:
+        pis = [r["pi"] for r in recs]
+        trace = {"pi": PreliminaryIntersection(
+            t=torch.stack([p.t for p in pis]),
+            prim_uv=torch.stack([p.prim_uv for p in pis]),
+            prim_index=torch.stack([p.prim_index for p in pis]),
+            valid=torch.stack([p.valid for p in pis])),
+            "occl": torch.stack([r["occl"] for r in recs])}
+    return st.L, st.depth > 0, trace
+
+
+def trace_at(trace: dict, i: int) -> dict:
+    """Bounce ``i``'s record of a stacked trace."""
+    pi = trace["pi"]
+    return {"pi": PreliminaryIntersection(
+        t=pi.t[i], prim_uv=pi.prim_uv[i], prim_index=pi.prim_index[i],
+        valid=pi.valid[i]), "occl": trace["occl"][i]}

@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..core import warp
+from ..ops.gather import take_rows
 from .records import BSDFSample
 
 
@@ -66,8 +67,8 @@ def gather_params(table: Dict[str, torch.Tensor], idx: torch.Tensor,
                   fields=("twosided", "reflectance")):
     """Per-lane parameters: each field (B, ...) -> (N, ...) at idx; lanes
     with idx -1 (no surface) read slot 0."""
-    safe = torch.clamp(idx, min=0).long()
-    return {k: table[k][safe] for k in fields}
+    safe = torch.clamp(idx, min=0)
+    return {k: take_rows(table[k], safe) for k in fields}
 
 
 def _diffuse_sample(p, wi, s1, s2):

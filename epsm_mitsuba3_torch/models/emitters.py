@@ -4,7 +4,8 @@ Emitter parameters live in one table.  Next-event estimation picks an
 emitter uniformly (pmf 1/E, scene.cpp:87) and samples a point on it with
 probability proportional to triangle area.  Triangle areas and their CDF
 are recomputed from the current vertices on every call, as in the
-reference, where vertex positions are optimization parameters.
+reference, where vertex positions are optimization parameters: every
+function here is differentiable w.r.t. the vertices and the radiance.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from ..core import math as m
 from ..core import warp
+from ..ops.gather import take_rows
 from .records import DirectionSample
 
 KIND_AREA = 0
@@ -30,9 +32,7 @@ def check_kinds(kinds_present: Tuple[int, ...]) -> None:
 
 
 def triangle_areas(vertices, faces):
-    p0 = vertices[faces[:, 0]]
-    p1 = vertices[faces[:, 1]]
-    p2 = vertices[faces[:, 2]]
+    p0, p1, p2 = (take_rows(vertices, faces[:, k]) for k in range(3))
     sn = m.squared_norm(m.cross(p1 - p0, p2 - p0))
     return 0.5 * torch.sqrt(torch.clamp(sn, min=1e-30))
 
@@ -44,7 +44,7 @@ def area_emitter_data(vertices, faces, em_faces):
     (cdf (E, Tmax) normalized, total_area (E,))."""
     valid = em_faces >= 0
     safe = torch.clamp(em_faces, min=0).long()
-    areas = triangle_areas(vertices, faces.long())[safe] * valid
+    areas = take_rows(triangle_areas(vertices, faces.long()), safe) * valid
     cdf = torch.cumsum(areas, dim=-1)
     total = cdf[:, -1]
     return m.safe_div(cdf, total[:, None]), total
@@ -78,15 +78,15 @@ def _area_sample(table, ref_p, s2, em_idx, vertices, faces, em_faces, cdf,
     """Area emitter direction sample by uniform-area mesh sampling
     (area.cpp:94-117 -> mesh.cpp:530-560)."""
     em = em_idx.long()
-    my_cdf = cdf[em]                                    # (N, Tmax)
+    my_cdf = take_rows(cdf, em)                         # (N, Tmax)
     u = s2[..., 0]
     # slot = #{i : cdf[i] <= u}, clipped to Tmax - 1
-    slot = torch.searchsorted(my_cdf, u[:, None].contiguous(),
+    slot = torch.searchsorted(my_cdf.detach(), u[:, None].contiguous(),
                               right=True)[:, 0]
     tmax = em_faces.shape[1]
     slot = torch.clamp(slot, 0, tmax - 1)
     face_id = torch.clamp(em_faces[em, slot], min=0).long()
-    tri = vertices[faces[face_id].long()]               # (N, 3, 3)
+    tri = take_rows(vertices, faces[face_id])           # (N, 3, 3)
     p0, p1, p2 = tri[:, 0], tri[:, 1], tri[:, 2]
     lo = torch.where(
         slot > 0,
@@ -104,11 +104,12 @@ def _area_sample(table, ref_p, s2, em_idx, vertices, faces, em_faces, cdf,
     dist = torch.sqrt(torch.clamp(dist2, min=1e-18))
     d = m.safe_div(dvec, dist[..., None])
     cos_em = m.dot(-d, nrm)
-    area = total_area[em]
+    area = take_rows(total_area, em)
     grazing_ok = cos_em > 1e-6
     denom_safe = torch.where(grazing_ok, cos_em * area, 1.0)
     pdf = torch.where(grazing_ok, dist2 / denom_safe, 0.0)
-    spec = torch.where((cos_em > 0.0)[..., None], table["radiance"][em], 0.0)
+    spec = torch.where((cos_em > 0.0)[..., None],
+                       take_rows(table["radiance"], em), 0.0)
     ds = DirectionSample(
         p=pos, n=nrm, uv=b, d=d, dist=dist, pdf=pdf,
         delta=torch.zeros_like(grazing_ok), emitter_index=em_idx)
@@ -124,7 +125,7 @@ def pdf_direction(table, kinds_present, ref_p, d, hit_emitter_idx, hit_p,
     n_em = table["kind"].shape[0]
     safe_idx = torch.clamp(hit_emitter_idx, min=0).long()
     _, total_area = area_emitter_data(vertices, faces, em_faces)
-    area = total_area[safe_idx]
+    area = take_rows(total_area, safe_idx)
     dist2 = m.squared_norm(hit_p - ref_p)
     cos_em = m.dot(-d, hit_n)
     pdf = torch.where(cos_em > 1e-7, m.safe_div(dist2, cos_em * area), 0.0)
@@ -138,7 +139,8 @@ def eval_hit(table, si_emitter_idx, wi_local_z):
     safe = torch.clamp(si_emitter_idx, min=0).long()
     vis = ((si_emitter_idx >= 0) & (table["kind"][safe] == KIND_AREA)
            & (wi_local_z > 0.0))
-    return torch.where(vis[..., None], table["radiance"][safe], 0.0)
+    return torch.where(vis[..., None], take_rows(table["radiance"], safe),
+                       0.0)
 
 
 def eval_env(table, kinds_present, d):

@@ -6,7 +6,7 @@ wavefront, including the EPSM per-hit triangle fields
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Optional
 
 import torch
@@ -94,6 +94,10 @@ class SurfaceInteraction:
 
     def to_local(self, v):
         return m.to_local(self.sh_n, self.sh_s, self.sh_t, v)
+
+    def detach(self) -> "SurfaceInteraction":
+        return SurfaceInteraction(**{f.name: getattr(self, f.name).detach()
+                                     for f in fields(self)})
 
     def to_world(self, v):
         return m.to_world(self.sh_n, self.sh_s, self.sh_t, v)

@@ -17,7 +17,7 @@ packages, so that both render the very same scene.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,9 +73,57 @@ class Scene:
     def device(self) -> torch.device:
         return self.vertices.device
 
+    # -- differentiable state (ad/prb.py split_scene / merge_scene) ---------
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        """The differentiable leaves by name: every float tensor of the
+        scene state, i.e. the float geometry fields, the float columns of
+        the BSDF and emitter tables (``bsdfs.<k>``, ``emitters.<k>``) and
+        each sensor's ``sensors.<i>.to_world``.  The BVH and its packed
+        records derive from the vertices and are no leaves."""
+        out = {k: getattr(self, k) for k in GEOMETRY_FIELDS
+               if getattr(self, k).is_floating_point()}
+        for prefix in ("bsdfs", "emitters"):
+            out.update({f"{prefix}.{k}": v
+                        for k, v in getattr(self, prefix).items()
+                        if v.is_floating_point()})
+        for i, sensor in enumerate(self.sensors):
+            out[f"sensors.{i}.to_world"] = sensor.to_world
+        return out
+
+    def with_leaves(self, leaves: Mapping[str, torch.Tensor]) -> "Scene":
+        """This scene with the named leaves replaced, values unchanged:
+        the BVH is kept as it is (a vertex edit goes through
+        ``set_vertices``)."""
+        kw = {k: v for k, v in leaves.items() if k in GEOMETRY_FIELDS}
+        for prefix in ("bsdfs", "emitters"):
+            table = dict(getattr(self, prefix))
+            table.update({k.split(".", 1)[1]: v for k, v in leaves.items()
+                          if k.startswith(prefix + ".")})
+            kw[prefix] = table
+        kw["sensors"] = tuple(
+            replace(s, to_world=leaves.get(f"sensors.{i}.to_world",
+                                           s.to_world))
+            for i, s in enumerate(self.sensors))
+        return replace(self, **kw)
+
+    def set_vertices(self, vertices: torch.Tensor) -> "Scene":
+        """The scene with its vertex buffer replaced, and its BVH refit and
+        its K2/K3 records re-packed from the (detached) new vertices
+        (``Scene.set_vertices``, models/scene.py:117-130).  A scene whose
+        BVH is left at the old geometry loses hits silently, so every
+        vertex edit goes through here; ``vertices`` may carry a
+        gradient."""
+        sc = replace(self, vertices=vertices)
+        if sc.bvh is None:
+            return sc
+        v = vertices.detach()
+        bvh = bvh_mod.refit(sc.bvh, v, sc.faces)
+        nodes, tris = CT.pack_bvh4(bvh, v, sc.faces)
+        return replace(sc, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris)
+
     # -- ray queries (scene.cpp:116-142) ------------------------------------
-    def ray_intersect_preliminary(self, ray: Ray):
-        return accel.ray_intersect(self, ray)
+    def ray_intersect_preliminary(self, ray: Ray, multi_pop: int = 0):
+        return accel.ray_intersect(self, ray, multi_pop=multi_pop)
 
     def ray_intersect(self, ray: Ray, ray_flags: int = RayFlags.All):
         from ..ops import intersect as I

@@ -2,8 +2,9 @@
 
 Scenes of at most ``BRUTE_FORCE_MAX_TRIS`` triangles, and scenes without
 a BVH, go to kernel K1 (brute force); every other scene goes through its
-BVH4 to kernels K2 (closest hit) and K3 (any hit).  On CPU tensors each
-kernel's plain version runs instead.
+BVH4 to kernels K2 (closest hit; K4 with the ``multi_pop`` schedule) and
+K3 (any hit).  On CPU tensors each kernel's plain version runs instead.
+Hit search is detached: gradients come from the surface interaction.
 """
 from __future__ import annotations
 
@@ -23,17 +24,24 @@ def use_brute_force(scene) -> bool:
 
 
 def _rays(ray: Ray):
-    return ray.o.contiguous(), ray.d.contiguous(), ray.maxt.contiguous()
+    return (ray.o.detach().contiguous(), ray.d.detach().contiguous(),
+            ray.maxt.detach().contiguous())
 
 
-def ray_intersect(scene, ray: Ray) -> PreliminaryIntersection:
+def _tris(scene):
+    return CI.pack_tris(scene.vertices.detach(), scene.faces)
+
+
+def ray_intersect(scene, ray: Ray, multi_pop: int = 0
+                  ) -> PreliminaryIntersection:
+    """Closest hits, detached.  ``multi_pop`` > 1 sends a BVH scene's
+    rays to K4 (K2 popping up to that many nodes an iteration)."""
     if use_brute_force(scene):
-        t, prim, u, v = CI.closest_hit(
-            CI.pack_tris(scene.vertices, scene.faces), *_rays(ray))
+        t, prim, u, v = CI.closest_hit(_tris(scene), *_rays(ray))
         valid = prim >= 0
     else:
         t, slot, u, v = CT.closest_hit(scene.bvh_nodes, scene.bvh_tris,
-                                       *_rays(ray))
+                                       *_rays(ray), multi_pop=multi_pop)
         valid = slot >= 0
         prim = scene.bvh.order[slot.clamp(min=0).long()]
     return PreliminaryIntersection(
@@ -43,6 +51,5 @@ def ray_intersect(scene, ray: Ray) -> PreliminaryIntersection:
 
 def ray_test(scene, ray: Ray) -> torch.Tensor:
     if use_brute_force(scene):
-        return CI.any_hit(CI.pack_tris(scene.vertices, scene.faces),
-                          *_rays(ray))
+        return CI.any_hit(_tris(scene), *_rays(ray))
     return CT.any_hit(scene.bvh_nodes, scene.bvh_tris, *_rays(ray))

@@ -1,5 +1,6 @@
-"""Kernels K2 and K3: BVH4 closest-hit and any-hit traversal, written in
-CUDA C++ for Hopper (counterpart of ``ops/pallas_traverse.py``).
+"""Kernels K2, K4 and K3: BVH4 closest-hit (single- and multi-pop) and
+any-hit traversal, written in CUDA C++ for Hopper (counterpart of
+``ops/pallas_traverse.py``).
 
 ``pack_bvh4`` packs a scene's BVH into the kernels' inputs once at load.
 ``closest_hit`` and ``any_hit`` take those and the rays.  On CUDA tensors
@@ -7,6 +8,8 @@ they launch the kernels of ``csrc/bvh_traverse.cu``, built with ``nvcc``
 at first use into ``_build/`` by ``ops/_native.py`` and loaded with
 ``ctypes``.  On CPU tensors they run the plain versions,
 ``ops/traverse.py`` ``bvh_ray_intersect_plain`` / ``bvh_ray_test_plain``.
+``closest_hit``'s ``multi_pop`` picks the schedule: 0 or 1 is K2, 2 or 4
+is K4 popping that many stack entries an iteration.
 
 Around the launch the rays may be sorted by a 30-bit 6-D Morton key of
 origin and direction (``sort_keys``) and the results un-sorted, as the
@@ -39,8 +42,15 @@ MAX_STACK = 64
 #: included, and 1.16 ms on rays sorted beforehand; K3 0.57, 3.55, 0.60
 SORT_RAYS = False
 
+#: ``closest_hit``'s schedule by default: 0 is K2, 2 or 4 is K4
+#: (``pallas_traverse.py`` ``MULTI_POP``, :79)
+MULTI_POP = 0
+#: the multi-pop widths K4 is compiled for
+K4_WIDTHS = (2, 4)
+
 #: launches of each kernel entry, counted where the launch happens
-launches = {"bvh4_closest_hit": 0, "bvh4_any_hit": 0}
+launches = {"bvh4_closest_hit": 0, "bvh4_closest_hit_mp": 0,
+            "bvh4_any_hit": 0}
 
 _lib = None
 _overflow = {}      # device -> int32 flag the kernels set
@@ -56,6 +66,9 @@ def build() -> ctypes.CDLL:
     lib.bvh4_closest_hit.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                      ptr, ptr, ptr, ptr, ptr, ptr]
     lib.bvh4_closest_hit.restype = i32
+    lib.bvh4_closest_hit_mp.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                        i32, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.bvh4_closest_hit_mp.restype = i32
     lib.bvh4_any_hit.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr,
                                  ptr, ptr]
     lib.bvh4_any_hit.restype = i32
@@ -137,7 +150,7 @@ def _flag(device) -> torch.Tensor:
 
 
 def raise_on_overflow(device) -> None:
-    """Raise ``traverse.StackOverflow`` if a K2/K3 launch on ``device``
+    """Raise ``traverse.StackOverflow`` if a K2/K3/K4 launch on ``device``
     ran out of stack since the last call, and clear the flag.  Waits for
     the device."""
     device = torch.device(device)
@@ -151,7 +164,7 @@ def raise_on_overflow(device) -> None:
             f"{T.STACK_SIZE} stack entries: its hits are incomplete")
 
 
-def _launch_closest(nodes, tri, o, d, maxt):
+def _launch_closest(nodes, tri, o, d, maxt, multi_pop):
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     slot = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -164,12 +177,18 @@ def _launch_closest(nodes, tri, o, d, maxt):
     with torch.cuda.device(o.device):
         flag = _flag(o.device)
         stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = lib.bvh4_closest_hit(
-            nodes.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
-            maxt.data_ptr(), n, cap, t.data_ptr(), u.data_ptr(),
-            v.data_ptr(), slot.data_ptr(), flag.data_ptr(), stream)
-    _native.check_launch(err, "bvh4_closest_hit")
-    launches["bvh4_closest_hit"] += 1
+        rays = (nodes.data_ptr(), tri.data_ptr(), o.data_ptr(),
+                d.data_ptr(), maxt.data_ptr(), n, cap)
+        hits = (t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
+                flag.data_ptr(), stream)
+        if multi_pop > 1:
+            entry = "bvh4_closest_hit_mp"
+            err = lib.bvh4_closest_hit_mp(*rays, multi_pop, *hits)
+        else:
+            entry = "bvh4_closest_hit"
+            err = lib.bvh4_closest_hit(*rays, *hits)
+    _native.check_launch(err, entry)
+    launches[entry] += 1
     return t, slot, u, v
 
 
@@ -192,19 +211,26 @@ def _launch_any(nodes, tri, o, d, maxt):
     return occ
 
 
-def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS):
-    """Closest hit of each ray through the BVH4.
+def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
+                multi_pop: int = MULTI_POP):
+    """Closest hit of each ray through the BVH4: K2, or K4 with
+    ``multi_pop`` in ``K4_WIDTHS``.  K4 finds K2's closest t; of two
+    triangles at the same t it may keep the other one.
 
     Returns (t (N,) +inf on a miss, slot (N,) int32 row of ``tri``, -1 on
     a miss, u, v (N,) 0 on a miss)."""
     _check(nodes, tri, o, d, maxt)
+    if multi_pop > 1 and multi_pop not in K4_WIDTHS:
+        raise ValueError(f"K4: multi_pop {multi_pop} is not one of "
+                         f"{K4_WIDTHS} (0 or 1 is K2)")
     if sort:
         perm = _morton_order(nodes, o, d, maxt)
         o, d, maxt = o[perm], d[perm], maxt[perm]
     if o.device.type == "cpu":
-        out = T.bvh_ray_intersect_plain(nodes, tri, o, d, maxt)
+        out = T.bvh_ray_intersect_plain(nodes, tri, o, d, maxt,
+                                        multi_pop=multi_pop)
     else:
-        out = _launch_closest(nodes, tri, o, d, maxt)
+        out = _launch_closest(nodes, tri, o, d, maxt, multi_pop)
     return tuple(_unsort(x, perm) for x in out) if sort else out
 
 

@@ -1,13 +1,13 @@
-"""The plain PyTorch versions of kernels K2 and K3 (counterparts of the
-traversal in ``ops/traverse.py`` and of ``ops/pallas_traverse.py``
-``_traverse_kernel`` / ``_anyhit_kernel``).
+"""The plain PyTorch versions of kernels K2, K3 and K4 (counterparts of
+the traversal in ``ops/traverse.py`` and of ``ops/pallas_traverse.py``
+``_traverse_kernel`` / ``_anyhit_kernel`` / ``_traverse_kernel_mp``).
 
 They take the kernels' inputs: the BVH4 node records ``nodes`` (n4, 32)
 of ``cuda_traverse.pack_bvh4``, the leaf-ordered triangles ``tri`` (F, 9)
 = rows [p0, e1, e2], and the rays ``o``, ``d`` (N, 3), ``maxt`` (N,).
 Each ray walks the tree with a stack of its own, and the walk is the
 kernels' one step for step, vectorised over the rays: one pop a lane per
-iteration.
+iteration (K4: up to P pops, visited in batch order).
 
 - Directions are clamped to +-1e-12 before the reciprocal.  A child box
   is entered when near <= far and far > 1e-6 (and, for the closest hit,
@@ -83,13 +83,63 @@ def _push_check(sp, npush):
             "entries")
 
 
-def bvh_ray_intersect_plain(nodes, tri, o, d, maxt, counts: bool = False):
-    """Closest hit through the BVH4 (K2's plain version).
+def _visit(nodes, tri, node, lanes, o, d, inv, t_best, slot, u, v, tests):
+    """K2's work at one popped node for each of ``lanes``: the leaf
+    children tested in child order (updating t_best, slot, u, v and
+    tests in place), then the inner children still entered.  Returns
+    (push (m, 4), rank (m, 4) far-first, near (m, 4), cid (m, 4))."""
+    rec = nodes[node]
+    oa, da = o[lanes], d[lanes]
+    near, far = _slab4(rec, oa, inv[lanes])
+    cid, cnt = rec[:, 0:4].long(), rec[:, 4:8].long()
+    enter = (near <= far) & (far > 1e-6)
+    tb = t_best[lanes]
+    for k in range(4):
+        sel = (enter[:, k] & (cnt[:, k] > 0)
+               & (near[:, k] < tb)).nonzero().squeeze(1)
+        if sel.numel() == 0:
+            continue
+        start, c = cid[sel, k], cnt[sel, k]
+        t, uu, vv, hit = _leaf_tests(tri, oa[sel], da[sel], start, c,
+                                     tb[sel])
+        tests[lanes[sel]] += c
+        tmin, jmin = torch.where(hit, t, _INF).min(dim=1)
+        found = hit.any(dim=1)
+        hits = lanes[sel][found]
+        jf = jmin[found][:, None]
+        t_best[hits] = tmin[found]
+        slot[hits] = start[found] + jmin[found]
+        u[hits] = uu[found].gather(1, jf).squeeze(1)
+        v[hits] = vv[found].gather(1, jf).squeeze(1)
+        tb = t_best[lanes]
+    push = enter & (cnt == 0) & (near < tb[:, None])
+    # rank of child k among the pushed ones, farthest first; equal keys
+    # keep child order
+    k4 = torch.arange(4, device=o.device)
+    before = push[:, :, None] & (
+        (near[:, :, None] > near[:, None, :])
+        | ((near[:, :, None] == near[:, None, :])
+           & (k4[:, None] < k4[None, :])))
+    return push, before.sum(dim=1), near, cid
+
+
+def bvh_ray_intersect_plain(nodes, tri, o, d, maxt, counts: bool = False,
+                            multi_pop: int = 0):
+    """Closest hit through the BVH4: K2's plain version, and with
+    ``multi_pop`` P > 1 K4's.
+
+    K4 pops ``npop = min(sp, P)`` entries at once: it reads the batch,
+    top first, before it visits any of them, because the pushes recycle
+    the popped region from ``sp0 = sp - npop``.  It then visits them in
+    batch order with K2's per-node work (the stale-entry cull against the
+    current t included), appending each node's far-first pushes at ``sp0
+    + pos``, ``pos`` the pushes of the batch so far.  P = 1 is K2's walk.
 
     Returns (t (N,) +inf on a miss, slot (N,) int32 index into ``tri``,
     -1 on a miss, u, v (N,) 0 on a miss); with ``counts``, also the
     per-ray node pops and triangle tests, (N,) int64 each."""
     n, dev = o.shape[0], o.device
+    batch = max(1, int(multi_pop))
     inv = _inv_dir(d)
     t_best = maxt.clone()
     slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
@@ -100,60 +150,34 @@ def bvh_ray_intersect_plain(nodes, tri, o, d, maxt, counts: bool = False):
     sp = torch.ones(n, dtype=torch.int64, device=dev)
     pops = torch.zeros(n, dtype=torch.int64, device=dev)
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
-    k4 = torch.arange(4, device=dev)
     while True:
         a = (sp > 0).nonzero().squeeze(1)
         if a.numel() == 0:
             break
-        top = sp[a] - 1
-        sp[a] = top
-        node, key = stack[a, top], keys[a, top]
-        live = key < t_best[a]                   # the stale-entry cull
-        a, node = a[live], node[live]
-        if a.numel() == 0:
-            continue
-        pops[a] += 1
-        rec = nodes[node]
-        oa, da = o[a], d[a]
-        near, far = _slab4(rec, oa, inv[a])
-        cid, cnt = rec[:, 0:4].long(), rec[:, 4:8].long()
-        enter = (near <= far) & (far > 1e-6)
-        tb = t_best[a]
-        for k in range(4):
-            sel = (enter[:, k] & (cnt[:, k] > 0)
-                   & (near[:, k] < tb)).nonzero().squeeze(1)
-            if sel.numel() == 0:
+        npop = sp[a].clamp(max=batch)
+        sp0 = sp[a] - npop
+        entries = [(stack[a, (sp0 + npop - 1 - i).clamp(min=0)],
+                    keys[a, (sp0 + npop - 1 - i).clamp(min=0)])
+                   for i in range(batch)]
+        pos = torch.zeros_like(sp0)
+        for i, (node, key) in enumerate(entries):
+            # the stale-entry cull, against t as it stands now
+            live = (i < npop) & (key < t_best[a])
+            lanes = a[live]
+            if lanes.numel() == 0:
                 continue
-            start, c = cid[sel, k], cnt[sel, k]
-            t, uu, vv, hit = _leaf_tests(tri, oa[sel], da[sel], start, c,
-                                         tb[sel])
-            tests[a[sel]] += c
-            tmin, jmin = torch.where(hit, t, _INF).min(dim=1)
-            found = hit.any(dim=1)
-            lanes = a[sel][found]
-            jf = jmin[found][:, None]
-            t_best[lanes] = tmin[found]
-            slot[lanes] = start[found] + jmin[found]
-            u[lanes] = uu[found].gather(1, jf).squeeze(1)
-            v[lanes] = vv[found].gather(1, jf).squeeze(1)
-            tb = t_best[a]
-        push = enter & (cnt == 0) & (near < tb[:, None])
-        if not bool(push.any()):
-            continue
-        # rank of child k among the pushed ones, farthest first; equal
-        # keys keep child order
-        before = push[:, :, None] & (
-            (near[:, :, None] > near[:, None, :])
-            | ((near[:, :, None] == near[:, None, :])
-               & (k4[:, None] < k4[None, :])))
-        rank = before.sum(dim=1)
-        npush = push.sum(dim=1)
-        _push_check(sp[a], npush)
-        rows = a[:, None].expand(-1, 4)[push]
-        pos = (sp[a][:, None] + rank)[push]
-        stack[rows, pos] = cid[push]
-        keys[rows, pos] = near[push]
-        sp[a] += npush
+            pops[lanes] += 1
+            push, rank, near, cid = _visit(nodes, tri, node[live], lanes, o,
+                                           d, inv, t_best, slot, u, v, tests)
+            npush = push.sum(dim=1)
+            base = sp0[live] + pos[live]
+            _push_check(base, npush)
+            rows = lanes[:, None].expand(-1, 4)[push]
+            at = (base[:, None] + rank)[push]
+            stack[rows, at] = cid[push]
+            keys[rows, at] = near[push]
+            pos[live] += npush
+        sp[a] = sp0 + pos
     valid = slot >= 0
     out = (torch.where(valid, t_best, _INF), slot.to(torch.int32), u, v)
     return out + (pops, tests) if counts else out

@@ -1,6 +1,6 @@
-"""Kernels K1, K2 and K3 on the card against their plain versions, at
-small and ragged shapes.  These tests need CUDA and nvcc; without a card
-they skip.
+"""Kernels K1, K2, K3 and K4 on the card against their plain versions, at
+small and ragged shapes, and a fwd+bwd gradient on the card against the
+CPU's.  These tests need CUDA and nvcc; without a card they skip.
 
 Run them on a GPU machine (the suite's conftest imports JAX, which the
 port does not need):
@@ -165,3 +165,50 @@ def test_bvh_render_cuda_matches_cpu(mesh_scene):
     diff = (img_c.cpu() - img_h).abs()
     assert float(diff.mean()) <= 1e-3 * float(img_h.mean())
     assert float((diff.amax(-1) <= 1e-3).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("multi_pop", [2, 4])
+@pytest.mark.parametrize("n_rays", [1, 129, 4133, 65536])
+def test_k4_kernel_equals_plain(mesh_scene, n_rays, multi_pop):
+    """K4 walks the plain version's order: every output equal; and K2's
+    t and valid."""
+    sc = mesh_scene
+    args = [x.to(sc.device) for x in _mesh_rays(n_rays, n_rays + 1)]
+    before = dict(CT.launches)
+    got = CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args,
+                         multi_pop=multi_pop)
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(sc.device)
+    assert (CT.launches["bvh4_closest_hit_mp"]
+            == before["bvh4_closest_hit_mp"] + 1)
+    assert CT.launches["bvh4_closest_hit"] == before["bvh4_closest_hit"]
+    plain = TR.bvh_ray_intersect_plain(sc.bvh_nodes, sc.bvh_tris, *args,
+                                       multi_pop=multi_pop)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    k2 = CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args)
+    assert torch.equal(got[0], k2[0])
+    assert torch.equal(got[1] >= 0, k2[1] >= 0)
+
+
+@pytest.mark.parametrize("scene_fn", [cornell_box, cornell_box_mesh])
+def test_grad_cuda_matches_cpu(cuda, scene_fn):
+    """The PRB gradient of reflectance, radiance and vertices on the card
+    equals the CPU's to 1e-3 relative (L2): vertex gradients are
+    scatter-adds with float atomics on the card."""
+    kw = dict(res=16, spp=2, max_depth=4)
+    if scene_fn is cornell_box_mesh:
+        kw["subdiv"] = 46
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        sc = mt.load_dict(scene_fn(**kw), device=dev)
+        lv = {k: v.clone().requires_grad_(True)
+              for k, v in sc.leaves().items()
+              if k in ("vertices", "normals", "bsdfs.reflectance",
+                       "emitters.radiance")}
+        img = mt.render(sc.with_leaves(lv), spp=2, seed=0, device=dev)
+        grads.append(torch.autograd.grad((img ** 2).mean(),
+                                         list(lv.values())))
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        assert float((a.cpu() - b).norm()) <= 1e-3 * float(b.norm()) + 1e-12
