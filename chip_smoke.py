@@ -498,14 +498,21 @@ def compare_k4(scene, o, d, maxt, n_brute=65536):
     return out
 
 
-def time_k4(scene, o, d, maxt, k4):
+def time_k4(scene, o, d, maxt, k4, k2_work):
     """ms a launch of K4 at each width, with K2 timed beside it in the
-    same call, and the bound of each on these rays from its plain
-    version's work counts."""
+    same call, and the bound of each on these rays.  K4 computes K2's
+    function, so the bound counts the fewer operations of K2's and K4's
+    plain work counts (``k2_work``: K2's pops and tests); K4's own
+    counts are printed beside it as the work its schedule does."""
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     nodes, tri = scene.bvh_nodes, scene.bvh_tris
     n = o.shape[0]
     n_bytes = 4 * (nodes.numel() + tri.numel()) + 28 * n + 16 * n
+
+    def ops_of(pops, tests):
+        return (pops * (4 * OPS_PER_SLAB + OPS_PER_ORDER)
+                + tests * FLOP_PER_TEST)
+
     out = {}
     for width in CT.K4_WIDTHS:
         ms = cuda_ms(lambda: CT.closest_hit(nodes, tri, o, d, maxt,
@@ -513,15 +520,18 @@ def time_k4(scene, o, d, maxt, k4):
         ms_k2 = cuda_ms(lambda: CT.closest_hit(nodes, tri, o, d, maxt,
                                                multi_pop=0), 20)
         pops, tests = k4[width]["work"]
-        ops = pops * (4 * OPS_PER_SLAB + OPS_PER_ORDER) + tests * FLOP_PER_TEST
+        ops = min(ops_of(*k2_work), ops_of(pops, tests))
         b_ms, by = bound_ms(n_bytes, ops)
         out[width] = dict(ms=ms, ms_k2=ms_k2, bound_ms=b_ms, bound_by=by,
-                          plain_ms=k4[width]["plain_ms"])
+                          plain_ms=k4[width]["plain_ms"],
+                          pops_per_ray=pops / n, tests_per_ray=tests / n)
         say(f"[time] K4 P={width} at {tri.shape[0]} tris x {n} rays: "
             f"{ms:.4f} ms a launch, K2 {ms_k2:.4f} ms in the same call; "
             f"plain version {k4[width]['plain_ms']:.1f} ms; bound "
-            f"{b_ms:.4f} ms by {by} ({pops / n:.2f} pops, {tests / n:.2f} "
-            "tests a ray)")
+            f"{b_ms:.4f} ms by {by} (the function's work: {ops / 1e9:.3f} "
+            f"G operations, {n_bytes / 1e6:.1f} MB); K4's own schedule "
+            f"{pops / n:.2f} pops, {tests / n:.2f} tests a ray against "
+            f"K2's {k2_work[0] / n:.2f} and {k2_work[1] / n:.2f}")
     return out
 
 
@@ -811,7 +821,7 @@ def main() -> int:
 
     # -- 5b. K4 against its plain version, K2 and the brute force ---------
     k4 = compare_k4(mesh, *rays_mesh)
-    k4_times = time_k4(mesh, *rays_mesh, k4)
+    k4_times = time_k4(mesh, *rays_mesh, k4, bvh["work"][:2])
     del rays_mesh
 
     # -- 6. the BVH slice at full width ------------------------------------
@@ -914,6 +924,8 @@ def main() -> int:
         "ms_p2": k4_times[2]["ms"], "plain_ms": v["plain_ms"],
         "plain_ms_p2": k4_times[2]["plain_ms"],
         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+        "schedule_pops_per_ray": v["pops_per_ray"],
+        "schedule_tests_per_ray": v["tests_per_ray"],
         "library_ms": None})
     say(json.dumps({"kernels": kernels}))
     say(f"[device] {gpu}")

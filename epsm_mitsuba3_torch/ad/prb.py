@@ -20,7 +20,7 @@ graph spans two bounces.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -29,7 +29,7 @@ from ..integrators import common, path as P
 from ..models import bsdf as B
 from ..models import emitters as E
 from ..models import films, samplers as smp
-from ..models.records import Ray, RayFlags
+from ..models.records import Ray
 from ..ops import intersect as I
 
 
@@ -68,18 +68,12 @@ def _replay_bounce(sc, leaves: Sequence[torch.Tensor], st: P.LoopState,
     gradient of sum(Lo * dL) w.r.t. each of ``leaves``, None where it
     does not reach one)."""
     with torch.enable_grad():
-        ray = Ray.make(st.ray_o, st.ray_d)
-        si = I.compute_surface_interaction(sc, ray, cached["pi"],
-                                           RayFlags.All)
-        le = st.beta * P._emitter_hit_le(sc, si, st.ray_d, st.prev_p,
-                                         st.prev_bsdf_pdf,
-                                         st.prev_bsdf_delta, st.active)
+        # the primal's hit stage, on the recorded hit: no traversal
+        _, si, le, active_next, active_em = P.hit_stage(sc, st, max_depth,
+                                                        cached=cached)
 
         # NEE, attached: the emitter point and the receiving point carry
         # the gradient; pdfs and the recorded visibility are detached
-        bsdf_flags = B.flags_of(sc.bsdfs, si.bsdf_index)
-        active_next = (st.depth + 1 < max_depth) & si.valid & st.active
-        active_em = active_next & B.has_flag(bsdf_flags, B.BSDFFlags.Smooth)
         sampler, s2 = smp.next_2d(st.sampler)
         ds, _ = E.sample_direction(
             sc.emitters, sc.static.emitter_kinds, si.p.detach(), s2,
@@ -180,13 +174,15 @@ class _RenderPRB(torch.autograd.Function):
 
 
 def render_prb(scene, seed: int = 0, sensor_idx: int = 0, spp: int = 16,
-               max_depth: int = 6, rr_depth: int = 5, multi_pop: int = 0,
-               reparam: bool = False, execution: str = "megakernel",
+               max_depth: int = 6, rr_depth: int = 5,
+               multi_pop: Optional[int] = None, reparam: bool = False,
+               execution: str = "megakernel",
                compact_chunks: int = 0) -> torch.Tensor:
     """One pass (``render_prb``): the (H, W, 3) image.  Where grad mode is
     on and a scene leaf requires grad, the pass records its trace and is
     differentiable through the replay; otherwise it is the detached
-    primal.  ``multi_pop``: the BVH closest hit's schedule (K2 or K4)."""
+    primal.  ``multi_pop``: the BVH closest hit's schedule (K2 or K4;
+    ``None`` leaves it to ``cuda_traverse.closest_hit``)."""
     if reparam:
         raise NotImplementedError(
             "reparam (prb_reparam) comes with a later slice of the port")

@@ -7,12 +7,14 @@ Each bounce issues one closest-hit query and one shadow-ray query for the
 whole wavefront (dead lanes carry zero-extent rays), and every lane draws
 from its sampler in the same order whether it is active or not — next_2d
 for NEE, next_1d and next_2d for the BSDF, next_1d for Russian roulette —
-so the streams stay in step with the reference.  A bounce given its
-recorded ``cached`` trace traverses nothing.
+so the streams stay in step with the reference.  ``hit_stage``, the part
+of a bounce the replay shares, traverses nothing when given a recorded
+``cached`` record.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
 import torch
 
@@ -57,23 +59,19 @@ def _emitter_hit_le(scene, si, ray_d, prev_p, prev_bsdf_pdf, prev_bsdf_delta,
     return mis[..., None] * le_surf + le_env
 
 
-def _nee(scene, si, sampler, active_em, occl_cached=None):
-    """Emitter sampling with visibility (epsm.py:585-605).  With
-    ``occl_cached`` (the recorded visibility) no shadow ray is traced.
-    Returns (sampler, lr_dir, occluded)."""
+def _nee(scene, si, sampler, active_em):
+    """Emitter sampling with visibility (epsm.py:585-605).  Returns
+    (sampler, lr_dir, occluded)."""
     sampler, s2 = smp.next_2d(sampler)
     ds, em_weight = E.sample_direction(
         scene.emitters, scene.static.emitter_kinds, si.p, s2,
         scene.vertices, scene.faces, scene.em_faces)
     active_em = active_em & (ds.pdf != 0.0)
-    if occl_cached is not None:
-        occluded = occl_cached
-    else:
-        # lanes with no NEE work carry zero-extent shadow rays
-        shadow_ray = si.spawn_ray(ds.d)
-        shadow_ray = shadow_ray.replace(
-            maxt=torch.where(active_em, ds.dist * (1.0 - 1e-3), 0.0))
-        occluded = scene.ray_test(shadow_ray)
+    # lanes with no NEE work carry zero-extent shadow rays
+    shadow_ray = si.spawn_ray(ds.d)
+    shadow_ray = shadow_ray.replace(
+        maxt=torch.where(active_em, ds.dist * (1.0 - 1e-3), 0.0))
+    occluded = scene.ray_test(shadow_ray)
     em_weight = torch.where((active_em & ~occluded)[..., None], em_weight,
                             0.0)
     wo = si.to_local(ds.d)
@@ -117,13 +115,15 @@ def advance(st: LoopState, si, sampler, bsdfs, bsdf_kinds, active_next,
     return st2, wo_world
 
 
-def bounce(scene, st: LoopState, max_depth: int, rr_depth: int,
-           cached: dict = None, multi_pop: int = 0):
-    """One path-tracing bounce of the whole wavefront.  Returns (state,
-    record): the record holds the hit ``pi`` and the shadow visibility
-    ``occl`` (``bounce`` :204-219).  Given a recorded ``cached`` record,
-    the bounce traverses nothing (:134-135).  ``multi_pop``: K2's
-    schedule for the closest hit (``ops/cuda_traverse.py``)."""
+def hit_stage(scene, st: LoopState, max_depth: int, cached: dict = None,
+              multi_pop: Optional[int] = None):
+    """The part of a bounce that the primal and the PRB replay share: the
+    hit, its surface interaction ``si``, the MIS-weighted emission ``le``
+    there, and the masks of the lanes that go on (``active_next``) and
+    that sample an emitter (``active_em``).  Given a recorded ``cached``
+    record the hit is read from it and nothing is traversed (:134-135).
+    ``multi_pop``: the closest hit's schedule (``ops/cuda_traverse.py``).
+    Returns (pi, si, le, active_next, active_em)."""
     ray = Ray.make(st.ray_o, st.ray_d,
                    maxt=torch.where(st.active, _INF, 0.0))
     if cached is not None:
@@ -140,10 +140,17 @@ def bounce(scene, st: LoopState, max_depth: int, rr_depth: int,
     bsdf_flags = B.flags_of(scene.bsdfs, si.bsdf_index)
     active_next = (st.depth + 1 < max_depth) & si.valid & st.active
     active_em = active_next & B.has_flag(bsdf_flags, B.BSDFFlags.Smooth)
+    return pi, si, le, active_next, active_em
 
-    sampler, lr_dir, occl = _nee(
-        scene, si, st.sampler, active_em,
-        occl_cached=None if cached is None else cached["occl"])
+
+def bounce(scene, st: LoopState, max_depth: int, rr_depth: int,
+           multi_pop: Optional[int] = None):
+    """One path-tracing bounce of the whole wavefront.  Returns (state,
+    record): the record holds the hit ``pi`` and the shadow visibility
+    ``occl`` (``bounce`` :204-219) that the replay reads back."""
+    pi, si, le, active_next, active_em = hit_stage(
+        scene, st, max_depth, multi_pop=multi_pop)
+    sampler, lr_dir, occl = _nee(scene, si, st.sampler, active_em)
     lr_dir = st.beta * lr_dir
 
     st2, _ = advance(st, si, sampler, scene.bsdfs, scene.static.bsdf_kinds,
@@ -167,7 +174,7 @@ def init_state(sampler, ray: Ray, n: int) -> LoopState:
 
 
 def sample_primal(scene, sampler, ray: Ray, max_depth: int,
-                  rr_depth: int = 5, multi_pop: int = 0):
+                  rr_depth: int = 5, multi_pop: Optional[int] = None):
     """Primal radiance estimate: (L (N, 3), valid (N,))."""
     L, valid, _ = _primal(scene, sampler, ray, max_depth, rr_depth,
                           multi_pop, record=False)
@@ -175,12 +182,13 @@ def sample_primal(scene, sampler, ray: Ray, max_depth: int,
 
 
 def sample_primal_recorded(scene, sampler, ray: Ray, max_depth: int,
-                           rr_depth: int = 5, multi_pop: int = 0):
+                           rr_depth: int = 5,
+                           multi_pop: Optional[int] = None):
     """Primal estimate that also records each bounce's traversal results
     (:265-298).  Returns (L, valid, trace): ``trace`` holds ``pi``, a
     PreliminaryIntersection of (D, N, ...) tensors, and ``occl`` (D, N),
     stacked over the depth D; about 18 B a lane a bounce.  The replay
-    (``bounce(..., cached=...)``) then traverses nothing."""
+    (``hit_stage(..., cached=...)``) then traverses nothing."""
     return _primal(scene, sampler, ray, max_depth, rr_depth, multi_pop,
                    record=True)
 

@@ -122,7 +122,8 @@ class Scene:
         return replace(sc, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris)
 
     # -- ray queries (scene.cpp:116-142) ------------------------------------
-    def ray_intersect_preliminary(self, ray: Ray, multi_pop: int = 0):
+    def ray_intersect_preliminary(self, ray: Ray,
+                                  multi_pop: Optional[int] = None):
         return accel.ray_intersect(self, ray, multi_pop=multi_pop)
 
     def ray_intersect(self, ray: Ray, ray_flags: int = RayFlags.All):

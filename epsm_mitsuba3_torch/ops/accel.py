@@ -8,6 +8,8 @@ Hit search is detached: gradients come from the surface interaction.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..models.records import PreliminaryIntersection, Ray
@@ -32,10 +34,11 @@ def _tris(scene):
     return CI.pack_tris(scene.vertices.detach(), scene.faces)
 
 
-def ray_intersect(scene, ray: Ray, multi_pop: int = 0
+def ray_intersect(scene, ray: Ray, multi_pop: Optional[int] = None
                   ) -> PreliminaryIntersection:
     """Closest hits, detached.  ``multi_pop`` > 1 sends a BVH scene's
-    rays to K4 (K2 popping up to that many nodes an iteration)."""
+    rays to K4 (K2 popping up to that many nodes an iteration); ``None``
+    leaves the choice to ``cuda_traverse.closest_hit``."""
     if use_brute_force(scene):
         t, prim, u, v = CI.closest_hit(_tris(scene), *_rays(ray))
         valid = prim >= 0

@@ -19,6 +19,7 @@ on the device instead of faulting; ``raise_on_overflow`` reads it.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -42,8 +43,8 @@ MAX_STACK = 64
 #: included, and 1.16 ms on rays sorted beforehand; K3 0.57, 3.55, 0.60
 SORT_RAYS = False
 
-#: ``closest_hit``'s schedule by default: 0 is K2, 2 or 4 is K4
-#: (``pallas_traverse.py`` ``MULTI_POP``, :79)
+#: ``closest_hit``'s schedule where no caller names one: 0 is K2, 2 or 4
+#: is K4 (``pallas_traverse.py`` ``MULTI_POP``, :79); read at each call
 MULTI_POP = 0
 #: the multi-pop widths K4 is compiled for
 K4_WIDTHS = (2, 4)
@@ -212,14 +213,17 @@ def _launch_any(nodes, tri, o, d, maxt):
 
 
 def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
-                multi_pop: int = MULTI_POP):
+                multi_pop: Optional[int] = None):
     """Closest hit of each ray through the BVH4: K2, or K4 with
-    ``multi_pop`` in ``K4_WIDTHS``.  K4 finds K2's closest t; of two
-    triangles at the same t it may keep the other one.
+    ``multi_pop`` in ``K4_WIDTHS``; ``None`` reads ``MULTI_POP``, the one
+    place the default is set.  K4 finds K2's closest t; of two triangles
+    at the same t it may keep the other one.
 
     Returns (t (N,) +inf on a miss, slot (N,) int32 row of ``tri``, -1 on
     a miss, u, v (N,) 0 on a miss)."""
     _check(nodes, tri, o, d, maxt)
+    if multi_pop is None:
+        multi_pop = MULTI_POP
     if multi_pop > 1 and multi_pop not in K4_WIDTHS:
         raise ValueError(f"K4: multi_pop {multi_pop} is not one of "
                          f"{K4_WIDTHS} (0 or 1 is K2)")

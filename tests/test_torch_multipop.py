@@ -92,6 +92,30 @@ def test_k4_wrapper_routes_and_rejects(mesh_scene):
         CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, o, d, maxt, multi_pop=3)
 
 
+def test_multi_pop_default_is_read_by_closest_hit(monkeypatch):
+    """With no ``multi_pop`` named, every layer from ``render`` and
+    ``render_prb`` down passes None and ``closest_hit`` reads
+    ``MULTI_POP`` at the call; a named width wins over it."""
+    from epsm_mitsuba3_torch.ad import prb as prb_t
+    sc = mt.load_dict(cornell_box_mesh(res=4, spp=1, max_depth=2,
+                                       subdiv=SUBDIV), device="cpu")
+    seen = []
+    plain = TT.bvh_ray_intersect_plain
+
+    def spy(*a, multi_pop=0, **kw):
+        seen.append(multi_pop)
+        return plain(*a, multi_pop=multi_pop, **kw)
+
+    monkeypatch.setattr(TT, "bvh_ray_intersect_plain", spy)
+    monkeypatch.setattr(CT, "MULTI_POP", 4)
+    mt.render(sc, spp=1, device="cpu")
+    prb_t.render_prb(sc, spp=1, max_depth=2)
+    assert seen and set(seen) == {4}
+    seen.clear()
+    mt.render(sc, spp=1, device="cpu", integrator={"multi_pop": 2})
+    assert seen and set(seen) == {2}
+
+
 def test_k4_plain_matches_pallas_k4_interpreted():
     """The JAX package's K4 (``_traverse_kernel_mp`` at P = 4), run in
     interpret mode: 1,058 triangles, 512 rays aimed at the mesh."""

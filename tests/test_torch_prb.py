@@ -208,8 +208,9 @@ def test_replay_traverses_nothing(monkeypatch):
 
 
 def test_cached_bounce_replays_the_recorded_pass(monkeypatch):
-    """``bounce(..., cached=)`` fed the recorded trace gives the recording
-    pass's radiance bit for bit, without a ray query."""
+    """The recorded trace holds each bounce's record, and ``hit_stage``
+    fed it (as the replay feeds it) gives the primal bounce's interaction,
+    emission and masks bit for bit, without a ray query."""
     st = mt.load_dict(cornell_box(res=8, spp=2, max_depth=DEPTH),
                       device="cpu")
     sampler = smp_t.seed(4, 8 * 8 * 2, device="cpu")
@@ -217,17 +218,30 @@ def test_cached_bounce_replays_the_recorded_pass(monkeypatch):
     L, valid, trace = path_t.sample_primal_recorded(st, sampler, ray, DEPTH)
     assert trace["occl"].shape == (DEPTH, 128)
     assert trace["pi"].prim_uv.shape == (DEPTH, 128, 2)
+    L_p, valid_p = path_t.sample_primal(st, sampler, ray, DEPTH)
+    assert torch.equal(L, L_p) and torch.equal(valid, valid_p)
+
+    # the primal's states and hit stages, bounce by bounce
+    states, stages = [path_t.init_state(sampler, ray, 128)], []
+    for i in range(DEPTH):
+        stages.append(path_t.hit_stage(st, states[-1], DEPTH))
+        states.append(path_t.bounce(st, states[-1], DEPTH, 5)[0])
+    assert torch.equal(states[-1].L, L)
 
     def no_query(*a, **kw):
         raise AssertionError("the replay traversed the scene")
 
     monkeypatch.setattr(accel, "ray_intersect", no_query)
     monkeypatch.setattr(accel, "ray_test", no_query)
-    state = path_t.init_state(sampler, ray, 128)
     for i in range(DEPTH):
-        state, _ = path_t.bounce(st, state, DEPTH, 5,
-                                 cached=path_t.trace_at(trace, i))
-    assert torch.equal(state.L, L) and torch.equal(state.depth > 0, valid)
+        pi, si, le, act_next, act_em = path_t.hit_stage(
+            st, states[i], DEPTH, cached=path_t.trace_at(trace, i))
+        pi_p, si_p, le_p, act_next_p, act_em_p = stages[i]
+        assert torch.equal(pi.prim_index, pi_p.prim_index)
+        assert torch.equal(si.p, si_p.p) and torch.equal(si.n, si_p.n)
+        assert torch.equal(le, le_p)
+        assert torch.equal(act_next, act_next_p)
+        assert torch.equal(act_em, act_em_p)
 
 
 def test_leaves_are_leaf_tensors():
