@@ -54,10 +54,13 @@ import subprocess
 import sys
 import time
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP32 flop/s
-#: outside the tensor cores
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; and FP32
+#: instructions/s outside the tensor cores: 132 SMs x 128 FP32 lanes x
+#: 1.98 GHz boost clock.  The data sheet's 67 TFLOP/s counts an FMA as two
+#: operations; the kernels are built with --fmad=false and the counts
+#: below count each multiply, add, min/max and compare as one.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_FP32_OPS_PER_S = 132 * 128 * 1.98e9
 #: float arithmetic of one ray-triangle test in K1: cross products 2 x 9,
 #: dot products 4 x 5, 1 reciprocal, 3 subtractions, 3 scalings, u + v
 FLOP_PER_TEST = 18 + 20 + 1 + 3 + 3 + 1
@@ -187,7 +190,7 @@ def anyhit_tests(tri, o, d, maxt, chunk=512):
 
 def bound_ms(n_bytes, n_flop):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_flop = n_flop / PEAK_FP32_FLOP_PER_S * 1e3
+    t_flop = n_flop / PEAK_FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_flop else (t_flop, "operations")
 
 
@@ -275,10 +278,11 @@ def compare_bvh(scene, o, d, maxt, n_brute=65536):
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     from epsm_mitsuba3_torch.ops import intersect as I
     from epsm_mitsuba3_torch.ops import traverse as TR
-    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+    nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
     order = scene.bvh.order.long()
-    t, slot, u, v = CT.closest_hit(nodes, tri, o, d, maxt)
-    occ = CT.any_hit(nodes, tri, o, d, maxt)
+    t, slot, u, v = CT.closest_hit(nodes, tri, o, d, maxt, tri_k=tri_k)
+    occ = CT.any_hit(nodes, tri, o, d, maxt, tri_k=tri_k)
+    ref = CT.closest_hit_reference(nodes, tri, o, d, maxt)
     torch.cuda.synchronize()
     CT.raise_on_overflow(o.device)
     say("[K2/K3] overflow flag: 0")
@@ -289,6 +293,15 @@ def compare_bvh(scene, o, d, maxt, n_brute=65536):
         lambda: TR.bvh_ray_test_plain(nodes, tri, o, d, maxt, counts=True))
     err = hold("K2/K3 vs plain, main-path rays", (t, slot, u, v, occ),
                (t_p, slot_p, u_p, v_p, occ_p))
+    plain = (t_p, slot_p, u_p, v_p, occ_p)
+    for label, got in (("K2/K3", (t, slot, u, v, occ)),
+                       ("reference (K2's former walk)", ref)):
+        diff = {k: int((a != b).sum()) for k, a, b in
+                zip(("t", "slot", "u", "v", "occ"), got, plain)}
+        say(f"[K2/K3] {label} against the plain versions, bit for bit on "
+            f"{o.shape[0]} rays: lanes differing {diff}  [limit 0 each]")
+        check(sum(diff.values()) == 0, f"{label} differs from its plain "
+              f"version: {diff}")
 
     def prim_of(s):
         return torch.where(s >= 0, order[s.clamp(min=0).long()], -1)
@@ -310,43 +323,255 @@ def compare_bvh(scene, o, d, maxt, n_brute=65536):
                       int(tests_a.sum())))
 
 
-def time_bvh(scene, o, d, maxt, plain_ms, work):
-    """ms a launch of K2 and K3, rays unsorted and Morton-sorted (the
-    sort and un-sort included), the traversal alone on pre-sorted rays,
-    and each entry's bound on these rays from the plain versions' work
-    counts."""
+def _ref_sorting(nodes, tri):
+    """The reference (K2's former walk) as ``closest_hit`` calls a kernel:
+    ``sort`` Morton-sorts the rays first and un-sorts the results."""
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
-    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+
+    def call(o, d, maxt, sort):
+        if not sort:
+            return CT.closest_hit_reference(nodes, tri, o, d, maxt)
+        p = CT._morton_order(nodes, o, d, maxt)
+        out = CT.closest_hit_reference(nodes, tri, o[p], d[p], maxt[p])
+        return tuple(CT._unsort(x, p) for x in out)
+    return call
+
+
+ORDERS = ("unsorted", "sorted", "presorted")
+
+
+def time_bvh(scene, o, d, maxt, plain_ms, work, k4):
+    """ms a launch of K2, the reference (K2's former walk), K3 and K4 at
+    P = 2 and 4, each with the rays unsorted, Morton-sorted (the sort and
+    un-sort included) and pre-sorted (the traversal alone on rays already
+    in Morton order), timed in two rounds, the second in reverse order,
+    and averaged; and each entry's bound on these rays from the plain
+    versions' work counts.  K4 and the reference compute K2's function, so
+    their bound is K2's; K4's own schedule's pops and tests are printed
+    beside it."""
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
     n = o.shape[0]
     tree = 4 * (nodes.numel() + tri.numel())
     pops, tests, pops_a, tests_a = work
+    ops_c = (pops * (4 * OPS_PER_SLAB + OPS_PER_ORDER)
+             + tests * FLOP_PER_TEST)
+    ops_a = pops_a * 4 * OPS_PER_SLAB + tests_a * FLOP_PER_TEST
     perm = CT._morton_order(nodes, o, d, maxt)
-    pre = (o[perm].contiguous(), d[perm].contiguous(), maxt[perm].contiguous())
+    pre = (o[perm].contiguous(), d[perm].contiguous(),
+           maxt[perm].contiguous())
+
+    def k4_of(width):
+        return lambda o_, d_, m_, s_: CT.closest_hit(
+            nodes, tri, o_, d_, m_, sort=s_, multi_pop=width)
+
+    entries = {
+        "bvh4_closest_hit": (lambda o_, d_, m_, s_: CT.closest_hit(
+            nodes, tri, o_, d_, m_, sort=s_, tri_k=tri_k), 16 * n, ops_c,
+            plain_ms[0]),
+        "bvh4_closest_hit_ref": (_ref_sorting(nodes, tri), 16 * n, ops_c,
+                                 plain_ms[0]),
+        "bvh4_any_hit": (lambda o_, d_, m_, s_: CT.any_hit(
+            nodes, tri, o_, d_, m_, sort=s_, tri_k=tri_k), n, ops_a,
+            plain_ms[1]),
+        "bvh4_closest_hit_mp P=2": (k4_of(2), 16 * n, ops_c,
+                                    k4[2]["plain_ms"]),
+        "bvh4_closest_hit_mp P=4": (k4_of(4), 16 * n, ops_c,
+                                    k4[4]["plain_ms"]),
+    }
+    cases = [(name, kind) for name in entries for kind in ORDERS]
+    runs = {c: [] for c in cases}
+    for seq in (cases, cases[::-1]):
+        for name, kind in seq:
+            fn = entries[name][0]
+            args = (*pre, False) if kind == "presorted" else (
+                o, d, maxt, kind == "sorted")
+            runs[(name, kind)].append(cuda_ms(lambda: fn(*args), 20))
     out = {}
-    default = CT.SORT_RAYS
-    for name, fn, out_bytes, ops, p_ms in (
-            ("bvh4_closest_hit", CT.closest_hit, 16 * n,
-             pops * (4 * OPS_PER_SLAB + OPS_PER_ORDER)
-             + tests * FLOP_PER_TEST, plain_ms[0]),
-            ("bvh4_any_hit", CT.any_hit, n,
-             pops_a * 4 * OPS_PER_SLAB + tests_a * FLOP_PER_TEST,
-             plain_ms[1])):
-        ms = {srt: cuda_ms(lambda: fn(nodes, tri, o, d, maxt, sort=srt), 20)
-              for srt in (False, True)}
-        # the traversal alone on rays already in Morton order
-        ms_pre = cuda_ms(lambda: fn(nodes, tri, *pre, sort=False), 20)
+    for name, (_, out_bytes, ops, p_ms) in entries.items():
+        ms = {kind: sum(runs[(name, kind)]) / 2 for kind in ORDERS}
         n_bytes = tree + 28 * n + out_bytes
         b_ms, by = bound_ms(n_bytes, ops)
-        out[name] = dict(ms=ms[default], ms_unsorted=ms[False],
-                         ms_sorted=ms[True], ms_presorted=ms_pre,
-                         plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                         sort=default)
+        out[name] = dict(
+            ms=ms["sorted" if CT.SORT_RAYS else "unsorted"],
+            ms_unsorted=ms["unsorted"], ms_sorted=ms["sorted"],
+            ms_presorted=ms["presorted"],
+            rounds={kind: runs[(name, kind)] for kind in ORDERS},
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
         say(f"[time] {name} at {tri.shape[0]} tris x {n} rays: unsorted "
-            f"{ms[False]:.4f} ms, Morton-sorted {ms[True]:.4f} ms (sort "
-            f"included; default {'sorted' if default else 'unsorted'}), "
-            f"on pre-sorted rays {ms_pre:.4f} ms; plain version "
+            f"{ms['unsorted']:.4f} ms, Morton-sorted {ms['sorted']:.4f} ms "
+            f"(sort included), pre-sorted {ms['presorted']:.4f} ms "
+            f"(rounds {runs[(name, 'unsorted')]}, unsorted); plain version "
             f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {by} ({ops / 1e9:.3f} "
             f"G operations, {n_bytes / 1e6:.1f} MB)")
+    for width in CT.K4_WIDTHS:
+        kp, kt = k4[width]["work"]
+        say(f"[time] K4 P={width}: its own schedule {kp / n:.2f} pops, "
+            f"{kt / n:.2f} tests a ray against K2's {pops / n:.2f} and "
+            f"{tests / n:.2f}")
+    k2, ref = out["bvh4_closest_hit"], out["bvh4_closest_hit_ref"]
+    say(f"[speed] new K2 / reference, unsorted: "
+        f"{k2['ms_unsorted'] / ref['ms_unsorted']:.3f} (aim <= 0.8); new K3 "
+        f"{out['bvh4_any_hit']['ms_unsorted']:.4f} ms (aim <= 0.46)")
+    return out
+
+
+def variants():
+    """The K2/K3 launches timed beside the main path's: the design steps
+    (``cuda_traverse.STEPS``) and the alternatives of step 3's
+    schedule."""
+    from dataclasses import replace
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    main = CT.SCHEDULE
+    out = {f"step {k}": v for k, v in CT.STEPS.items()}
+    out.update({
+        "step 1+2, rows padded to 48 B": CT.Schedule(
+            "pad", 128, False, False, False),
+        "step 1+2+3 at 512 threads": replace(main, threads=512),
+        "step 1+2+3 at 768 threads": replace(main, threads=768),
+        "step 1+2+3, static stride": replace(main, counter=False),
+        "step 1+2+3, rows padded to 48 B": replace(main, layout="pad"),
+        "step 1+2+3 without the shared top (R = 0)": replace(
+            main, shared=False)})
+    return out
+
+
+def time_steps(scene, o, d, maxt):
+    """ms a launch of K2 and K3 under each of ``variants()`` on the rays
+    unsorted and pre-sorted, in two rounds (the second reversed); each
+    variant's hits must equal the main path's bit for bit."""
+    import torch
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+    perm = CT._morton_order(nodes, o, d, maxt)
+    pre = (o[perm].contiguous(), d[perm].contiguous(),
+           maxt[perm].contiguous())
+    main = (*CT.launch_closest(nodes, scene.bvh_tris_k, o, d, maxt),
+            CT.launch_any(nodes, scene.bvh_tris_k, o, d, maxt))
+    vs = variants()
+    layouts = {v.layout: CT.kernel_tris(tri, v.layout) for v in vs.values()}
+    for name, v in vs.items():
+        tk = layouts[v.layout]
+        got = (*CT.launch_closest(nodes, tk, o, d, maxt, v),
+               CT.launch_any(nodes, tk, o, d, maxt, v))
+        check(all(torch.equal(a, b) for a, b in zip(got, main)),
+              f"K2/K3 {name} differs from the main path's launch")
+    cases = [(name, k, kind) for name in vs for k in ("K2", "K3")
+             for kind in ("unsorted", "presorted")]
+    runs = {c: [] for c in cases}
+    for seq in (cases, cases[::-1]):
+        for name, k, kind in seq:
+            v = vs[name]
+            fn = CT.launch_closest if k == "K2" else CT.launch_any
+            rays = pre if kind == "presorted" else (o, d, maxt)
+            runs[(name, k, kind)].append(cuda_ms(
+                lambda: fn(nodes, layouts[v.layout], *rays, v), 20))
+    out = {}
+    for name, v in vs.items():
+        ms = {f"{k} {kind}": sum(runs[(name, k, kind)]) / 2
+              for k in ("K2", "K3") for kind in ("unsorted", "presorted")}
+        out[name] = ms
+        say(f"[steps] {name} ({v.layout}, {v.threads} threads, "
+            f"{'persistent' if v.persistent else 'one block per rays'}, "
+            f"{'atomic batches' if v.counter else 'static stride'}, "
+            f"{'top in shared memory' if v.shared else 'R = 0'}): "
+            + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items())
+            + "; hits equal the main path's")
+    return out
+
+
+def lane_utilisation(scene, o, d, maxt):
+    """Active lane-steps over 32 x warp-steps in the traversal loop and in
+    the leaf tests, from the counting builds of the main path's K2 and of
+    the reference, whose hits must equal the uncounted ones."""
+    import torch
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+    out = {}
+    for name, fn, plain in (
+            ("K2", lambda c: CT.launch_closest(nodes, scene.bvh_tris_k, o, d,
+                                               maxt, counts=c),
+             lambda: CT.launch_closest(nodes, scene.bvh_tris_k, o, d, maxt)),
+            ("reference", lambda c: CT.closest_hit_reference(
+                nodes, tri, o, d, maxt, counts=c),
+             lambda: CT.closest_hit_reference(nodes, tri, o, d, maxt))):
+        counts = torch.zeros(4, dtype=torch.int64, device=o.device)
+        got = fn(counts)
+        check(all(torch.equal(a, b) for a, b in zip(got, plain())),
+              f"the counting {name} differs from the uncounted one")
+        steps, active, lsteps, lactive = (int(x) for x in counts.tolist())
+        out[name] = dict(traversal=active / (32 * steps),
+                         leaf=lactive / (32 * lsteps),
+                         traversal_steps=steps, leaf_steps=lsteps)
+        say(f"[lanes] {name}: traversal {active / (32 * steps):.3f} of the "
+            f"lanes in {steps} warp-steps, leaf tests "
+            f"{lactive / (32 * lsteps):.3f} in {lsteps} warp-steps "
+            f"({o.shape[0]} rays)")
+    return out
+
+
+def render_rays(scene, spp):
+    """Record the rays one ``spp`` pass hands to ``closest_hit`` and
+    ``any_hit`` (wrapped here, not in the package); then, on each depth's
+    batch, time the main path's K2 against the reference and K3 (two
+    rounds, the second reversed), and check K2 against the reference and
+    K3 against the reference's valid, bit for bit."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    rec = {"closest": [], "any": []}
+    orig = CT.closest_hit, CT.any_hit
+
+    def keep(kind, fn):
+        def call(nodes, tri, o, d, maxt, **kw):
+            rec[kind].append((o.clone(), d.clone(), maxt.clone()))
+            return fn(nodes, tri, o, d, maxt, **kw)
+        return call
+
+    CT.closest_hit = keep("closest", orig[0])
+    CT.any_hit = keep("any", orig[1])
+    try:
+        mt.render(scene, spp=spp, seed=5)
+    finally:
+        CT.closest_hit, CT.any_hit = orig
+    torch.cuda.synchronize()
+    nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
+    check(len(rec["closest"]) == DEPTH and len(rec["any"]) == DEPTH,
+          f"a pass made {len(rec['closest'])} closest-hit and "
+          f"{len(rec['any'])} any-hit calls, expected {DEPTH} each")
+    out = []
+    for depth, (c, a) in enumerate(zip(rec["closest"], rec["any"])):
+        k2 = CT.launch_closest(nodes, tri_k, *c)
+        ref = CT.closest_hit_reference(nodes, tri, *c)
+        occ = CT.launch_any(nodes, tri_k, *a)
+        occ_ref = CT.closest_hit_reference(nodes, tri, *a)[1] >= 0
+        check(all(torch.equal(x, y) for x, y in zip(k2, ref))
+              and torch.equal(occ, occ_ref),
+              f"depth {depth}: K2/K3 differ from the reference")
+        calls = {"K2": lambda: CT.launch_closest(nodes, tri_k, *c),
+                 "reference": lambda: CT.closest_hit_reference(
+                     nodes, tri, *c),
+                 "K3": lambda: CT.launch_any(nodes, tri_k, *a)}
+        runs = {k: [] for k in calls}
+        for seq in (list(calls), list(calls)[::-1]):
+            for k in seq:
+                runs[k].append(cuda_ms(calls[k], 10))
+        ms = {k: sum(v) / 2 for k, v in runs.items()}
+        live_c = int((c[2] > 1e-6).sum())
+        live_a = int((a[2] > 1e-6).sum())
+        row = dict(depth=depth, rays=c[0].shape[0], live_closest=live_c,
+                   live_any=live_a, hits=int((k2[1] >= 0).sum()),
+                   occluded=int(occ.sum()), **{f"{k}_ms": v
+                                               for k, v in ms.items()})
+        out.append(row)
+        say(f"[render rays] depth {depth}: {c[0].shape[0]} rays ({live_c} "
+            f"live, {row['hits']} hits) K2 {ms['K2']:.4f} ms, reference "
+            f"{ms['reference']:.4f} ms ({ms['K2'] / ms['reference']:.3f}); "
+            f"{live_a} live shadow rays ({row['occluded']} occluded) K3 "
+            f"{ms['K3']:.4f} ms; bit for bit equal to the reference")
+    slower = [r["depth"] for r in out if r["K2_ms"] > r["reference_ms"]]
+    say(f"[speed] render rays: K2 slower than the reference at depths "
+        f"{slower or 'none'}")
     return out
 
 
@@ -495,43 +720,6 @@ def compare_k4(scene, o, d, maxt, n_brute=65536):
         out[width] = dict(err=err, err_brute=err_b[0], ties=ties,
                           plain_ms=plain_ms,
                           work=(int(pops.sum()), int(tests.sum())))
-    return out
-
-
-def time_k4(scene, o, d, maxt, k4, k2_work):
-    """ms a launch of K4 at each width, with K2 timed beside it in the
-    same call, and the bound of each on these rays.  K4 computes K2's
-    function, so the bound counts the fewer operations of K2's and K4's
-    plain work counts (``k2_work``: K2's pops and tests); K4's own
-    counts are printed beside it as the work its schedule does."""
-    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
-    nodes, tri = scene.bvh_nodes, scene.bvh_tris
-    n = o.shape[0]
-    n_bytes = 4 * (nodes.numel() + tri.numel()) + 28 * n + 16 * n
-
-    def ops_of(pops, tests):
-        return (pops * (4 * OPS_PER_SLAB + OPS_PER_ORDER)
-                + tests * FLOP_PER_TEST)
-
-    out = {}
-    for width in CT.K4_WIDTHS:
-        ms = cuda_ms(lambda: CT.closest_hit(nodes, tri, o, d, maxt,
-                                            multi_pop=width), 20)
-        ms_k2 = cuda_ms(lambda: CT.closest_hit(nodes, tri, o, d, maxt,
-                                               multi_pop=0), 20)
-        pops, tests = k4[width]["work"]
-        ops = min(ops_of(*k2_work), ops_of(pops, tests))
-        b_ms, by = bound_ms(n_bytes, ops)
-        out[width] = dict(ms=ms, ms_k2=ms_k2, bound_ms=b_ms, bound_by=by,
-                          plain_ms=k4[width]["plain_ms"],
-                          pops_per_ray=pops / n, tests_per_ray=tests / n)
-        say(f"[time] K4 P={width} at {tri.shape[0]} tris x {n} rays: "
-            f"{ms:.4f} ms a launch, K2 {ms_k2:.4f} ms in the same call; "
-            f"plain version {k4[width]['plain_ms']:.1f} ms; bound "
-            f"{b_ms:.4f} ms by {by} (the function's work: {ops / 1e9:.3f} "
-            f"G operations, {n_bytes / 1e6:.1f} MB); K4's own schedule "
-            f"{pops / n:.2f} pops, {tests / n:.2f} tests a ray against "
-            f"K2's {k2_work[0] / n:.2f} and {k2_work[1] / n:.2f}")
     return out
 
 
@@ -816,13 +1004,13 @@ def main() -> int:
     rays_mesh = main_path_rays(mesh, gen, MESH_CHUNK)
     bvh = compare_bvh(mesh, *rays_mesh)
 
-    # -- 5. K2/K3 times ------------------------------------------------------
-    bvh_times = time_bvh(mesh, *rays_mesh, bvh["plain_ms"], bvh["work"])
-
-    # -- 5b. K4 against its plain version, K2 and the brute force ---------
+    # -- 5. K4 against its plain version, K2 and the brute force; times ------
     k4 = compare_k4(mesh, *rays_mesh)
-    k4_times = time_k4(mesh, *rays_mesh, k4, bvh["work"][:2])
+    bvh_times = time_bvh(mesh, *rays_mesh, bvh["plain_ms"], bvh["work"], k4)
+    steps = time_steps(mesh, *rays_mesh)
+    lanes = lane_utilisation(mesh, *rays_mesh)
     del rays_mesh
+    per_depth = render_rays(mesh, MESH_CHUNK)
 
     # -- 6. the BVH slice at full width ------------------------------------
     n_mesh = MESH_SPP // MESH_CHUNK
@@ -900,8 +1088,9 @@ def main() -> int:
             "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None})
-    for i, (k, line) in enumerate((("bvh4_closest_hit", 164),
-                                   ("bvh4_any_hit", 446))):
+    ref = bvh_times["bvh4_closest_hit_ref"]
+    for i, (k, line, kk) in enumerate((("bvh4_closest_hit", 164, "K2"),
+                                       ("bvh4_any_hit", 446, "K3"))):
         v = bvh_times[k]
         kernels.append({
             "name": k, "route": "cuda",
@@ -912,20 +1101,34 @@ def main() -> int:
             "ms_sorted": v["ms_sorted"], "ms_presorted": v["ms_presorted"],
             "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-            "library_ms": None})
-    v = k4_times[4]
+            "library_ms": None,
+            "steps_ms": {n: {kind.split(" ", 1)[1]: t
+                             for kind, t in ms.items()
+                             if kind.startswith(kk)}
+                         for n, ms in steps.items()},
+            "render_rays_ms": [r[f"{kk}_ms"] for r in per_depth]})
+    kernels[2].update({
+        "reference_ms": ref["ms_unsorted"],
+        "reference_ms_sorted": ref["ms_sorted"],
+        "reference_ms_presorted": ref["ms_presorted"],
+        "reference_render_rays_ms": [r["reference_ms"] for r in per_depth],
+        "lane_utilisation": lanes})
+    v, v2 = bvh_times["bvh4_closest_hit_mp P=4"], bvh_times[
+        "bvh4_closest_hit_mp P=2"]
     kernels.append({
         "name": "bvh4_closest_hit_mp", "route": "cuda",
         "source": "epsm_mitsuba3_torch/csrc/bvh_traverse.cu",
         "replaces": "epsm_mitsuba3_tpu/ops/pallas_traverse.py:308",
         "multi_pop": 4, "launches": train_mp["bvh4_closest_hit_mp"],
         "max_abs_err": k4[4]["err"], "tie_rays": k4[4]["ties"],
-        "ms": v["ms"], "ms_k2_same_call": v["ms_k2"],
-        "ms_p2": k4_times[2]["ms"], "plain_ms": v["plain_ms"],
-        "plain_ms_p2": k4_times[2]["plain_ms"],
+        "ms": v["ms"], "ms_sorted": v["ms_sorted"],
+        "ms_presorted": v["ms_presorted"],
+        "ms_p2": v2["ms"], "ms_p2_sorted": v2["ms_sorted"],
+        "ms_p2_presorted": v2["ms_presorted"], "plain_ms": v["plain_ms"],
+        "plain_ms_p2": v2["plain_ms"],
         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-        "schedule_pops_per_ray": v["pops_per_ray"],
-        "schedule_tests_per_ray": v["tests_per_ray"],
+        "schedule_pops_per_ray": k4[4]["work"][0] / (RES * RES * MESH_CHUNK),
+        "schedule_tests_per_ray": k4[4]["work"][1] / (RES * RES * MESH_CHUNK),
         "library_ms": None})
     say(json.dumps({"kernels": kernels}))
     say(f"[device] {gpu}")

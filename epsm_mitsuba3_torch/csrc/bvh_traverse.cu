@@ -10,32 +10,51 @@
 //
 // What bounds it: the work is data-dependent, node pops and triangle tests
 // a ray.  On the main path (64,812 triangles, camera, bounce and shadow
-// rays) a ray reads 44 bytes of ray and hit, against a few thousand FP32
+// rays) a ray reads 44 bytes of ray and hit against a few thousand FP32
 // operations of slab and Moeller-Trumbore tests, so the FP32 issue rate
-// bounds it: the tree (1.4k records of 128 B, 182 KB) and the leaf-ordered
-// triangles (2.3 MB) stay in the 50 MB L2.  In practice divergence bounds
-// it first: the 32 rays of a warp walk different paths and the warp runs
-// the union of them.
+// bounds the function: the tree (1.4k records of 128 B, 182 KB) and the
+// leaf-ordered triangles (2.3 MB) stay in the 50 MB L2.  What held the
+// one-thread-a-ray walk back was latency, not divergence: a live ray
+// tests ~10 triangles of fat leaves of up to 32, one after another, each
+// 9 scattered 4-byte loads, and every pop waits on a record from L2.
 //
-// Design: one thread per ray, each with its own stack of up to 64 entries
-// in local memory (the TPU's shared packet stack and sub-block culling
-// exist because TPU lanes cannot index memory one by one; they do not
-// carry over).  A node record is read as eight 16-byte loads through the
-// read-only path.  The four child boxes are slab-tested at the pop; leaf
-// children are tested there, up to `count` triangles from `start`; inner
-// children still entered are pushed far-first, each keyed by its near
-// distance, and a popped entry whose key is not below the ray's current t
-// is skipped (the stale-entry cull of :222-225, per ray).  A push past the
-// stack sets *overflow and is dropped; the wrapper reads the flag.  The
-// any-hit entry stops a ray at its first hit.  The Moeller-Trumbore test
-// is K1's (mt_test.cuh); built with --fmad=false, with NaN-propagating
-// min/max as torch.minimum/maximum, the kernels round as the plain
-// versions do.  Ray order is left to the wrapper (Morton sort or none).
+// Design (K2 and K3): one lane a ray, with its own stack of up to 64
+// entries in local memory, walking the tree in the plain version's order:
+// pop, stale-entry cull (a popped key not below the ray's current t is
+// skipped), slab test of the record's 4 child boxes, then the inner
+// children still entered pushed far-first, each keyed by its near
+// distance.  Between the slab test and the pushes the warp tests leaves
+// together: for each lane with leaf children entered (a ballot), in lane
+// order, its children in child order, 32 triangles at a time, one a lane,
+// against the owner's ray and t broadcast by shuffles.  A leaf's rows are
+// contiguous (leaf order), and the kernels read them as 9 columns of F
+// floats, so a chunk's loads coalesce.  The closest hit reduces each chunk
+// with __reduce_min_sync on the bits of t (positive or +inf, so they order
+// as unsigned ints) and takes the lowest lane at that t: the first of
+// equal hits, as the plain version's min over a leaf and the serial loop
+// give, since a later triangle at an equal t never passes t < best.  The
+// any hit ends the owner's ray at the first chunk with a hit (__any_sync).
+// Every lane stays in the loop until the warp's rays are done: exited
+// lanes would break the full-mask shuffles.  The grid is persistent
+// (blocks per SM from the occupancy calculator), warps take batches of 32
+// rays from an atomic counter, and each block first copies the records
+// [0, R) into shared memory with one bulk copy (cp.async.bulk and an
+// mbarrier).  Records are in breadth-first order, so [0, R) is the top of
+// the tree and every child id exceeds its parent's; records >= R are read
+// from global memory.  R is a launch argument, from the block's
+// shared-memory budget.  A push past the stack sets *overflow and is
+// dropped; the wrapper reads the flag.  The Moeller-Trumbore test is K1's
+// (mt_test.cuh); built with --fmad=false, with NaN-propagating min/max as
+// torch.minimum/maximum, the kernels round as the plain versions do.
+// Ray order is left to the wrapper (Morton sort or none).
 //
-// K4 exists on the TPU to shorten the chain of dependent scalar steps a
-// pop costs (stack read, node fetch, slab, push).  A thread here has the
-// same chain, so K4 loads the records of up to P popped entries before
-// visiting any of them, with P a template parameter (2 and 4).
+// K4 and the reference: the one-thread-a-ray walk of PR 3, with each leaf
+// tested serially by its lane (bvh4_closest_mp_kernel).  K4 exists on the
+// TPU to shorten the chain of dependent scalar steps a pop costs (stack
+// read, node fetch, slab, push): it loads the records of up to P popped
+// entries before visiting any of them, with P a template parameter (2 and
+// 4).  P = 1 is K2's former walk, kept as the reference the redesign is
+// timed against.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,8 +62,16 @@
 
 namespace {
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 128;  // the one-thread-a-ray kernels (K4, reference)
 constexpr int kMaxStack = 64;
+constexpr int kRecordBytes = 128;  // 32 floats, 8 float4
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNoHit = 0xffffffffu;  // above the bits of any t
+constexpr uint32_t kBulkChunk = 16384;
+
+// Triangle layouts the warp kernels read: the (F, 9) rows [p0, e1, e2],
+// the (9, F) columns of the same values, or (F, 12) rows padded to 48 B.
+enum Layout { kRows = 0, kCols = 1, kPad = 2 };
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   float r;
@@ -85,23 +112,40 @@ struct Node {
   float near[4], far[4];
 };
 
-__device__ __forceinline__ Node load_node(const float4* __restrict__ nodes,
-                                          int node, const RayIn& r) {
-  const float4* rec = nodes + static_cast<size_t>(node) * 8;
-  const float4 ids = __ldg(rec);
-  const float4 cnts = __ldg(rec + 1);
+struct Rec {
+  float4 q[8];
+};
+
+__device__ __forceinline__ Rec ldg_rec(const float4* __restrict__ p) {
+  Rec x;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) x.q[q] = __ldg(p + q);
+  return x;
+}
+
+// a record in shared or global memory, through a generic pointer
+__device__ __forceinline__ Rec ld_rec(const float4* p) {
+  Rec x;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) x.q[q] = p[q];
+  return x;
+}
+
+__device__ __forceinline__ Node slab(const Rec& x, const RayIn& r) {
   float b[24];
 #pragma unroll
   for (int q = 0; q < 6; ++q) {
-    const float4 x = __ldg(rec + 2 + q);
-    b[4 * q] = x.x; b[4 * q + 1] = x.y; b[4 * q + 2] = x.z;
-    b[4 * q + 3] = x.w;
+    const float4 v = x.q[2 + q];
+    b[4 * q] = v.x; b[4 * q + 1] = v.y; b[4 * q + 2] = v.z;
+    b[4 * q + 3] = v.w;
   }
   Node s;
-  s.id[0] = static_cast<int>(ids.x); s.id[1] = static_cast<int>(ids.y);
-  s.id[2] = static_cast<int>(ids.z); s.id[3] = static_cast<int>(ids.w);
-  s.cnt[0] = static_cast<int>(cnts.x); s.cnt[1] = static_cast<int>(cnts.y);
-  s.cnt[2] = static_cast<int>(cnts.z); s.cnt[3] = static_cast<int>(cnts.w);
+  s.id[0] = static_cast<int>(x.q[0].x); s.id[1] = static_cast<int>(x.q[0].y);
+  s.id[2] = static_cast<int>(x.q[0].z); s.id[3] = static_cast<int>(x.q[0].w);
+  s.cnt[0] = static_cast<int>(x.q[1].x);
+  s.cnt[1] = static_cast<int>(x.q[1].y);
+  s.cnt[2] = static_cast<int>(x.q[1].z);
+  s.cnt[3] = static_cast<int>(x.q[1].w);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const float* bx = b + 6 * k;
@@ -116,36 +160,44 @@ __device__ __forceinline__ Node load_node(const float4* __restrict__ nodes,
   return s;
 }
 
-// K2's work at one popped node: the leaf children tested in child order
-// against the current best hit, then the inner children still entered
-// pushed far-first at stack[base..], each keyed by its near distance.
+__device__ __forceinline__ Node load_node(const float4* __restrict__ nodes,
+                                          int node, const RayIn& r) {
+  return slab(ldg_rec(nodes + static_cast<size_t>(node) * 8), r);
+}
+
+// Lane-utilisation counters of the counting instantiations: steps of a
+// loop taken by a warp, and the lanes active in them.
+struct LaneCount {
+  unsigned long long trav_steps, trav_active, leaf_steps, leaf_active;
+};
+
+__device__ __forceinline__ void flush_counts(const LaneCount& c,
+                                             unsigned long long* counts) {
+  if (c.trav_steps) atomicAdd(counts + 0, c.trav_steps);
+  if (c.trav_active) atomicAdd(counts + 1, c.trav_active);
+  if (c.leaf_steps) atomicAdd(counts + 2, c.leaf_steps);
+  if (c.leaf_active) atomicAdd(counts + 3, c.leaf_active);
+}
+
+// one-thread-a-ray counting: the lowest lane of those executing together
+// counts a step and their number
+__device__ __forceinline__ void count_converged(unsigned long long& steps,
+                                                unsigned long long& active) {
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31) == __ffs(m) - 1) {
+    steps += 1;
+    active += __popc(m);
+  }
+}
+
+// The inner children of a visited node still entered at the ray's current
+// t, pushed far-first at stack[base..], each keyed by its near distance.
 // Returns the number pushed; a push past stack_cap sets *overflow and
 // pushes nothing.
-__device__ __forceinline__ int visit(const Node& s, const RayIn& r,
-                                     const float* __restrict__ tri,
-                                     float& best_t, int& best, float& best_u,
-                                     float& best_v, int* stack_node,
-                                     float* stack_key, int base,
-                                     int stack_cap, int* overflow) {
-  bool enter[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    enter[k] = (s.near[k] <= s.far[k]) & (s.far[k] > 1e-6f);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (!(enter[k] && s.cnt[k] > 0 && s.near[k] < best_t)) continue;
-    const float* tr = tri + static_cast<size_t>(s.id[k]) * 9;
-    for (int j = 0; j < s.cnt[k]; ++j) {
-      const HitTest h =
-          mt_test(tr + 9 * j, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, best_t);
-      if (h.hit) {
-        best_t = h.t;
-        best = s.id[k] + j;
-        best_u = h.u;
-        best_v = h.v;
-      }
-    }
-  }
+__device__ __forceinline__ int push_inner(const Node& s, const bool* enter,
+                                          float best_t, int* stack_node,
+                                          float* stack_key, int base,
+                                          int stack_cap, int* overflow) {
   bool push[4];
   int npush = 0;
 #pragma unroll
@@ -173,6 +225,45 @@ __device__ __forceinline__ int visit(const Node& s, const RayIn& r,
   return npush;
 }
 
+__device__ __forceinline__ void child_entered(const Node& s, bool* enter) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    enter[k] = (s.near[k] <= s.far[k]) & (s.far[k] > 1e-6f);
+}
+
+// The one-thread-a-ray work at one popped node (K4, reference): the leaf
+// children tested in child order, triangle after triangle, against the
+// current best hit, then the inner children pushed.
+template <bool kCount>
+__device__ __forceinline__ int visit(const Node& s, const RayIn& r,
+                                     const float* __restrict__ tri,
+                                     float& best_t, int& best, float& best_u,
+                                     float& best_v, int* stack_node,
+                                     float* stack_key, int base,
+                                     int stack_cap, int* overflow,
+                                     LaneCount& c) {
+  bool enter[4];
+  child_entered(s, enter);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (!(enter[k] && s.cnt[k] > 0 && s.near[k] < best_t)) continue;
+    const float* tr = tri + static_cast<size_t>(s.id[k]) * 9;
+    for (int j = 0; j < s.cnt[k]; ++j) {
+      if (kCount) count_converged(c.leaf_steps, c.leaf_active);
+      const HitTest h =
+          mt_test(tr + 9 * j, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, best_t);
+      if (h.hit) {
+        best_t = h.t;
+        best = s.id[k] + j;
+        best_u = h.u;
+        best_v = h.v;
+      }
+    }
+  }
+  return push_inner(s, enter, best_t, stack_node, stack_key, base,
+                    stack_cap, overflow);
+}
+
 __device__ __forceinline__ void store_hit(int i, float best_t, int best,
                                           float best_u, float best_v,
                                           float* __restrict__ t_out,
@@ -186,43 +277,15 @@ __device__ __forceinline__ void store_hit(int i, float best_t, int best,
   slot_out[i] = best;
 }
 
-__global__ void __launch_bounds__(kBlock)
-bvh4_closest_kernel(const float4* __restrict__ nodes,
-                    const float* __restrict__ tri,
-                    const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ maxt, int n_rays,
-                    int stack_cap, float* __restrict__ t_out,
-                    float* __restrict__ u_out, float* __restrict__ v_out,
-                    int* __restrict__ slot_out, int* overflow) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const RayIn r = load_ray(o, d, i);
-  float best_t = maxt[i];
-  int best = -1;
-  float best_u = 0.f, best_v = 0.f;
-  int stack_node[kMaxStack];
-  float stack_key[kMaxStack];
-  stack_node[0] = 0;
-  stack_key[0] = 0.f;
-  int sp = 1;
-  while (sp > 0) {
-    --sp;
-    if (!(stack_key[sp] < best_t)) continue;  // stale: t shrank since
-    const Node s = load_node(nodes, stack_node[sp], r);
-    sp += visit(s, r, tri, best_t, best, best_u, best_v, stack_node,
-                stack_key, sp, stack_cap, overflow);
-  }
-  store_hit(i, best_t, best, best_u, best_v, t_out, u_out, v_out, slot_out);
-}
-
-// K4: K2 popping up to P entries an iteration (_traverse_kernel_mp).  The
-// batch's entries are read first, because the pushes recycle the popped
-// region from sp0; the records of the entries not already stale are then
-// loaded and slab-tested together, so their loads are in flight at once;
-// then each entry is visited in batch order with K2's per-node work (the
-// stale-entry cull against the current t included), its pushes appended
-// at sp0 + pos.  The entries are the stack's top first, so P = 1 is K2.
-template <int P>
+// K4: the one-thread-a-ray walk popping up to P entries an iteration
+// (_traverse_kernel_mp).  The batch's entries are read first, because the
+// pushes recycle the popped region from sp0; the records of the entries
+// not already stale are then loaded and slab-tested together, so their
+// loads are in flight at once; then each entry is visited in batch order
+// (the stale-entry cull against the current t included), its pushes
+// appended at sp0 + pos.  The entries are the stack's top first, so P = 1
+// is K2's former walk, the reference.
+template <int P, bool kCount>
 __global__ void __launch_bounds__(kBlock)
 bvh4_closest_mp_kernel(const float4* __restrict__ nodes,
                        const float* __restrict__ tri,
@@ -231,9 +294,11 @@ bvh4_closest_mp_kernel(const float4* __restrict__ nodes,
                        const float* __restrict__ maxt, int n_rays,
                        int stack_cap, float* __restrict__ t_out,
                        float* __restrict__ u_out, float* __restrict__ v_out,
-                       int* __restrict__ slot_out, int* overflow) {
+                       int* __restrict__ slot_out, int* overflow,
+                       unsigned long long* counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
+  LaneCount c = {0, 0, 0, 0};
   const RayIn r = load_ray(o, d, i);
   float best_t = maxt[i];
   int best = -1;
@@ -244,6 +309,7 @@ bvh4_closest_mp_kernel(const float4* __restrict__ nodes,
   stack_key[0] = 0.f;
   int sp = 1;
   while (sp > 0) {
+    if (kCount) count_converged(c.trav_steps, c.trav_active);
     const int npop = sp < P ? sp : P;
     const int sp0 = sp - npop;
     int bnode[P];
@@ -263,90 +329,519 @@ bvh4_closest_mp_kernel(const float4* __restrict__ nodes,
 #pragma unroll
     for (int b = 0; b < P; ++b) {
       if (!(bkey[b] < best_t)) continue;  // stale: t shrank since
-      pos += visit(s[b], r, tri, best_t, best, best_u, best_v, stack_node,
-                   stack_key, sp0 + pos, stack_cap, overflow);
+      pos += visit<kCount>(s[b], r, tri, best_t, best, best_u, best_v,
+                           stack_node, stack_key, sp0 + pos, stack_cap,
+                           overflow, c);
     }
     sp = sp0 + pos;
   }
   store_hit(i, best_t, best, best_u, best_v, t_out, u_out, v_out, slot_out);
+  if (kCount) flush_counts(c, counts);
 }
 
-__global__ void __launch_bounds__(kBlock)
-bvh4_any_kernel(const float4* __restrict__ nodes,
-                const float* __restrict__ tri, const float* __restrict__ o,
-                const float* __restrict__ d, const float* __restrict__ maxt,
-                int n_rays, int stack_cap, uint8_t* __restrict__ occ_out,
-                int* overflow) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float tmax = maxt[i];
-  bool occluded = false;
-  if (tmax > 1e-6f) {  // a ray of no extent cannot hit
-    const RayIn r = load_ray(o, d, i);
-    int stack[kMaxStack];
-    stack[0] = 0;
-    int sp = 1;
-    while (sp > 0 && !occluded) {
-      const Node s = load_node(nodes, stack[--sp], r);
-      bool enter[4];
+// -- the warp-cooperative kernels (K2, K3) ----------------------------------
+
+struct Trace {
+  const float4* nodes;   // (n4, 32) records
+  int n_shared;          // records [0, n_shared) copied to shared memory
+  const float* tri;      // triangles in the kernel's layout
+  int n_tris;
+  const float* o;
+  const float* d;
+  const float* maxt;
+  int n_rays;
+  int stack_cap;
+  unsigned* next_batch;  // atomic batch counter, or null: a static stride
+  int* overflow;
+  unsigned long long* counts;  // lane utilisation (counting builds only)
+};
+
+struct Hits {
+  float* t;
+  float* u;
+  float* v;
+  int* slot;
+  uint8_t* occ;
+};
+
+template <int L>
+__device__ __forceinline__ HitTest test_row(const float* __restrict__ tri,
+                                            int n_tris, int j,
+                                            const RayIn& r, float tmax) {
+  float w[9];
+  if (L == kRows) {
+    const float* p = tri + static_cast<size_t>(j) * 9;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        enter[k] = (s.near[k] <= s.far[k]) & (s.far[k] > 1e-6f) &
-                   (s.near[k] < tmax);
+    for (int c = 0; c < 9; ++c) w[c] = __ldg(p + c);
+  } else if (L == kCols) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (occluded || !(enter[k] && s.cnt[k] > 0)) continue;
-        const float* tr = tri + static_cast<size_t>(s.id[k]) * 9;
-        for (int j = 0; j < s.cnt[k]; ++j) {
-          if (mt_test(tr + 9 * j, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tmax)
-                  .hit) {
-            occluded = true;
-            break;
+    for (int c = 0; c < 9; ++c)
+      w[c] = __ldg(tri + static_cast<size_t>(c) * n_tris + j);
+  } else {
+    const float4* p =
+        reinterpret_cast<const float4*>(tri) + static_cast<size_t>(j) * 3;
+    const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w; w[4] = b.x;
+    w[5] = b.y; w[6] = b.z; w[7] = b.w; w[8] = c.x;
+  }
+  return mt_test_values(w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8],
+                        r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tmax);
+}
+
+// Copy the records [0, n_shared) into shared memory once a block: one
+// thread issues bulk copies that complete on an mbarrier; every thread
+// waits on its phase 0.
+__device__ __forceinline__ void copy_top(const float4* nodes, int n_shared,
+                                         float4* sh, uint64_t* bar) {
+  if (n_shared <= 0) return;  // block-uniform
+  const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = static_cast<uint32_t>(n_shared) * kRecordBytes;
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(sh));
+    const char* src = reinterpret_cast<const char*>(nodes);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile(
+        "{\n .reg .b64 st;\n"
+        " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}"
+        ::"r"(b), "r"(bytes)
+        : "memory");
+    for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
+      const uint32_t len = bytes - off < kBulkChunk ? bytes - off : kBulkChunk;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];" ::"r"(dst + off),
+          "l"(src + off), "r"(len), "r"(b)
+          : "memory");
+    }
+  }
+  __syncthreads();  // the barrier is initialised
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(b), "r"(0u)
+        : "memory");
+  }
+}
+
+// The first ray of the warp's next batch of 32, or >= n_rays when done.
+__device__ __forceinline__ unsigned next_base(const Trace& a,
+                                              unsigned& batch,
+                                              unsigned warps) {
+  unsigned base;
+  if (a.next_batch != nullptr) {
+    unsigned b = 0;
+    if ((threadIdx.x & 31) == 0) b = atomicAdd(a.next_batch, 1u);
+    base = __shfl_sync(kFull, b, 0) * 32u;
+  } else {
+    base = batch * 32u;
+    batch += warps;
+  }
+  return base;
+}
+
+__device__ __forceinline__ Rec fetch(const Trace& a, const float4* top,
+                                     int node) {
+  return node < a.n_shared
+             ? ld_rec(top + static_cast<size_t>(node) * 8)
+             : ldg_rec(a.nodes + static_cast<size_t>(node) * 8);
+}
+
+// K2's leaf phase: each lane's entered leaf children (bits of ``leaf``),
+// lane after lane, children in child order, 32 triangles at a time across
+// the warp.  A child is tested when its near distance is below the
+// owner's t as it stands, and a triangle hits below it.
+template <int L, bool kCount>
+__device__ __forceinline__ void closest_leaves(
+    const Trace& a, unsigned leaf, const Node& s, const RayIn& r,
+    float& best_t, int& best, float& best_u, float& best_v, LaneCount& c) {
+  const int lane = threadIdx.x & 31;
+  unsigned todo = __ballot_sync(kFull, leaf != 0);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    RayIn w;
+    w.ox = __shfl_sync(kFull, r.ox, src);
+    w.oy = __shfl_sync(kFull, r.oy, src);
+    w.oz = __shfl_sync(kFull, r.oz, src);
+    w.dx = __shfl_sync(kFull, r.dx, src);
+    w.dy = __shfl_sync(kFull, r.dy, src);
+    w.dz = __shfl_sync(kFull, r.dz, src);
+    float bt = __shfl_sync(kFull, best_t, src);
+    const unsigned bits = __shfl_sync(kFull, leaf, src);
+    int slot = -1;
+    float hu = 0.f, hv = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!((bits >> k) & 1u)) continue;
+      const float near = __shfl_sync(kFull, s.near[k], src);
+      if (!(near < bt)) continue;
+      const int start = __shfl_sync(kFull, s.id[k], src);
+      const int cnt = __shfl_sync(kFull, s.cnt[k], src);
+      for (int c0 = 0; c0 < cnt; c0 += 32) {
+        const int j = c0 + lane;
+        unsigned key = kNoHit;
+        float tu = 0.f, tv = 0.f;
+        if (j < cnt) {
+          const HitTest h = test_row<L>(a.tri, a.n_tris, start + j, w, bt);
+          if (h.hit) {
+            key = __float_as_uint(h.t);
+            tu = h.u;
+            tv = h.v;
           }
         }
-      }
-      if (occluded) break;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (!(enter[k] && s.cnt[k] == 0)) continue;
-        if (sp < stack_cap) {
-          stack[sp++] = s.id[k];
-        } else {
-          atomicOr(overflow, 1);
+        if (kCount) {
+          c.leaf_steps += 1;
+          c.leaf_active += cnt - c0 < 32 ? cnt - c0 : 32;
+        }
+        const unsigned m = __reduce_min_sync(kFull, key);
+        if (m != kNoHit) {
+          const int at = __ffs(__ballot_sync(kFull, key == m)) - 1;
+          hu = __shfl_sync(kFull, tu, at);
+          hv = __shfl_sync(kFull, tv, at);
+          bt = __uint_as_float(m);
+          slot = start + c0 + at;
         }
       }
     }
+    if (lane == src && slot >= 0) {
+      best_t = bt;
+      best = slot;
+      best_u = hu;
+      best_v = hv;
+    }
   }
-  occ_out[i] = occluded ? 1 : 0;
+}
+
+template <int L, int T, bool kCount>
+__global__ void __launch_bounds__(T)
+bvh4_closest_kernel(const Trace a, const Hits h) {
+  extern __shared__ float4 top[];
+  __shared__ uint64_t bar;
+  copy_top(a.nodes, a.n_shared, top, &bar);
+  const int lane = threadIdx.x & 31;
+  const unsigned warps = gridDim.x * (T / 32);
+  unsigned batch = blockIdx.x * (T / 32) + threadIdx.x / 32;
+  LaneCount c = {0, 0, 0, 0};
+  int stack_node[kMaxStack];
+  float stack_key[kMaxStack];
+  for (;;) {
+    const unsigned base = next_base(a, batch, warps);
+    if (base >= static_cast<unsigned>(a.n_rays)) break;  // warp-uniform
+    const int i = static_cast<int>(base) + lane;
+    const bool live = i < a.n_rays;
+    const int at = live ? i : static_cast<int>(base);
+    const RayIn r = load_ray(a.o, a.d, at);
+    float best_t = live ? a.maxt[at] : 0.f;
+    int best = -1;
+    float best_u = 0.f, best_v = 0.f;
+    stack_node[0] = 0;
+    stack_key[0] = 0.f;
+    int sp = live ? 1 : 0;
+    while (__any_sync(kFull, sp > 0)) {
+      bool have = false;
+      while (sp > 0) {
+        --sp;
+        if (stack_key[sp] < best_t) {  // else stale: t shrank since
+          have = true;
+          break;
+        }
+      }
+      Node s = {};
+      bool enter[4] = {false, false, false, false};
+      unsigned leaf = 0;
+      if (have) {
+        s = slab(fetch(a, top, stack_node[sp]), r);
+        child_entered(s, enter);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          leaf |= static_cast<unsigned>(enter[k] && s.cnt[k] > 0) << k;
+      }
+      if (kCount) {
+        c.trav_steps += 1;
+        c.trav_active += __popc(__ballot_sync(kFull, have));
+      }
+      closest_leaves<L, kCount>(a, leaf, s, r, best_t, best, best_u, best_v,
+                                c);
+      if (have)
+        sp += push_inner(s, enter, best_t, stack_node, stack_key, sp,
+                         a.stack_cap, a.overflow);
+    }
+    if (live) store_hit(i, best_t, best, best_u, best_v, h.t, h.u, h.v,
+                        h.slot);
+  }
+  if (kCount && lane == 0) flush_counts(c, a.counts);
+}
+
+// K3's leaf phase: true on the lanes whose ray hit a triangle of an
+// entered leaf child; a ray stops testing at its first chunk with a hit.
+template <int L>
+__device__ __forceinline__ bool any_leaves(const Trace& a, unsigned leaf,
+                                           const Node& s, const RayIn& r,
+                                           float tmax) {
+  const int lane = threadIdx.x & 31;
+  bool mine = false;
+  unsigned todo = __ballot_sync(kFull, leaf != 0);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    RayIn w;
+    w.ox = __shfl_sync(kFull, r.ox, src);
+    w.oy = __shfl_sync(kFull, r.oy, src);
+    w.oz = __shfl_sync(kFull, r.oz, src);
+    w.dx = __shfl_sync(kFull, r.dx, src);
+    w.dy = __shfl_sync(kFull, r.dy, src);
+    w.dz = __shfl_sync(kFull, r.dz, src);
+    const float tm = __shfl_sync(kFull, tmax, src);
+    const unsigned bits = __shfl_sync(kFull, leaf, src);
+    bool hit = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (hit || !((bits >> k) & 1u)) continue;
+      const int start = __shfl_sync(kFull, s.id[k], src);
+      const int cnt = __shfl_sync(kFull, s.cnt[k], src);
+      for (int c0 = 0; c0 < cnt && !hit; c0 += 32) {
+        const int j = c0 + lane;
+        const bool mine_hit =
+            j < cnt && test_row<L>(a.tri, a.n_tris, start + j, w, tm).hit;
+        hit = __any_sync(kFull, mine_hit);
+      }
+    }
+    if (lane == src) mine = hit;
+  }
+  return mine;
+}
+
+template <int L, int T>
+__global__ void __launch_bounds__(T)
+bvh4_any_kernel(const Trace a, const Hits h) {
+  extern __shared__ float4 top[];
+  __shared__ uint64_t bar;
+  copy_top(a.nodes, a.n_shared, top, &bar);
+  const int lane = threadIdx.x & 31;
+  const unsigned warps = gridDim.x * (T / 32);
+  unsigned batch = blockIdx.x * (T / 32) + threadIdx.x / 32;
+  int stack[kMaxStack];
+  for (;;) {
+    const unsigned base = next_base(a, batch, warps);
+    if (base >= static_cast<unsigned>(a.n_rays)) break;  // warp-uniform
+    const int i = static_cast<int>(base) + lane;
+    const bool live = i < a.n_rays;
+    const int at = live ? i : static_cast<int>(base);
+    const float tmax = live ? a.maxt[at] : 0.f;
+    const RayIn r = load_ray(a.o, a.d, at);
+    bool occluded = false;
+    stack[0] = 0;
+    int sp = tmax > 1e-6f ? 1 : 0;  // a ray of no extent cannot hit
+    while (__any_sync(kFull, sp > 0)) {
+      const bool have = sp > 0;
+      Node s = {};
+      bool enter[4] = {false, false, false, false};
+      unsigned leaf = 0;
+      if (have) {
+        s = slab(fetch(a, top, stack[--sp]), r);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          enter[k] = (s.near[k] <= s.far[k]) & (s.far[k] > 1e-6f) &
+                     (s.near[k] < tmax);
+          leaf |= static_cast<unsigned>(enter[k] && s.cnt[k] > 0) << k;
+        }
+      }
+      if (any_leaves<L>(a, leaf, s, r, tmax)) {
+        occluded = true;
+        sp = 0;
+      } else if (have) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (!(enter[k] && s.cnt[k] == 0)) continue;
+          if (sp < a.stack_cap) {
+            stack[sp++] = s.id[k];
+          } else {
+            atomicOr(a.overflow, 1);
+          }
+        }
+      }
+    }
+    if (live) h.occ[i] = occluded ? 1 : 0;
+  }
+}
+
+// Launch ``kern`` with T threads a block and n_shared records of dynamic
+// shared memory, on a persistent grid (the blocks that fit on the card at
+// once, at most one a batch of T rays) or on one block per T rays.
+template <typename Kernel>
+int launch(Kernel kern, int threads, const Trace& a, const Hits& h,
+           int persistent, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(a.n_shared) * kRecordBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int need = (a.n_rays + threads - 1) / threads;
+  int grid = need;
+  if (persistent) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid = per_sm * sms < need ? per_sm * sms : need;
+  }
+  kern<<<grid, threads, smem, stream>>>(a, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiations: (layout, threads) pairs.
+#define EPSM_BVH_CONFIGS(X) \
+  X(kRows, 128)             \
+  X(kCols, 128)             \
+  X(kPad, 128)              \
+  X(kCols, 512)             \
+  X(kCols, 768)             \
+  X(kCols, 1024)            \
+  X(kPad, 1024)
+
+int launch_closest(const Trace& a, const Hits& h, int layout, int threads,
+                   int persistent, cudaStream_t stream) {
+  const bool count = a.counts != nullptr;
+#define EPSM_CASE(L, T)                                                     \
+  if (layout == L && threads == T)                                          \
+    return count ? launch(bvh4_closest_kernel<L, T, true>, T, a, h,         \
+                          persistent, stream)                               \
+                 : launch(bvh4_closest_kernel<L, T, false>, T, a, h,        \
+                          persistent, stream);
+  EPSM_BVH_CONFIGS(EPSM_CASE)
+#undef EPSM_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_any(const Trace& a, const Hits& h, int layout, int threads,
+               int persistent, cudaStream_t stream) {
+#define EPSM_CASE(L, T)                                                   \
+  if (layout == L && threads == T)                                        \
+    return launch(bvh4_any_kernel<L, T>, T, a, h, persistent, stream);
+  EPSM_BVH_CONFIGS(EPSM_CASE)
+#undef EPSM_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename Kernel>
+int static_shared(Kernel kern, int* bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e == cudaSuccess && static_cast<int>(attr.sharedSizeBytes) > *bytes)
+    *bytes = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(e);
 }
 
 inline int blocks_for(int n) { return (n + kBlock - 1) / kBlock; }
+
+Trace make_trace(const float* nodes, int n_shared, const float* tri,
+                 int n_tris, const float* o, const float* d,
+                 const float* maxt, int n_rays, int stack_cap,
+                 unsigned* next_batch, int* overflow,
+                 unsigned long long* counts) {
+  Trace a;
+  a.nodes = reinterpret_cast<const float4*>(nodes);
+  a.n_shared = n_shared;
+  a.tri = tri;
+  a.n_tris = n_tris;
+  a.o = o;
+  a.d = d;
+  a.maxt = maxt;
+  a.n_rays = n_rays;
+  a.stack_cap = stack_cap;
+  a.next_batch = next_batch;
+  a.overflow = overflow;
+  a.counts = counts;
+  return a;
+}
+
+bool bad_trace(int stack_cap, int n_shared, const float* nodes) {
+  return stack_cap < 1 || stack_cap > kMaxStack || n_shared < 0 ||
+         (n_shared > 0 && reinterpret_cast<uintptr_t>(nodes) % 16 != 0);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Closest hit through the BVH4 (K2).  nodes (n4, 32) records of pack_bvh4;
-// tri (F, 9) rows [p0, e1, e2] in leaf order; o, d (n_rays, 3); maxt
+// Closest hit through the BVH4 (K2).  nodes (n4, 32) records of pack_bvh4,
+// 16-byte aligned; the first n_shared of them are copied to shared memory
+// (n_shared * 128 bytes within bvh4_shared_budget); tri the n_tris
+// triangles in leaf order in ``layout`` (0: (F, 9) rows [p0, e1, e2], 1:
+// (9, F) columns, 2: (F, 12) rows padded to 48 B); o, d (n_rays, 3); maxt
 // (n_rays,); all float32, contiguous, on the current device; stack_cap
-// <= 64.  Writes t (+inf on a miss), u, v (0 on a miss) and slot (the
-// row of tri, -1 on a miss); sets *overflow to 1 if a ray ran out of
-// stack.  Returns cudaGetLastError() after the launch.
-int bvh4_closest_hit(const float* nodes, const float* tri, const float* o,
-                     const float* d, const float* maxt, int n_rays,
-                     int stack_cap, float* t_out, float* u_out,
-                     float* v_out, int* slot_out, int* overflow,
+// <= 64.  ``threads`` a block and ``layout`` must be one of the compiled
+// configurations; ``persistent`` sizes the grid to the blocks resident at
+// once, and next_batch (a zeroed uint32, or null for a static stride)
+// hands out the batches of 32 rays.  Writes t (+inf on a miss), u, v (0
+// on a miss) and slot (the row of tri, -1 on a miss); sets *overflow to 1
+// if a ray ran out of stack.  With ``counts`` (4 zeroed uint64), counts
+// the lane utilisation: traversal steps, their active lanes, leaf steps,
+// their active lanes.  Returns the launch's CUDA error.
+int bvh4_closest_hit(const float* nodes, int n_shared, const float* tri,
+                     int n_tris, int layout, const float* o, const float* d,
+                     const float* maxt, int n_rays, int stack_cap,
+                     int threads, int persistent, unsigned* next_batch,
+                     float* t_out, float* u_out, float* v_out, int* slot_out,
+                     int* overflow, unsigned long long* counts,
                      cudaStream_t stream) {
-  if (stack_cap < 1 || stack_cap > kMaxStack)
+  if (bad_trace(stack_cap, n_shared, nodes))
     return static_cast<int>(cudaErrorInvalidValue);
-  bvh4_closest_kernel<<<blocks_for(n_rays), kBlock, 0, stream>>>(
-      reinterpret_cast<const float4*>(nodes), tri, o, d, maxt, n_rays,
-      stack_cap, t_out, u_out, v_out, slot_out, overflow);
-  return static_cast<int>(cudaGetLastError());
+  const Trace a = make_trace(nodes, n_shared, tri, n_tris, o, d, maxt,
+                             n_rays, stack_cap, next_batch, overflow, counts);
+  Hits h = {t_out, u_out, v_out, slot_out, nullptr};
+  return launch_closest(a, h, layout, threads, persistent, stream);
 }
 
-// K4: the closest hit of K2, popping up to multi_pop (2 or 4) entries an
-// iteration; the same arguments and results as bvh4_closest_hit.
+// Any hit (K3): occ[i] = 1 where some triangle passes the closest hit's
+// test; the other arguments as bvh4_closest_hit's.
+int bvh4_any_hit(const float* nodes, int n_shared, const float* tri,
+                 int n_tris, int layout, const float* o, const float* d,
+                 const float* maxt, int n_rays, int stack_cap, int threads,
+                 int persistent, unsigned* next_batch, uint8_t* occ_out,
+                 int* overflow, cudaStream_t stream) {
+  if (bad_trace(stack_cap, n_shared, nodes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Trace a = make_trace(nodes, n_shared, tri, n_tris, o, d, maxt,
+                             n_rays, stack_cap, next_batch, overflow,
+                             nullptr);
+  Hits h = {nullptr, nullptr, nullptr, nullptr, occ_out};
+  return launch_any(a, h, layout, threads, persistent, stream);
+}
+
+// The bytes of dynamic shared memory a block of K2 or K3 may take: the
+// card's opt-in limit a block less the kernels' static shared memory.
+int bvh4_shared_budget(int* bytes) {
+  int dev = 0, optin = 0, fixed = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int err = 0;
+#define EPSM_CASE(L, T)                                                     \
+  err |= static_shared(bvh4_closest_kernel<L, T, false>, &fixed);           \
+  err |= static_shared(bvh4_closest_kernel<L, T, true>, &fixed);            \
+  err |= static_shared(bvh4_any_kernel<L, T>, &fixed);
+  EPSM_BVH_CONFIGS(EPSM_CASE)
+#undef EPSM_CASE
+  if (err != 0) return static_cast<int>(cudaErrorInvalidValue);
+  *bytes = optin - fixed;
+  return 0;
+}
+
+// K4: the one-thread-a-ray closest hit popping up to multi_pop (2 or 4)
+// entries an iteration; tri the (F, 9) rows; results as bvh4_closest_hit.
 int bvh4_closest_hit_mp(const float* nodes, const float* tri, const float* o,
                         const float* d, const float* maxt, int n_rays,
                         int stack_cap, int multi_pop, float* t_out,
@@ -356,29 +851,44 @@ int bvh4_closest_hit_mp(const float* nodes, const float* tri, const float* o,
     return static_cast<int>(cudaErrorInvalidValue);
   const float4* n4 = reinterpret_cast<const float4*>(nodes);
   if (multi_pop == 2) {
-    bvh4_closest_mp_kernel<2><<<blocks_for(n_rays), kBlock, 0, stream>>>(
-        n4, tri, o, d, maxt, n_rays, stack_cap, t_out, u_out, v_out,
-        slot_out, overflow);
+    bvh4_closest_mp_kernel<2, false>
+        <<<blocks_for(n_rays), kBlock, 0, stream>>>(
+            n4, tri, o, d, maxt, n_rays, stack_cap, t_out, u_out, v_out,
+            slot_out, overflow, nullptr);
   } else if (multi_pop == 4) {
-    bvh4_closest_mp_kernel<4><<<blocks_for(n_rays), kBlock, 0, stream>>>(
-        n4, tri, o, d, maxt, n_rays, stack_cap, t_out, u_out, v_out,
-        slot_out, overflow);
+    bvh4_closest_mp_kernel<4, false>
+        <<<blocks_for(n_rays), kBlock, 0, stream>>>(
+            n4, tri, o, d, maxt, n_rays, stack_cap, t_out, u_out, v_out,
+            slot_out, overflow, nullptr);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Any hit: occ[i] = 1 where some triangle passes the closest hit's test.
-int bvh4_any_hit(const float* nodes, const float* tri, const float* o,
-                 const float* d, const float* maxt, int n_rays,
-                 int stack_cap, uint8_t* occ_out, int* overflow,
-                 cudaStream_t stream) {
+// The reference: K2's former one-thread-a-ray walk (K4's kernel at P = 1),
+// with the arguments and results of bvh4_closest_hit_mp; ``counts`` as
+// bvh4_closest_hit's.
+int bvh4_closest_hit_ref(const float* nodes, const float* tri,
+                         const float* o, const float* d, const float* maxt,
+                         int n_rays, int stack_cap, float* t_out,
+                         float* u_out, float* v_out, int* slot_out,
+                         int* overflow, unsigned long long* counts,
+                         cudaStream_t stream) {
   if (stack_cap < 1 || stack_cap > kMaxStack)
     return static_cast<int>(cudaErrorInvalidValue);
-  bvh4_any_kernel<<<blocks_for(n_rays), kBlock, 0, stream>>>(
-      reinterpret_cast<const float4*>(nodes), tri, o, d, maxt, n_rays,
-      stack_cap, occ_out, overflow);
+  const float4* n4 = reinterpret_cast<const float4*>(nodes);
+  if (counts != nullptr) {
+    bvh4_closest_mp_kernel<1, true>
+        <<<blocks_for(n_rays), kBlock, 0, stream>>>(
+            n4, tri, o, d, maxt, n_rays, stack_cap, t_out, u_out, v_out,
+            slot_out, overflow, counts);
+  } else {
+    bvh4_closest_mp_kernel<1, false>
+        <<<blocks_for(n_rays), kBlock, 0, stream>>>(
+            n4, tri, o, d, maxt, n_rays, stack_cap, t_out, u_out, v_out,
+            slot_out, overflow, nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,13 +15,12 @@ struct HitTest {
 };
 
 // A hit needs |det| > 1e-12, u >= -1e-6, v >= -1e-6, u + v <= 1 + 1e-6
-// and 1e-6 < t < tmax.  ``tr`` may point to shared or global memory.
-__device__ __forceinline__ HitTest mt_test(const float* tr, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz, float tmax) {
-  const float p0x = tr[0], p0y = tr[1], p0z = tr[2];
-  const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-  const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+// and 1e-6 < t < tmax.  The triangle is given as its 9 values, loaded by
+// the caller in whatever layout it keeps them.
+__device__ __forceinline__ HitTest mt_test_values(
+    float p0x, float p0y, float p0z, float e1x, float e1y, float e1z,
+    float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
+    float dy, float dz, float tmax) {
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
   const float pvz = dx * e2y - dy * e2x;
@@ -39,4 +38,13 @@ __device__ __forceinline__ HitTest mt_test(const float* tr, float ox,
   r.hit = (r.u >= -1e-6f) & (r.v >= -1e-6f) & (r.u + r.v <= 1.000001f) &
           ok_det & (r.t > 1e-6f) & (r.t < tmax);
   return r;
+}
+
+// The same test on a row of 9 floats; ``tr`` may point to shared or
+// global memory.
+__device__ __forceinline__ HitTest mt_test(const float* tr, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float tmax) {
+  return mt_test_values(tr[0], tr[1], tr[2], tr[3], tr[4], tr[5], tr[6],
+                        tr[7], tr[8], ox, oy, oz, dx, dy, dz, tmax);
 }

@@ -65,9 +65,11 @@ class Scene:
     #: BVH above ``accel.BRUTE_FORCE_MAX_TRIS`` triangles, else None
     bvh: Optional[bvh_mod.BVH] = None
     #: its K2/K3 inputs (``cuda_traverse.pack_bvh4``): node records
-    #: (n4, 32) and leaf-ordered triangles (F, 9)
+    #: (n4, 32), leaf-ordered triangles (F, 9), and the same triangles in
+    #: the layout the K2/K3 kernels read
     bvh_nodes: Optional[torch.Tensor] = None
     bvh_tris: Optional[torch.Tensor] = None
+    bvh_tris_k: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -118,8 +120,9 @@ class Scene:
             return sc
         v = vertices.detach()
         bvh = bvh_mod.refit(sc.bvh, v, sc.faces)
-        nodes, tris = CT.pack_bvh4(bvh, v, sc.faces)
-        return replace(sc, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris)
+        nodes, tris, tris_k = CT.pack_bvh4(bvh, v, sc.faces)
+        return replace(sc, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris,
+                       bvh_tris_k=tris_k)
 
     # -- ray queries (scene.cpp:116-142) ------------------------------------
     def ray_intersect_preliminary(self, ray: Ray,
@@ -406,7 +409,7 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
         bsdf_kinds=bsdf_kinds, emitter_kinds=emitter_kinds,
         integrator=tuple(sorted(dict(integrator or {}).items())),
         spp=int(spp), sampler_kind=sampler_kind)
-    bvh = nodes = tris = None
+    bvh = nodes = tris = tris_k = None
     if geo["faces"].shape[0] > accel.BRUTE_FORCE_MAX_TRIS:
         if "bvh.order" in arrays:
             bvh = bvh_mod.from_arrays(
@@ -414,7 +417,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
                 device)
         else:
             bvh = bvh_mod.build(arrays["vertices"], arrays["faces"], device)
-        nodes, tris = CT.pack_bvh4(bvh, geo["vertices"], geo["faces"])
+        nodes, tris, tris_k = CT.pack_bvh4(bvh, geo["vertices"],
+                                           geo["faces"])
     return Scene(bsdfs=bsdfs, emitters=emitters, sensors=sensor_objs,
                  static=static, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris,
-                 **geo)
+                 bvh_tris_k=tris_k, **geo)

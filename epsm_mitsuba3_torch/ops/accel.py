@@ -44,7 +44,8 @@ def ray_intersect(scene, ray: Ray, multi_pop: Optional[int] = None
         valid = prim >= 0
     else:
         t, slot, u, v = CT.closest_hit(scene.bvh_nodes, scene.bvh_tris,
-                                       *_rays(ray), multi_pop=multi_pop)
+                                       *_rays(ray), multi_pop=multi_pop,
+                                       tri_k=scene.bvh_tris_k)
         valid = slot >= 0
         prim = scene.bvh.order[slot.clamp(min=0).long()]
     return PreliminaryIntersection(
@@ -55,4 +56,5 @@ def ray_intersect(scene, ray: Ray, multi_pop: Optional[int] = None
 def ray_test(scene, ray: Ray) -> torch.Tensor:
     if use_brute_force(scene):
         return CI.any_hit(_tris(scene), *_rays(ray))
-    return CT.any_hit(scene.bvh_nodes, scene.bvh_tris, *_rays(ray))
+    return CT.any_hit(scene.bvh_nodes, scene.bvh_tris, *_rays(ray),
+                      tri_k=scene.bvh_tris_k)

@@ -11,6 +11,18 @@ at first use into ``_build/`` by ``ops/_native.py`` and loaded with
 ``closest_hit``'s ``multi_pop`` picks the schedule: 0 or 1 is K2, 2 or 4
 is K4 popping that many stack entries an iteration.
 
+K2 and K3 walk the tree one lane a ray and test leaves warp-wide, 32
+triangles of one ray's leaf at a time, one a lane: a lone lane testing
+the up to 32 triangles of a fat leaf one after another, each a chain of
+scattered loads, was what held the one-thread-a-ray walk back (latency,
+not divergence).  They read the triangles as 9 columns of F floats
+(``kernel_tris``), so a chunk's loads coalesce, run a persistent grid
+whose blocks first copy the top ``R`` node records into shared memory
+(``shared_records``), and take the launch configuration of ``SCHEDULE``.
+K4 and ``closest_hit_reference`` (K2's former walk, kept to time the
+redesign against) test each leaf serially in their lane, on the (F, 9)
+rows.
+
 Around the launch the rays may be sorted by a 30-bit 6-D Morton key of
 origin and direction (``sort_keys``) and the results un-sorted, as the
 reference does.  A kernel whose ray would push past its stack sets a flag
@@ -19,6 +31,7 @@ on the device instead of faulting; ``raise_on_overflow`` reads it.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -49,32 +62,80 @@ MULTI_POP = 0
 #: the multi-pop widths K4 is compiled for
 K4_WIDTHS = (2, 4)
 
+#: bytes of one node record (32 float32)
+RECORD_BYTES = 128
+#: the triangle layouts K2/K3 read (``bvh_traverse.cu`` ``Layout``): the
+#: (F, 9) rows, their (9, F) columns, or (F, 12) rows padded to 48 bytes
+LAYOUTS = {"rows": 0, "cols": 1, "pad": 2}
+
+
+@dataclass(frozen=True)
+class Schedule:
+    """How K2/K3 are launched: the triangle layout they read, the threads
+    a block (each pair one of the kernel's compiled configurations), a
+    persistent grid or one block per ``threads`` rays, batches of 32 rays
+    handed out by an atomic counter or by a static stride, and the top of
+    the tree copied to shared memory or not."""
+    layout: str = "cols"
+    threads: int = 1024
+    persistent: bool = True
+    counter: bool = True
+    shared: bool = True
+
+
+#: the main path's K2/K3 launch
+SCHEDULE = Schedule()
+#: the design steps, each timed by ``chip_smoke.py``: warp-cooperative
+#: leaf tests alone (on the (F, 9) rows), with the column layout, and with
+#: the top of the tree in shared memory on a persistent grid
+STEPS = {"1": Schedule("rows", 128, False, False, False),
+         "1+2": Schedule("cols", 128, False, False, False),
+         "1+2+3": SCHEDULE}
+
 #: launches of each kernel entry, counted where the launch happens
 launches = {"bvh4_closest_hit": 0, "bvh4_closest_hit_mp": 0,
-            "bvh4_any_hit": 0}
+            "bvh4_any_hit": 0, "bvh4_closest_hit_ref": 0}
 
 _lib = None
 _overflow = {}      # device -> int32 flag the kernels set
+_budget = {}        # device -> bytes of dynamic shared memory a block
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the K2/K3 library."""
+    """Compile (once per source hash) and load the K2/K3/K4 library."""
     global _lib
     if _lib is not None:
         return _lib
     lib = _native.load(SPEC)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bvh4_closest_hit.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                     ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.bvh4_closest_hit.restype = i32
+    lib.bvh4_closest_hit.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr,
+                                     i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                                     ptr, ptr, ptr, ptr]
+    lib.bvh4_any_hit.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr,
+                                 i32, i32, i32, i32, ptr, ptr, ptr, ptr]
     lib.bvh4_closest_hit_mp.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                         i32, ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.bvh4_closest_hit_mp.restype = i32
-    lib.bvh4_any_hit.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr,
-                                 ptr, ptr]
-    lib.bvh4_any_hit.restype = i32
+    lib.bvh4_closest_hit_ref.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                         ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.bvh4_shared_budget.argtypes = [ctypes.POINTER(i32)]
+    for entry in ("bvh4_closest_hit", "bvh4_any_hit", "bvh4_closest_hit_mp",
+                  "bvh4_closest_hit_ref", "bvh4_shared_budget"):
+        getattr(lib, entry).restype = i32
     _lib = lib
     return lib
+
+
+def kernel_tris(tri: torch.Tensor, layout: str = SCHEDULE.layout
+                ) -> torch.Tensor:
+    """The (F, 9) triangle rows in a K2/K3 layout of ``LAYOUTS``: "cols"
+    is (9, F), "pad" (F, 12) with zeros after each row, "rows" ``tri``."""
+    if layout == "cols":
+        return tri.t().contiguous()
+    if layout == "pad":
+        return torch.cat([tri, tri.new_zeros(tri.shape[0], 3)], 1)
+    if layout == "rows":
+        return tri
+    raise ValueError(f"K2/K3: no triangle layout {layout!r}")
 
 
 def pack_bvh4(bvh, vertices: torch.Tensor, faces: torch.Tensor):
@@ -83,8 +144,9 @@ def pack_bvh4(bvh, vertices: torch.Tensor, faces: torch.Tensor):
     Returns ``nodes`` (n4, 32) float32, one record a BVH4 node: [0:4]
     child id or leaf start, [4:8] count (-1 empty, 0 inner, > 0 leaf),
     [8 + 6k:14 + 6k] the box (min, max) of child k from its binary node
-    ``c4_node``, inverted (+-3e38) for an empty slot; and ``tri`` (F, 9)
-    the triangles in leaf order, rows [p0, p1 - p0, p2 - p0]."""
+    ``c4_node``, inverted (+-3e38) for an empty slot; ``tri`` (F, 9) the
+    triangles in leaf order, rows [p0, p1 - p0, p2 - p0]; and ``tri_k``,
+    the same in K2/K3's layout (``kernel_tris``)."""
     if faces.shape[0] >= 2 ** 24:
         raise ValueError("pack_bvh4: ids are stored as float32, exact "
                          "below 2^24 triangles")
@@ -96,7 +158,26 @@ def pack_bvh4(bvh, vertices: torch.Tensor, faces: torch.Tensor):
     nodes = torch.cat([bvh.c4_id.float(), bvh.c4_cnt.float(), boxes],
                       dim=-1).contiguous()
     tri = CI.pack_tris(vertices, faces[bvh.order.long()])
-    return nodes, tri
+    return nodes, tri, kernel_tris(tri)
+
+
+def shared_records(n_records: int, budget: int) -> int:
+    """R, the node records a K2/K3 block copies into shared memory: as
+    many of the first records as ``budget`` bytes hold.  Records are in
+    breadth-first order, so they are the top levels of the tree."""
+    return max(0, min(n_records, budget // RECORD_BYTES))
+
+
+def shared_budget(device) -> int:
+    """Bytes of dynamic shared memory a K2/K3 block may take on
+    ``device``: the card's opt-in limit less the kernels' static part."""
+    if device not in _budget:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _native.check_launch(build().bvh4_shared_budget(
+                ctypes.byref(out)), "bvh4_shared_budget")
+        _budget[device] = out.value
+    return _budget[device]
 
 
 def sort_keys(o, d, bmin, bmax, maxt=None) -> torch.Tensor:
@@ -137,6 +218,18 @@ def _check(nodes, tri, o, d, maxt):
         raise ValueError("K2/K3: no nodes, or 2^24 triangles or more")
 
 
+def _layout_tris(tri_k, layout, device) -> int:
+    """The number of triangles in ``tri_k``, checked to be a contiguous
+    float32 tensor of ``layout``'s shape on ``device``."""
+    n = tri_k.shape[-1] if layout == "cols" else tri_k.shape[0]
+    shape = {"rows": (n, 9), "cols": (9, n), "pad": (n, 12)}[layout]
+    if (tuple(tri_k.shape) != shape or tri_k.dtype != torch.float32
+            or tri_k.device != device or not tri_k.is_contiguous()):
+        raise ValueError(f"K2/K3: the {layout!r} triangles must be a "
+                         f"contiguous float32 {shape} tensor on {device}")
+    return n
+
+
 def _stack_cap() -> int:
     if not 1 <= T.STACK_SIZE <= MAX_STACK:
         raise ValueError(f"K2/K3: stack size {T.STACK_SIZE} outside "
@@ -165,7 +258,84 @@ def raise_on_overflow(device) -> None:
             f"{T.STACK_SIZE} stack entries: its hits are incomplete")
 
 
-def _launch_closest(nodes, tri, o, d, maxt, multi_pop):
+def _trace_args(nodes, tri_k, o, d, maxt, schedule, n_shared):
+    """The leading arguments of the K2/K3 entries, and the batch counter
+    (kept alive by the caller until the launch)."""
+    n_tris = _layout_tris(tri_k, schedule.layout, o.device)
+    if n_shared is None:
+        n_shared = (shared_records(nodes.shape[0], shared_budget(o.device))
+                    if schedule.shared else 0)
+    n_shared = min(int(n_shared), nodes.shape[0])
+    if n_shared * RECORD_BYTES > shared_budget(o.device):
+        raise ValueError(f"K2/K3: {n_shared} records exceed the block's "
+                         "shared memory")
+    if n_shared > 0 and nodes.data_ptr() % 16 != 0:
+        raise ValueError("K2/K3: node records must be 16-byte aligned")
+    counter = (torch.zeros(1, dtype=torch.int32, device=o.device)
+               if schedule.counter else None)
+    args = (nodes.data_ptr(), n_shared, tri_k.data_ptr(), n_tris,
+            LAYOUTS[schedule.layout],
+            o.data_ptr(), d.data_ptr(), maxt.data_ptr(), o.shape[0],
+            _stack_cap(), schedule.threads, int(schedule.persistent),
+            None if counter is None else counter.data_ptr())
+    return args, counter
+
+
+def launch_closest(nodes, tri_k, o, d, maxt, schedule: Schedule = SCHEDULE,
+                   n_shared: Optional[int] = None,
+                   counts: Optional[torch.Tensor] = None):
+    """K2 on CUDA tensors: ``tri_k`` the triangles in ``schedule.layout``;
+    ``n_shared`` records in shared memory (``None``: as many as the block
+    holds when ``schedule.shared``, else 0); ``counts``, a zeroed (4,)
+    int64 tensor, receives the lane utilisation (traversal steps, active
+    lanes in them, leaf steps, active lanes in them) from the counting
+    build.  Returns (t, slot, u, v) as ``closest_hit``."""
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    slot = torch.empty(n, dtype=torch.int32, device=o.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    if n == 0:
+        return t, slot, u, v
+    lib = build()
+    with torch.cuda.device(o.device):
+        args, counter = _trace_args(nodes, tri_k, o, d, maxt, schedule,
+                                    n_shared)
+        flag = _flag(o.device)
+        err = lib.bvh4_closest_hit(
+            *args, t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
+            flag.data_ptr(), None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    del counter
+    _native.check_launch(err, "bvh4_closest_hit")
+    launches["bvh4_closest_hit"] += 1
+    return t, slot, u, v
+
+
+def launch_any(nodes, tri_k, o, d, maxt, schedule: Schedule = SCHEDULE,
+               n_shared: Optional[int] = None) -> torch.Tensor:
+    """K3 on CUDA tensors, with the arguments of ``launch_closest``."""
+    n = o.shape[0]
+    occ = torch.empty(n, dtype=torch.bool, device=o.device)
+    if n == 0:
+        return occ
+    lib = build()
+    with torch.cuda.device(o.device):
+        args, counter = _trace_args(nodes, tri_k, o, d, maxt, schedule,
+                                    n_shared)
+        flag = _flag(o.device)
+        err = lib.bvh4_any_hit(
+            *args, occ.data_ptr(), flag.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    del counter
+    _native.check_launch(err, "bvh4_any_hit")
+    launches["bvh4_any_hit"] += 1
+    return occ
+
+
+def _launch_one_thread(nodes, tri, o, d, maxt, multi_pop, counts=None):
+    """K4 (``multi_pop`` 2 or 4) or, at 1, the reference: the
+    one-thread-a-ray walk on the (F, 9) rows."""
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     slot = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -181,43 +351,28 @@ def _launch_closest(nodes, tri, o, d, maxt, multi_pop):
         rays = (nodes.data_ptr(), tri.data_ptr(), o.data_ptr(),
                 d.data_ptr(), maxt.data_ptr(), n, cap)
         hits = (t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
-                flag.data_ptr(), stream)
+                flag.data_ptr())
         if multi_pop > 1:
             entry = "bvh4_closest_hit_mp"
-            err = lib.bvh4_closest_hit_mp(*rays, multi_pop, *hits)
+            err = lib.bvh4_closest_hit_mp(*rays, multi_pop, *hits, stream)
         else:
-            entry = "bvh4_closest_hit"
-            err = lib.bvh4_closest_hit(*rays, *hits)
+            entry = "bvh4_closest_hit_ref"
+            err = lib.bvh4_closest_hit_ref(
+                *rays, *hits, None if counts is None else counts.data_ptr(),
+                stream)
     _native.check_launch(err, entry)
     launches[entry] += 1
     return t, slot, u, v
 
 
-def _launch_any(nodes, tri, o, d, maxt):
-    n = o.shape[0]
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    if n == 0:
-        return occ
-    lib = build()
-    cap = _stack_cap()
-    with torch.cuda.device(o.device):
-        flag = _flag(o.device)
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = lib.bvh4_any_hit(
-            nodes.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
-            maxt.data_ptr(), n, cap, occ.data_ptr(), flag.data_ptr(),
-            stream)
-    _native.check_launch(err, "bvh4_any_hit")
-    launches["bvh4_any_hit"] += 1
-    return occ
-
-
 def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
-                multi_pop: Optional[int] = None):
+                multi_pop: Optional[int] = None,
+                tri_k: Optional[torch.Tensor] = None):
     """Closest hit of each ray through the BVH4: K2, or K4 with
     ``multi_pop`` in ``K4_WIDTHS``; ``None`` reads ``MULTI_POP``, the one
-    place the default is set.  K4 finds K2's closest t; of two triangles
-    at the same t it may keep the other one.
+    place the default is set.  K2 reads ``tri_k``, the triangles in
+    ``SCHEDULE.layout`` (``pack_bvh4``'s third output; made from ``tri``
+    when not given).
 
     Returns (t (N,) +inf on a miss, slot (N,) int32 row of ``tri``, -1 on
     a miss, u, v (N,) 0 on a miss)."""
@@ -233,14 +388,30 @@ def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
     if o.device.type == "cpu":
         out = T.bvh_ray_intersect_plain(nodes, tri, o, d, maxt,
                                         multi_pop=multi_pop)
+    elif multi_pop > 1:
+        out = _launch_one_thread(nodes, tri, o, d, maxt, multi_pop)
     else:
-        out = _launch_closest(nodes, tri, o, d, maxt, multi_pop)
+        out = launch_closest(nodes, kernel_tris(tri) if tri_k is None
+                             else tri_k, o, d, maxt)
     return tuple(_unsort(x, perm) for x in out) if sort else out
 
 
-def any_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS) -> torch.Tensor:
+def closest_hit_reference(nodes, tri, o, d, maxt,
+                          counts: Optional[torch.Tensor] = None):
+    """K2's former one-thread-a-ray walk (K4's kernel at P = 1), kept to
+    time the redesign against; never on the main path.  ``counts`` as
+    ``launch_closest``'s.  Returns ``closest_hit``'s outputs."""
+    _check(nodes, tri, o, d, maxt)
+    if o.device.type == "cpu":
+        return T.bvh_ray_intersect_plain(nodes, tri, o, d, maxt)
+    return _launch_one_thread(nodes, tri, o, d, maxt, 1, counts)
+
+
+def any_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
+            tri_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Occlusion: (N,) bool, True where some triangle passes the closest
-    hit's test; equals ``closest_hit``'s ``slot >= 0``."""
+    hit's test; equals ``closest_hit``'s ``slot >= 0``.  ``tri_k`` as
+    ``closest_hit``'s."""
     _check(nodes, tri, o, d, maxt)
     if sort:
         perm = _morton_order(nodes, o, d, maxt)
@@ -248,5 +419,6 @@ def any_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS) -> torch.Tensor:
     if o.device.type == "cpu":
         occ = T.bvh_ray_test_plain(nodes, tri, o, d, maxt)
     else:
-        occ = _launch_any(nodes, tri, o, d, maxt)
+        occ = launch_any(nodes, kernel_tris(tri) if tri_k is None else tri_k,
+                         o, d, maxt)
     return _unsort(occ, perm) if sort else occ

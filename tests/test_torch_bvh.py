@@ -192,7 +192,8 @@ def test_pack_bvh4_equals_pack_scene():
     V, F = bumpy_sphere(subdiv=SUBDIV)
     bj = BJ.build(V, F)
     bt = BT.build(V, F)
-    nodes, tri = CT.pack_bvh4(bt, torch.from_numpy(V), torch.from_numpy(F))
+    nodes, tri, _ = CT.pack_bvh4(bt, torch.from_numpy(V),
+                                 torch.from_numpy(F))
     nodes3, _ = PTJ.pack_scene(bj, jnp.asarray(V), jnp.asarray(F))
     n4 = bt.c4_id.shape[0]
     ref = np.asarray(nodes3).transpose(0, 2, 1).reshape(-1, 32)[:n4]
@@ -284,7 +285,8 @@ def test_plain_matches_pallas_kernels_interpreted():
 
     bt = BT.from_arrays({k: np.asarray(getattr(bj, k))
                          for k in BT.ARRAY_FIELDS}, "cpu")
-    nodes, tri = CT.pack_bvh4(bt, torch.from_numpy(V), torch.from_numpy(F))
+    nodes, tri, _ = CT.pack_bvh4(bt, torch.from_numpy(V),
+                                 torch.from_numpy(F))
     args = (torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(maxt))
     t, slot, u, v = CT.closest_hit(nodes, tri, *args)
     prim = torch.where(slot >= 0, bt.order[slot.clamp(min=0).long()], -1)

@@ -139,7 +139,7 @@ def test_k2_k3_overflow_is_flagged(mesh_scene, monkeypatch):
     sc = mesh_scene
     args = [x.to(sc.device) for x in _mesh_rays(1024, 5)]
     monkeypatch.setattr(TR, "STACK_SIZE", 2)
-    for fn in (CT.closest_hit, CT.any_hit):
+    for fn in (CT.closest_hit, CT.any_hit, CT.closest_hit_reference):
         fn(sc.bvh_nodes, sc.bvh_tris, *args)
         with pytest.raises(TR.StackOverflow):
             CT.raise_on_overflow(sc.device)
@@ -189,6 +189,114 @@ def test_k4_kernel_equals_plain(mesh_scene, n_rays, multi_pop):
     k2 = CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args)
     assert torch.equal(got[0], k2[0])
     assert torch.equal(got[1] >= 0, k2[1] >= 0)
+
+
+_PLAIN = {}
+
+
+def _plain_hits(sc, n_rays):
+    """The plain K2/K3 on ``n_rays`` mesh rays (cached per count)."""
+    key = (id(sc), n_rays)
+    if key not in _PLAIN:
+        args = [x.to(sc.device) for x in _mesh_rays(n_rays, n_rays + 7)]
+        _PLAIN[key] = (args, (*TR.bvh_ray_intersect_plain(
+            sc.bvh_nodes, sc.bvh_tris, *args), TR.bvh_ray_test_plain(
+            sc.bvh_nodes, sc.bvh_tris, *args)))
+    return _PLAIN[key]
+
+
+def _assert_equal_hits(got, ref):
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("step", sorted(CT.STEPS))
+@pytest.mark.parametrize("n_shared", [0, 64, None])
+@pytest.mark.parametrize("n_rays", [1, 129, 4133, 2 ** 18])
+def test_warp_kernels_equal_plain(mesh_scene, n_rays, n_shared, step):
+    """The warp-cooperative K2/K3 of every design step equal the plain
+    versions bit for bit with 0, 64 and all records in shared memory, on
+    more rays than the card holds at once (warps take several batches)."""
+    sc = mesh_scene
+    args, ref = _plain_hits(sc, n_rays)
+    sched = CT.STEPS[step]
+    tri_k = CT.kernel_tris(sc.bvh_tris, sched.layout)
+    if n_shared is None:
+        n_shared = sc.bvh_nodes.shape[0]
+    before = dict(CT.launches)
+    got = CT.launch_closest(sc.bvh_nodes, tri_k, *args, sched, n_shared)
+    occ = CT.launch_any(sc.bvh_nodes, tri_k, *args, sched, n_shared)
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(sc.device)
+    assert CT.launches["bvh4_closest_hit"] == before["bvh4_closest_hit"] + 1
+    assert CT.launches["bvh4_any_hit"] == before["bvh4_any_hit"] + 1
+    _assert_equal_hits((*got, occ), ref)
+
+
+@pytest.mark.parametrize("n_rays", [1, 129, 4133, 65536])
+def test_reference_equals_plain(mesh_scene, n_rays):
+    """K2's former walk (K4's kernel at P = 1) equals the plain K2."""
+    sc = mesh_scene
+    args, ref = _plain_hits(sc, n_rays)
+    before = dict(CT.launches)
+    got = CT.closest_hit_reference(sc.bvh_nodes, sc.bvh_tris, *args)
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(sc.device)
+    assert (CT.launches["bvh4_closest_hit_ref"]
+            == before["bvh4_closest_hit_ref"] + 1)
+    _assert_equal_hits(got, ref[:4])
+
+
+def _dup_soup(n_tris, n_rays, seed, device):
+    """Random triangles, each twice (coincident pairs), in a BVH."""
+    from epsm_mitsuba3_torch.ops import bvh as BT
+    tri, o, d, maxt = _soup(n_tris, n_rays, seed)
+    verts = torch.cat([tri[:, 0:3], tri[:, 0:3] + tri[:, 3:6],
+                       tri[:, 0:3] + tri[:, 6:9]], 1).reshape(-1, 3)
+    faces = torch.arange(3 * n_tris, dtype=torch.int32).reshape(-1, 3)
+    faces = torch.cat([faces, faces])
+    bvh = BT.build(verts, faces, device=device)
+    nodes, rows, _ = CT.pack_bvh4(bvh, verts.to(device), faces.to(device))
+    return bvh, nodes, rows, [x.to(device) for x in (o, d, maxt)]
+
+
+@pytest.mark.parametrize("step", sorted(CT.STEPS))
+def test_warp_kernels_on_ties_and_full_leaves(mesh_scene, step):
+    """Coincident triangles (every triangle twice) and leaves of 32: the
+    warp reduction keeps the plain version's slot, u and v exactly."""
+    sched = CT.STEPS[step]
+    bvh, nodes, rows, args = _dup_soup(1500, 20000, 11, mesh_scene.device)
+    assert bool((mesh_scene.bvh.c4_cnt == 32).any())
+    scenes = [(nodes, rows, args),
+              (mesh_scene.bvh_nodes, mesh_scene.bvh_tris,
+               [x.to(mesh_scene.device) for x in _mesh_rays(20000, 3)])]
+    for nodes, rows, args in scenes:
+        tri_k = CT.kernel_tris(rows, sched.layout)
+        got = (*CT.launch_closest(nodes, tri_k, *args, sched),
+               CT.launch_any(nodes, tri_k, *args, sched))
+        ref = (*TR.bvh_ray_intersect_plain(nodes, rows, *args),
+               TR.bvh_ray_test_plain(nodes, rows, *args))
+        _assert_equal_hits(got, ref)
+    hits = ref[1] >= 0
+    assert hits.any()
+
+
+def test_lane_counts(mesh_scene):
+    """The counting builds return the same hits and lane utilisations in
+    (0, 1]."""
+    sc = mesh_scene
+    args, ref = _plain_hits(sc, 4133)
+    for name, fn in (
+            ("warp", lambda c: CT.launch_closest(
+                sc.bvh_nodes, sc.bvh_tris_k, *args, counts=c)),
+            ("reference", lambda c: CT.closest_hit_reference(
+                sc.bvh_nodes, sc.bvh_tris, *args, counts=c))):
+        counts = torch.zeros(4, dtype=torch.int64, device=sc.device)
+        got = fn(counts)
+        _assert_equal_hits(got, ref[:4])
+        steps, active, leaf_steps, leaf_active = counts.tolist()
+        assert 0 < active <= 32 * steps, name
+        assert 0 < leaf_active <= 32 * leaf_steps, name
 
 
 @pytest.mark.parametrize("scene_fn", [cornell_box, cornell_box_mesh])

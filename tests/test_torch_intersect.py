@@ -199,9 +199,9 @@ def test_accel_refuses_bvh_sized_scene():
     assert torch.equal(pi.valid, ref[1] >= 0)
     assert torch.equal(pi.prim_index, ref[1].clamp(min=0))
     tree = BT.build(big.vertices, big.faces)
-    nodes, tris = CT.pack_bvh4(tree, big.vertices, big.faces)
+    nodes, tris, tris_k = CT.pack_bvh4(tree, big.vertices, big.faces)
     with_bvh = dataclasses.replace(big, bvh=tree, bvh_nodes=nodes,
-                                   bvh_tris=tris)
+                                   bvh_tris=tris, bvh_tris_k=tris_k)
     assert not accel.use_brute_force(with_bvh)
     pi_b = accel.ray_intersect(with_bvh, ray)
     assert torch.equal(pi_b.valid, pi.valid)

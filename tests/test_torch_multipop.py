@@ -138,7 +138,8 @@ def test_k4_plain_matches_pallas_k4_interpreted():
 
     bt = BT.from_arrays({k: np.asarray(getattr(bj, k))
                          for k in BT.ARRAY_FIELDS}, "cpu")
-    nodes, tri = CT.pack_bvh4(bt, torch.from_numpy(V), torch.from_numpy(F))
+    nodes, tri, _ = CT.pack_bvh4(bt, torch.from_numpy(V),
+                                 torch.from_numpy(F))
     t, slot, u, v = TT.bvh_ray_intersect_plain(
         nodes, tri, torch.from_numpy(o), torch.from_numpy(d),
         torch.from_numpy(maxt), multi_pop=4)
