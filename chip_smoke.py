@@ -19,14 +19,21 @@ Phases (any failed check raises, and the script exits non-zero):
    timed renders, with the launch counts set to 0 before and read after
    each;
 4. K2/K3 against their plain versions on ``cornell_box_mesh``'s 2^21
-   camera and bounce rays (a tenth dead), and on 65,536 of them against
-   K1's plain brute force over all 64,812 triangles; the stack-overflow
-   flag stays 0;
-5. K2/K3 times, with the rays unsorted and Morton-sorted (sort
-   included), beside the plain versions' and the bound; then K4 at P = 2
-   and 4 on the same rays against its plain version (every output
-   equal), against K2 (t and valid equal, tie rays counted) and against
-   the brute force, timed beside K2 in the same call;
+   camera and bounce rays (a tenth dead), bit for bit (0 lanes may
+   differ), as is the reference (K2's former one-thread-a-ray walk), and
+   on 65,536 of them against K1's plain brute force over all 64,812
+   triangles; the stack-overflow flag stays 0;
+5. K4 at P = 2 and 4 on the same rays against its plain version (every
+   output equal), against K2 (t and valid equal, tie rays counted) and
+   against the brute force; then the times of K2, the reference, K3 and
+   K4 at both widths, with the rays unsorted, Morton-sorted (sort
+   included) and pre-sorted, in two rounds (the second reversed), beside
+   the plain versions' and the bound; K2 and K3 at each design step and
+   launch variant, each equal to the main path's launch; the lane
+   utilisation of K2 and of the reference (counting builds); and, on the
+   rays one 8-spp mesh pass hands to ``closest_hit`` / ``any_hit`` (the
+   two wrapped in this script), K2 and K3 against the reference and
+   timed, depth by depth;
 6. the mesh's primal render at full width: ``render(load_dict(
    cornell_box_mesh(512, 8, 6)), spp=16, spp_chunk=8)``, each launching
    K2 and K3 12 times and K1 never;
@@ -425,14 +432,17 @@ def variants():
     main = CT.SCHEDULE
     out = {f"step {k}": v for k, v in CT.STEPS.items()}
     out.update({
-        "step 1+2, rows padded to 48 B": CT.Schedule(
-            "pad", 128, False, False, False),
-        "step 1+2+3 at 512 threads": replace(main, threads=512),
+        "step 1+2+3, leaves always warp-wide": replace(main, serial=0),
+        "step 1+2+3, serial at 1/2": replace(main, serial=4),
+        "step 1+2+3, serial at 3/2": replace(main, serial=12),
+        "step 1+2+3, serial at 2": replace(main, serial=16),
+        "step 1+2+3, leaves always lane by lane": replace(
+            main, serial=2 ** 20),
         "step 1+2+3 at 768 threads": replace(main, threads=768),
-        "step 1+2+3, static stride": replace(main, counter=False),
-        "step 1+2+3, rows padded to 48 B": replace(main, layout="pad"),
         "step 1+2+3 without the shared top (R = 0)": replace(
-            main, shared=False)})
+            main, shared=False),
+        "step 1+2+3 at 128 threads, R = 0": replace(
+            main, threads=128, shared=False)})
     return out
 
 
@@ -472,9 +482,9 @@ def time_steps(scene, o, d, maxt):
               for k in ("K2", "K3") for kind in ("unsorted", "presorted")}
         out[name] = ms
         say(f"[steps] {name} ({v.layout}, {v.threads} threads, "
-            f"{'persistent' if v.persistent else 'one block per rays'}, "
-            f"{'atomic batches' if v.counter else 'static stride'}, "
-            f"{'top in shared memory' if v.shared else 'R = 0'}): "
+            f"{'persistent, refilled' if v.persistent else 'a warp per 32 rays'}"
+            f", {'top in shared memory' if v.shared else 'R = 0'}, serial "
+            f"{v.serial}/8): "
             + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items())
             + "; hits equal the main path's")
     return out

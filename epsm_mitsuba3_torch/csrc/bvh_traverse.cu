@@ -67,11 +67,10 @@ constexpr int kMaxStack = 64;
 constexpr int kRecordBytes = 128;  // 32 floats, 8 float4
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNoHit = 0xffffffffu;  // above the bits of any t
-constexpr uint32_t kBulkChunk = 16384;
 
 // Triangle layouts the warp kernels read: the (F, 9) rows [p0, e1, e2],
-// the (9, F) columns of the same values, or (F, 12) rows padded to 48 B.
-enum Layout { kRows = 0, kCols = 1, kPad = 2 };
+// or the same rows padded to 48 B, three 16-byte loads a triangle.
+enum Layout { kRows = 0, kPad = 1 };
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   float r;
@@ -345,13 +344,13 @@ struct Trace {
   const float4* nodes;   // (n4, 32) records
   int n_shared;          // records [0, n_shared) copied to shared memory
   const float* tri;      // triangles in the kernel's layout
-  int n_tris;
   const float* o;
   const float* d;
   const float* maxt;
   int n_rays;
   int stack_cap;
-  unsigned* next_batch;  // atomic batch counter, or null: a static stride
+  unsigned* next_ray;    // atomic ray counter (persistent grid), or null
+  int serial_x8;         // leaf-phase switch, in eighths (serial_leaves)
   int* overflow;
   unsigned long long* counts;  // lane utilisation (counting builds only)
 };
@@ -366,17 +365,13 @@ struct Hits {
 
 template <int L>
 __device__ __forceinline__ HitTest test_row(const float* __restrict__ tri,
-                                            int n_tris, int j,
-                                            const RayIn& r, float tmax) {
+                                            int j, const RayIn& r,
+                                            float tmax) {
   float w[9];
   if (L == kRows) {
     const float* p = tri + static_cast<size_t>(j) * 9;
 #pragma unroll
     for (int c = 0; c < 9; ++c) w[c] = __ldg(p + c);
-  } else if (L == kCols) {
-#pragma unroll
-    for (int c = 0; c < 9; ++c)
-      w[c] = __ldg(tri + static_cast<size_t>(c) * n_tris + j);
   } else {
     const float4* p =
         reinterpret_cast<const float4*>(tri) + static_cast<size_t>(j) * 3;
@@ -388,79 +383,120 @@ __device__ __forceinline__ HitTest test_row(const float* __restrict__ tri,
                         r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tmax);
 }
 
-// Copy the records [0, n_shared) into shared memory once a block: one
-// thread issues bulk copies that complete on an mbarrier; every thread
-// waits on its phase 0.
-__device__ __forceinline__ void copy_top(const float4* nodes, int n_shared,
-                                         float4* sh, uint64_t* bar) {
-  if (n_shared <= 0) return;  // block-uniform
-  const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
-  if (threadIdx.x == 0) {
-    const uint32_t bytes = static_cast<uint32_t>(n_shared) * kRecordBytes;
-    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(sh));
-    const char* src = reinterpret_cast<const char*>(nodes);
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile(
-        "{\n .reg .b64 st;\n"
-        " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}"
-        ::"r"(b), "r"(bytes)
-        : "memory");
-    for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
-      const uint32_t len = bytes - off < kBulkChunk ? bytes - off : kBulkChunk;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];" ::"r"(dst + off),
-          "l"(src + off), "r"(len), "r"(b)
-          : "memory");
-    }
-  }
-  __syncthreads();  // the barrier is initialised
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(b), "r"(0u)
-        : "memory");
-  }
+// Shared memory holds record i's 16-byte word q at i * 8 + (q ^ (i & 7)):
+// lanes reading word q of records that differ in i & 7 hit different banks.
+__device__ __forceinline__ int swizzled(int i, int q) {
+  return i * 8 + (q ^ (i & 7));
 }
 
-// The first ray of the warp's next batch of 32, or >= n_rays when done.
-__device__ __forceinline__ unsigned next_base(const Trace& a,
-                                              unsigned& batch,
-                                              unsigned warps) {
-  unsigned base;
-  if (a.next_batch != nullptr) {
-    unsigned b = 0;
-    if ((threadIdx.x & 31) == 0) b = atomicAdd(a.next_batch, 1u);
-    base = __shfl_sync(kFull, b, 0) * 32u;
-  } else {
-    base = batch * 32u;
-    batch += warps;
+// Copy the records [0, n_shared) into shared memory once a block, 16
+// bytes a thread at a time with cp.async.
+__device__ __forceinline__ void copy_top(const Trace& a, float4* top) {
+  if (a.n_shared <= 0) return;  // block-uniform
+  const int words = a.n_shared * 8;
+  for (int q = threadIdx.x; q < words; q += blockDim.x) {
+    const uint32_t dst = static_cast<uint32_t>(
+        __cvta_generic_to_shared(top + swizzled(q >> 3, q & 7)));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                 "l"(a.nodes + q)
+                 : "memory");
   }
-  return base;
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
 }
 
 __device__ __forceinline__ Rec fetch(const Trace& a, const float4* top,
                                      int node) {
-  return node < a.n_shared
-             ? ld_rec(top + static_cast<size_t>(node) * 8)
-             : ldg_rec(a.nodes + static_cast<size_t>(node) * 8);
+  Rec x;
+  if (node < a.n_shared) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) x.q[q] = top[swizzled(node, q)];
+  } else {
+    x = ldg_rec(a.nodes + static_cast<size_t>(node) * 8);
+  }
+  return x;
+}
+
+// The lanes without a ray take the next ones.  On a persistent grid one
+// atomicAdd a warp hands out as many rays as it has idle lanes, in lane
+// order, until the rays run out (``more`` turns false, warp-uniform);
+// without a counter each warp takes its own 32 rays once.  Returns the
+// lane's new ray, or -1.
+__device__ __forceinline__ int take_ray(const Trace& a, bool idle,
+                                        bool& more, int warp) {
+  const int lane = threadIdx.x & 31;
+  if (a.next_ray == nullptr) {
+    more = false;
+    const int i = warp * 32 + lane;
+    return idle && i < a.n_rays ? i : -1;
+  }
+  const unsigned want = __ballot_sync(kFull, idle);
+  if (want == 0) return -1;
+  const int leader = __ffs(want) - 1;
+  unsigned base = 0;
+  if (lane == leader) base = atomicAdd(a.next_ray, __popc(want));
+  base = __shfl_sync(kFull, base, leader);
+  if (base + __popc(want) >= static_cast<unsigned>(a.n_rays)) more = false;
+  const unsigned i = base + __popc(want & ((1u << lane) - 1));
+  return idle && i < static_cast<unsigned>(a.n_rays) ? static_cast<int>(i)
+                                                     : -1;
+}
+
+// Whether the warp tests its leaves lane by lane this step: when the
+// longest lane's triangles are at most serial_x8 / 8 times the chunks of
+// 32 the warp would test together.  Coherent rays (many lanes, each with
+// a leaf of its own) go serially, scattered ones cooperatively; both give
+// the same hits.
+__device__ __forceinline__ bool serial_leaves(const Trace& a, unsigned leaf,
+                                              const Node& s, int& longest) {
+  int work = 0, chunks = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if ((leaf >> k) & 1u) {
+      work += s.cnt[k];
+      chunks += (s.cnt[k] + 31) >> 5;
+    }
+  }
+  longest = __reduce_max_sync(kFull, work);
+  const int total = __reduce_add_sync(kFull, chunks);
+  return longest * 8 <= total * a.serial_x8;
 }
 
 // K2's leaf phase: each lane's entered leaf children (bits of ``leaf``),
-// lane after lane, children in child order, 32 triangles at a time across
-// the warp.  A child is tested when its near distance is below the
-// owner's t as it stands, and a triangle hits below it.
+// children in child order, a child tested when its near distance is below
+// the ray's t as it stands and a triangle hit below it.  Either each lane
+// tests its own triangles one after another, or the warp takes the lanes
+// one by one and tests 32 of the owner's triangles at a time, one a lane.
 template <int L, bool kCount>
 __device__ __forceinline__ void closest_leaves(
     const Trace& a, unsigned leaf, const Node& s, const RayIn& r,
     float& best_t, int& best, float& best_u, float& best_v, LaneCount& c) {
   const int lane = threadIdx.x & 31;
+  int longest;
+  const bool serial = serial_leaves(a, leaf, s, longest);
+  if (longest == 0) return;  // warp-uniform: no leaf this step
+  if (serial) {
+    int tests = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!((leaf >> k) & 1u) || !(s.near[k] < best_t)) continue;
+      for (int j = 0; j < s.cnt[k]; ++j) {
+        const HitTest h = test_row<L>(a.tri, s.id[k] + j, r, best_t);
+        if (h.hit) {
+          best_t = h.t;
+          best = s.id[k] + j;
+          best_u = h.u;
+          best_v = h.v;
+        }
+      }
+      tests += s.cnt[k];
+    }
+    if (kCount) {
+      c.leaf_steps += __reduce_max_sync(kFull, tests);
+      c.leaf_active += __reduce_add_sync(kFull, tests);
+    }
+    return;
+  }
   unsigned todo = __ballot_sync(kFull, leaf != 0);
   while (todo) {
     const int src = __ffs(todo) - 1;
@@ -488,7 +524,7 @@ __device__ __forceinline__ void closest_leaves(
         unsigned key = kNoHit;
         float tu = 0.f, tv = 0.f;
         if (j < cnt) {
-          const HitTest h = test_row<L>(a.tri, a.n_tris, start + j, w, bt);
+          const HitTest h = test_row<L>(a.tri, start + j, w, bt);
           if (h.hit) {
             key = __float_as_uint(h.t);
             tu = h.u;
@@ -522,70 +558,86 @@ template <int L, int T, bool kCount>
 __global__ void __launch_bounds__(T)
 bvh4_closest_kernel(const Trace a, const Hits h) {
   extern __shared__ float4 top[];
-  __shared__ uint64_t bar;
-  copy_top(a.nodes, a.n_shared, top, &bar);
-  const int lane = threadIdx.x & 31;
-  const unsigned warps = gridDim.x * (T / 32);
-  unsigned batch = blockIdx.x * (T / 32) + threadIdx.x / 32;
+  copy_top(a, top);
+  const int warp = blockIdx.x * (T / 32) + threadIdx.x / 32;
   LaneCount c = {0, 0, 0, 0};
   int stack_node[kMaxStack];
   float stack_key[kMaxStack];
+  RayIn r = {};
+  float best_t = 0.f, best_u = 0.f, best_v = 0.f;
+  int best = -1, ray = -1, sp = 0;
+  bool more = true;
   for (;;) {
-    const unsigned base = next_base(a, batch, warps);
-    if (base >= static_cast<unsigned>(a.n_rays)) break;  // warp-uniform
-    const int i = static_cast<int>(base) + lane;
-    const bool live = i < a.n_rays;
-    const int at = live ? i : static_cast<int>(base);
-    const RayIn r = load_ray(a.o, a.d, at);
-    float best_t = live ? a.maxt[at] : 0.f;
-    int best = -1;
-    float best_u = 0.f, best_v = 0.f;
-    stack_node[0] = 0;
-    stack_key[0] = 0.f;
-    int sp = live ? 1 : 0;
-    while (__any_sync(kFull, sp > 0)) {
-      bool have = false;
-      while (sp > 0) {
-        --sp;
-        if (stack_key[sp] < best_t) {  // else stale: t shrank since
-          have = true;
-          break;
-        }
+    if (more) {
+      const int i = take_ray(a, ray < 0, more, warp);
+      if (i >= 0) {
+        ray = i;
+        r = load_ray(a.o, a.d, i);
+        best_t = a.maxt[i];
+        best = -1;
+        best_u = best_v = 0.f;
+        stack_node[0] = 0;
+        stack_key[0] = 0.f;
+        sp = 1;
       }
-      Node s = {};
-      bool enter[4] = {false, false, false, false};
-      unsigned leaf = 0;
-      if (have) {
-        s = slab(fetch(a, top, stack_node[sp]), r);
-        child_entered(s, enter);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          leaf |= static_cast<unsigned>(enter[k] && s.cnt[k] > 0) << k;
-      }
-      if (kCount) {
-        c.trav_steps += 1;
-        c.trav_active += __popc(__ballot_sync(kFull, have));
-      }
-      closest_leaves<L, kCount>(a, leaf, s, r, best_t, best, best_u, best_v,
-                                c);
-      if (have)
-        sp += push_inner(s, enter, best_t, stack_node, stack_key, sp,
-                         a.stack_cap, a.overflow);
     }
-    if (live) store_hit(i, best_t, best, best_u, best_v, h.t, h.u, h.v,
-                        h.slot);
+    if (!__any_sync(kFull, ray >= 0)) break;
+    bool have = false;
+    while (sp > 0) {
+      --sp;
+      if (stack_key[sp] < best_t) {  // else stale: t shrank since
+        have = true;
+        break;
+      }
+    }
+    Node s = {};
+    bool enter[4] = {false, false, false, false};
+    unsigned leaf = 0;
+    if (have) {
+      s = slab(fetch(a, top, stack_node[sp]), r);
+      child_entered(s, enter);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        leaf |= static_cast<unsigned>(enter[k] && s.cnt[k] > 0) << k;
+    }
+    if (kCount) {
+      c.trav_steps += 1;
+      c.trav_active += __popc(__ballot_sync(kFull, have));
+    }
+    closest_leaves<L, kCount>(a, leaf, s, r, best_t, best, best_u, best_v,
+                              c);
+    if (have)
+      sp += push_inner(s, enter, best_t, stack_node, stack_key, sp,
+                       a.stack_cap, a.overflow);
+    if (ray >= 0 && sp == 0) {
+      store_hit(ray, best_t, best, best_u, best_v, h.t, h.u, h.v, h.slot);
+      ray = -1;
+    }
   }
-  if (kCount && lane == 0) flush_counts(c, a.counts);
+  if (kCount && (threadIdx.x & 31) == 0) flush_counts(c, a.counts);
 }
 
-// K3's leaf phase: true on the lanes whose ray hit a triangle of an
-// entered leaf child; a ray stops testing at its first chunk with a hit.
+// K3's leaf phase: true on the lanes whose ray hits a triangle of an
+// entered leaf child; a ray stops testing at its first hit (serially) or
+// at its first chunk with a hit (cooperatively).
 template <int L>
 __device__ __forceinline__ bool any_leaves(const Trace& a, unsigned leaf,
                                            const Node& s, const RayIn& r,
                                            float tmax) {
   const int lane = threadIdx.x & 31;
+  int longest;
+  const bool serial = serial_leaves(a, leaf, s, longest);
+  if (longest == 0) return false;  // warp-uniform: no leaf this step
   bool mine = false;
+  if (serial) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (mine || !((leaf >> k) & 1u)) continue;
+      for (int j = 0; j < s.cnt[k] && !mine; ++j)
+        mine = test_row<L>(a.tri, s.id[k] + j, r, tmax).hit;
+    }
+    return mine;
+  }
   unsigned todo = __ballot_sync(kFull, leaf != 0);
   while (todo) {
     const int src = __ffs(todo) - 1;
@@ -608,7 +660,7 @@ __device__ __forceinline__ bool any_leaves(const Trace& a, unsigned leaf,
       for (int c0 = 0; c0 < cnt && !hit; c0 += 32) {
         const int j = c0 + lane;
         const bool mine_hit =
-            j < cnt && test_row<L>(a.tri, a.n_tris, start + j, w, tm).hit;
+            j < cnt && test_row<L>(a.tri, start + j, w, tm).hit;
         hit = __any_sync(kFull, mine_hit);
       }
     }
@@ -621,53 +673,57 @@ template <int L, int T>
 __global__ void __launch_bounds__(T)
 bvh4_any_kernel(const Trace a, const Hits h) {
   extern __shared__ float4 top[];
-  __shared__ uint64_t bar;
-  copy_top(a.nodes, a.n_shared, top, &bar);
-  const int lane = threadIdx.x & 31;
-  const unsigned warps = gridDim.x * (T / 32);
-  unsigned batch = blockIdx.x * (T / 32) + threadIdx.x / 32;
+  copy_top(a, top);
+  const int warp = blockIdx.x * (T / 32) + threadIdx.x / 32;
   int stack[kMaxStack];
+  RayIn r = {};
+  float tmax = 0.f;
+  int ray = -1, sp = 0;
+  bool occluded = false, more = true;
   for (;;) {
-    const unsigned base = next_base(a, batch, warps);
-    if (base >= static_cast<unsigned>(a.n_rays)) break;  // warp-uniform
-    const int i = static_cast<int>(base) + lane;
-    const bool live = i < a.n_rays;
-    const int at = live ? i : static_cast<int>(base);
-    const float tmax = live ? a.maxt[at] : 0.f;
-    const RayIn r = load_ray(a.o, a.d, at);
-    bool occluded = false;
-    stack[0] = 0;
-    int sp = tmax > 1e-6f ? 1 : 0;  // a ray of no extent cannot hit
-    while (__any_sync(kFull, sp > 0)) {
-      const bool have = sp > 0;
-      Node s = {};
-      bool enter[4] = {false, false, false, false};
-      unsigned leaf = 0;
-      if (have) {
-        s = slab(fetch(a, top, stack[--sp]), r);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          enter[k] = (s.near[k] <= s.far[k]) & (s.far[k] > 1e-6f) &
-                     (s.near[k] < tmax);
-          leaf |= static_cast<unsigned>(enter[k] && s.cnt[k] > 0) << k;
-        }
+    if (more) {
+      const int i = take_ray(a, ray < 0, more, warp);
+      if (i >= 0) {
+        ray = i;
+        r = load_ray(a.o, a.d, i);
+        tmax = a.maxt[i];
+        occluded = false;
+        stack[0] = 0;
+        sp = tmax > 1e-6f ? 1 : 0;  // a ray of no extent cannot hit
       }
-      if (any_leaves<L>(a, leaf, s, r, tmax)) {
-        occluded = true;
-        sp = 0;
-      } else if (have) {
+    }
+    if (!__any_sync(kFull, ray >= 0)) break;
+    const bool have = sp > 0;
+    Node s = {};
+    bool enter[4] = {false, false, false, false};
+    unsigned leaf = 0;
+    if (have) {
+      s = slab(fetch(a, top, stack[--sp]), r);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (!(enter[k] && s.cnt[k] == 0)) continue;
-          if (sp < a.stack_cap) {
-            stack[sp++] = s.id[k];
-          } else {
-            atomicOr(a.overflow, 1);
-          }
+      for (int k = 0; k < 4; ++k) {
+        enter[k] = (s.near[k] <= s.far[k]) & (s.far[k] > 1e-6f) &
+                   (s.near[k] < tmax);
+        leaf |= static_cast<unsigned>(enter[k] && s.cnt[k] > 0) << k;
+      }
+    }
+    if (any_leaves<L>(a, leaf, s, r, tmax)) {
+      occluded = true;
+      sp = 0;
+    } else if (have) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!(enter[k] && s.cnt[k] == 0)) continue;
+        if (sp < a.stack_cap) {
+          stack[sp++] = s.id[k];
+        } else {
+          atomicOr(a.overflow, 1);
         }
       }
     }
-    if (live) h.occ[i] = occluded ? 1 : 0;
+    if (ray >= 0 && sp == 0) {
+      h.occ[ray] = occluded ? 1 : 0;
+      ray = -1;
+    }
   }
 }
 
@@ -702,11 +758,8 @@ int launch(Kernel kern, int threads, const Trace& a, const Hits& h,
 // The instantiations: (layout, threads) pairs.
 #define EPSM_BVH_CONFIGS(X) \
   X(kRows, 128)             \
-  X(kCols, 128)             \
   X(kPad, 128)              \
-  X(kCols, 512)             \
-  X(kCols, 768)             \
-  X(kCols, 1024)            \
+  X(kPad, 768)              \
   X(kPad, 1024)
 
 int launch_closest(const Trace& a, const Hits& h, int layout, int threads,
@@ -745,60 +798,67 @@ int static_shared(Kernel kern, int* bytes) {
 inline int blocks_for(int n) { return (n + kBlock - 1) / kBlock; }
 
 Trace make_trace(const float* nodes, int n_shared, const float* tri,
-                 int n_tris, const float* o, const float* d,
-                 const float* maxt, int n_rays, int stack_cap,
-                 unsigned* next_batch, int* overflow,
-                 unsigned long long* counts) {
+                 const float* o, const float* d, const float* maxt,
+                 int n_rays, int stack_cap, unsigned* next_ray,
+                 int serial_x8, int* overflow, unsigned long long* counts) {
   Trace a;
   a.nodes = reinterpret_cast<const float4*>(nodes);
   a.n_shared = n_shared;
   a.tri = tri;
-  a.n_tris = n_tris;
   a.o = o;
   a.d = d;
   a.maxt = maxt;
   a.n_rays = n_rays;
   a.stack_cap = stack_cap;
-  a.next_batch = next_batch;
+  a.next_ray = next_ray;
+  a.serial_x8 = serial_x8;
   a.overflow = overflow;
   a.counts = counts;
   return a;
 }
 
-bool bad_trace(int stack_cap, int n_shared, const float* nodes) {
+// A persistent grid needs the ray counter; shared records need 16-byte
+// aligned nodes.
+bool bad_trace(int stack_cap, int n_shared, const float* nodes,
+               int persistent, const unsigned* next_ray) {
   return stack_cap < 1 || stack_cap > kMaxStack || n_shared < 0 ||
-         (n_shared > 0 && reinterpret_cast<uintptr_t>(nodes) % 16 != 0);
+         (n_shared > 0 && reinterpret_cast<uintptr_t>(nodes) % 16 != 0) ||
+         (persistent != 0) != (next_ray != nullptr);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Closest hit through the BVH4 (K2).  nodes (n4, 32) records of pack_bvh4,
-// 16-byte aligned; the first n_shared of them are copied to shared memory
-// (n_shared * 128 bytes within bvh4_shared_budget); tri the n_tris
+// Closest hit through the BVH4 (K2).  nodes (n4, 32) records of pack_bvh4;
+// the first n_shared of them are copied to shared memory (n_shared * 128
+// bytes within bvh4_shared_budget; the nodes 16-byte aligned); tri the
 // triangles in leaf order in ``layout`` (0: (F, 9) rows [p0, e1, e2], 1:
-// (9, F) columns, 2: (F, 12) rows padded to 48 B); o, d (n_rays, 3); maxt
-// (n_rays,); all float32, contiguous, on the current device; stack_cap
-// <= 64.  ``threads`` a block and ``layout`` must be one of the compiled
-// configurations; ``persistent`` sizes the grid to the blocks resident at
-// once, and next_batch (a zeroed uint32, or null for a static stride)
-// hands out the batches of 32 rays.  Writes t (+inf on a miss), u, v (0
-// on a miss) and slot (the row of tri, -1 on a miss); sets *overflow to 1
-// if a ray ran out of stack.  With ``counts`` (4 zeroed uint64), counts
-// the lane utilisation: traversal steps, their active lanes, leaf steps,
-// their active lanes.  Returns the launch's CUDA error.
+// (F, 12) rows padded to 48 B); o, d (n_rays, 3); maxt (n_rays,); all
+// float32, contiguous, on the current device; stack_cap <= 64.
+// ``layout`` and ``threads`` a block must be one of the compiled
+// configurations.  A ``persistent`` grid holds the blocks resident at once
+// and its lanes take rays from next_ray (a zeroed uint32); otherwise
+// next_ray is null and each warp takes 32 rays.  A step's leaves are
+// tested lane by lane when the longest lane's triangles are at most
+// serial_x8 / 8 times the warp's chunks of 32, else warp-wide.  Writes t
+// (+inf on a miss), u, v (0 on a miss) and slot (the row of tri, -1 on a
+// miss); sets *overflow to 1 if a ray ran out of stack.  With ``counts``
+// (4 zeroed uint64), counts the lane utilisation: traversal steps, their
+// active lanes, leaf steps, their active lanes.  Returns the launch's
+// CUDA error.
 int bvh4_closest_hit(const float* nodes, int n_shared, const float* tri,
-                     int n_tris, int layout, const float* o, const float* d,
+                     int layout, const float* o, const float* d,
                      const float* maxt, int n_rays, int stack_cap,
-                     int threads, int persistent, unsigned* next_batch,
-                     float* t_out, float* u_out, float* v_out, int* slot_out,
-                     int* overflow, unsigned long long* counts,
+                     int threads, int persistent, unsigned* next_ray,
+                     int serial_x8, float* t_out, float* u_out, float* v_out,
+                     int* slot_out, int* overflow, unsigned long long* counts,
                      cudaStream_t stream) {
-  if (bad_trace(stack_cap, n_shared, nodes))
+  if (bad_trace(stack_cap, n_shared, nodes, persistent, next_ray))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Trace a = make_trace(nodes, n_shared, tri, n_tris, o, d, maxt,
-                             n_rays, stack_cap, next_batch, overflow, counts);
+  const Trace a = make_trace(nodes, n_shared, tri, o, d, maxt, n_rays,
+                             stack_cap, next_ray, serial_x8, overflow,
+                             counts);
   Hits h = {t_out, u_out, v_out, slot_out, nullptr};
   return launch_closest(a, h, layout, threads, persistent, stream);
 }
@@ -806,14 +866,14 @@ int bvh4_closest_hit(const float* nodes, int n_shared, const float* tri,
 // Any hit (K3): occ[i] = 1 where some triangle passes the closest hit's
 // test; the other arguments as bvh4_closest_hit's.
 int bvh4_any_hit(const float* nodes, int n_shared, const float* tri,
-                 int n_tris, int layout, const float* o, const float* d,
+                 int layout, const float* o, const float* d,
                  const float* maxt, int n_rays, int stack_cap, int threads,
-                 int persistent, unsigned* next_batch, uint8_t* occ_out,
-                 int* overflow, cudaStream_t stream) {
-  if (bad_trace(stack_cap, n_shared, nodes))
+                 int persistent, unsigned* next_ray, int serial_x8,
+                 uint8_t* occ_out, int* overflow, cudaStream_t stream) {
+  if (bad_trace(stack_cap, n_shared, nodes, persistent, next_ray))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Trace a = make_trace(nodes, n_shared, tri, n_tris, o, d, maxt,
-                             n_rays, stack_cap, next_batch, overflow,
+  const Trace a = make_trace(nodes, n_shared, tri, o, d, maxt, n_rays,
+                             stack_cap, next_ray, serial_x8, overflow,
                              nullptr);
   Hits h = {nullptr, nullptr, nullptr, nullptr, occ_out};
   return launch_any(a, h, layout, threads, persistent, stream);

@@ -65,31 +65,35 @@ K4_WIDTHS = (2, 4)
 #: bytes of one node record (32 float32)
 RECORD_BYTES = 128
 #: the triangle layouts K2/K3 read (``bvh_traverse.cu`` ``Layout``): the
-#: (F, 9) rows, their (9, F) columns, or (F, 12) rows padded to 48 bytes
-LAYOUTS = {"rows": 0, "cols": 1, "pad": 2}
+#: (F, 9) rows, or (F, 12) rows padded to 48 bytes
+LAYOUTS = {"rows": 0, "pad": 1}
 
 
 @dataclass(frozen=True)
 class Schedule:
-    """How K2/K3 are launched: the triangle layout they read, the threads
-    a block (each pair one of the kernel's compiled configurations), a
-    persistent grid or one block per ``threads`` rays, batches of 32 rays
-    handed out by an atomic counter or by a static stride, and the top of
-    the tree copied to shared memory or not."""
-    layout: str = "cols"
+    """How K2/K3 are launched: the triangle layout they read and the
+    threads a block (each pair one of the kernel's compiled
+    configurations); a persistent grid, whose lanes take a new ray from an
+    atomic counter when theirs is done, or one warp per 32 rays; the top
+    of the tree copied to shared memory or not; and the leaf-phase switch:
+    a step's leaves are tested lane by lane when the longest lane's
+    triangles are at most ``serial / 8`` times the warp's chunks of 32,
+    else warp-wide (0: always warp-wide)."""
+    layout: str = "pad"
     threads: int = 1024
     persistent: bool = True
-    counter: bool = True
     shared: bool = True
+    serial: int = 8
 
 
 #: the main path's K2/K3 launch
 SCHEDULE = Schedule()
 #: the design steps, each timed by ``chip_smoke.py``: warp-cooperative
-#: leaf tests alone (on the (F, 9) rows), with the column layout, and with
-#: the top of the tree in shared memory on a persistent grid
-STEPS = {"1": Schedule("rows", 128, False, False, False),
-         "1+2": Schedule("cols", 128, False, False, False),
+#: leaf tests alone (on the (F, 9) rows, one warp per 32 rays), with the
+#: rows padded to 48 bytes, and with the top of the tree in shared memory
+#: on a persistent grid whose lanes refill
+STEPS = {"1": Schedule("rows", 128, False, False),
+         "1+2": Schedule("pad", 128, False, False),
          "1+2+3": SCHEDULE}
 
 #: launches of each kernel entry, counted where the launch happens
@@ -108,11 +112,10 @@ def build() -> ctypes.CDLL:
         return _lib
     lib = _native.load(SPEC)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bvh4_closest_hit.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr,
-                                     i32, i32, i32, i32, ptr, ptr, ptr, ptr,
-                                     ptr, ptr, ptr, ptr]
-    lib.bvh4_any_hit.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr,
-                                 i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+    trace = [ptr, i32, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+             i32]
+    lib.bvh4_closest_hit.argtypes = trace + [ptr] * 7
+    lib.bvh4_any_hit.argtypes = trace + [ptr] * 3
     lib.bvh4_closest_hit_mp.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                         i32, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.bvh4_closest_hit_ref.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
@@ -127,10 +130,8 @@ def build() -> ctypes.CDLL:
 
 def kernel_tris(tri: torch.Tensor, layout: str = SCHEDULE.layout
                 ) -> torch.Tensor:
-    """The (F, 9) triangle rows in a K2/K3 layout of ``LAYOUTS``: "cols"
-    is (9, F), "pad" (F, 12) with zeros after each row, "rows" ``tri``."""
-    if layout == "cols":
-        return tri.t().contiguous()
+    """The (F, 9) triangle rows in a K2/K3 layout of ``LAYOUTS``: "pad"
+    is (F, 12) with zeros after each row, "rows" ``tri`` itself."""
     if layout == "pad":
         return torch.cat([tri, tri.new_zeros(tri.shape[0], 3)], 1)
     if layout == "rows":
@@ -221,8 +222,8 @@ def _check(nodes, tri, o, d, maxt):
 def _layout_tris(tri_k, layout, device) -> int:
     """The number of triangles in ``tri_k``, checked to be a contiguous
     float32 tensor of ``layout``'s shape on ``device``."""
-    n = tri_k.shape[-1] if layout == "cols" else tri_k.shape[0]
-    shape = {"rows": (n, 9), "cols": (9, n), "pad": (n, 12)}[layout]
+    n = tri_k.shape[0]
+    shape = {"rows": (n, 9), "pad": (n, 12)}[layout]
     if (tuple(tri_k.shape) != shape or tri_k.dtype != torch.float32
             or tri_k.device != device or not tri_k.is_contiguous()):
         raise ValueError(f"K2/K3: the {layout!r} triangles must be a "
@@ -261,7 +262,7 @@ def raise_on_overflow(device) -> None:
 def _trace_args(nodes, tri_k, o, d, maxt, schedule, n_shared):
     """The leading arguments of the K2/K3 entries, and the batch counter
     (kept alive by the caller until the launch)."""
-    n_tris = _layout_tris(tri_k, schedule.layout, o.device)
+    _layout_tris(tri_k, schedule.layout, o.device)
     if n_shared is None:
         n_shared = (shared_records(nodes.shape[0], shared_budget(o.device))
                     if schedule.shared else 0)
@@ -272,12 +273,12 @@ def _trace_args(nodes, tri_k, o, d, maxt, schedule, n_shared):
     if n_shared > 0 and nodes.data_ptr() % 16 != 0:
         raise ValueError("K2/K3: node records must be 16-byte aligned")
     counter = (torch.zeros(1, dtype=torch.int32, device=o.device)
-               if schedule.counter else None)
-    args = (nodes.data_ptr(), n_shared, tri_k.data_ptr(), n_tris,
-            LAYOUTS[schedule.layout],
-            o.data_ptr(), d.data_ptr(), maxt.data_ptr(), o.shape[0],
-            _stack_cap(), schedule.threads, int(schedule.persistent),
-            None if counter is None else counter.data_ptr())
+               if schedule.persistent else None)
+    args = (nodes.data_ptr(), n_shared, tri_k.data_ptr(),
+            LAYOUTS[schedule.layout], o.data_ptr(), d.data_ptr(),
+            maxt.data_ptr(), o.shape[0], _stack_cap(), schedule.threads,
+            int(schedule.persistent),
+            None if counter is None else counter.data_ptr(), schedule.serial)
     return args, counter
 
 

@@ -281,6 +281,25 @@ def test_warp_kernels_on_ties_and_full_leaves(mesh_scene, step):
     assert hits.any()
 
 
+@pytest.mark.parametrize("serial", [0, 2 ** 20])
+def test_leaf_phase_either_way(mesh_scene, serial):
+    """Leaves tested always warp-wide and always lane by lane give the
+    plain version's hits, on scattered rays and on coincident triangles."""
+    from dataclasses import replace
+    sched = replace(CT.SCHEDULE, serial=serial)
+    _, nodes, rows, soup = _dup_soup(1500, 20000, 12, mesh_scene.device)
+    args, ref = _plain_hits(mesh_scene, 2 ** 18)
+    for nodes, rows, args, ref in (
+            (nodes, rows, soup, None),
+            (mesh_scene.bvh_nodes, mesh_scene.bvh_tris, args, ref)):
+        if ref is None:
+            ref = (*TR.bvh_ray_intersect_plain(nodes, rows, *args),
+                   TR.bvh_ray_test_plain(nodes, rows, *args))
+        tri_k = CT.kernel_tris(rows, sched.layout)
+        _assert_equal_hits((*CT.launch_closest(nodes, tri_k, *args, sched),
+                            CT.launch_any(nodes, tri_k, *args, sched)), ref)
+
+
 def test_lane_counts(mesh_scene):
     """The counting builds return the same hits and lane utilisations in
     (0, 1]."""

@@ -31,9 +31,10 @@ def test_kernel_layout_equals_rows(mesh_scene, when):
         moved = sc.set_vertices(sc.vertices * 0.9 + 0.01)
         assert not torch.equal(moved.bvh_tris_k, sc.bvh_tris_k)
         sc = moved
-    assert sc.bvh_tris_k.shape == (9, sc.faces.shape[0])
+    assert sc.bvh_tris_k.shape == (sc.faces.shape[0], 12)
     assert sc.bvh_tris_k.is_contiguous()
-    assert torch.equal(sc.bvh_tris_k.t(), sc.bvh_tris)
+    assert torch.equal(sc.bvh_tris_k[:, :9], sc.bvh_tris)
+    assert not sc.bvh_tris_k[:, 9:].any()
 
 
 @pytest.mark.parametrize("layout", sorted(CT.LAYOUTS))
@@ -42,14 +43,12 @@ def test_kernel_tris_layouts(mesh_scene, layout):
     k = CT.kernel_tris(tri, layout)
     assert k.is_contiguous()
     assert CT._layout_tris(k, layout, tri.device) == tri.shape[0]
-    if layout == "cols":
-        assert torch.equal(k.t(), tri)
-    elif layout == "pad":
+    if layout == "pad":
         assert torch.equal(k[:, :9], tri)
         assert not k[:, 9:].any()
     else:
         assert k is tri
-    bad = k[:-1] if layout == "cols" else k[:, :-1].contiguous()
+    bad = k[:, :-1].contiguous()
     with pytest.raises(ValueError):
         CT._layout_tris(bad, layout, tri.device)
 
@@ -60,8 +59,7 @@ def test_schedules_are_compiled_configurations():
     src = (_native.PKG / "csrc" / "bvh_traverse.cu").read_text()
     body = src[src.index("#define EPSM_BVH_CONFIGS"):]
     body = body[:body.index("\n\n")]
-    names = {v: k for k, v in {"rows": "kRows", "cols": "kCols",
-                               "pad": "kPad"}.items()}
+    names = {"kRows": "rows", "kPad": "pad"}
     compiled = {(names[a], int(b))
                 for a, b in re.findall(r"X\((k\w+), (\d+)\)", body)}
     for sched in (CT.SCHEDULE, *CT.STEPS.values()):
