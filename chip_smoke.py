@@ -28,8 +28,8 @@ Phases (any failed check raises, and the script exits non-zero):
    against the brute force; then the times of K2, the reference, K3 and
    K4 at both widths, with the rays unsorted, Morton-sorted (sort
    included) and pre-sorted, in two rounds (the second reversed), beside
-   the plain versions' and the bound; K2 and K3 at each design step and
-   launch variant, each equal to the main path's launch; the lane
+   the plain versions' and the bound; K2 and K3 at each design step, each
+   equal to the main path's launch; the lane
    utilisation of K2 and of the reference (counting builds); and, on the
    rays one 8-spp mesh pass hands to ``closest_hit`` / ``any_hit`` (the
    two wrapped in this script), K2 and K3 against the reference and
@@ -423,33 +423,12 @@ def time_bvh(scene, o, d, maxt, plain_ms, work, k4):
     return out
 
 
-def variants():
-    """The K2/K3 launches timed beside the main path's: the design steps
-    (``cuda_traverse.STEPS``) and the alternatives of step 3's
-    schedule."""
-    from dataclasses import replace
-    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
-    main = CT.SCHEDULE
-    out = {f"step {k}": v for k, v in CT.STEPS.items()}
-    out.update({
-        "step 1+2+3, leaves always warp-wide": replace(main, serial=0),
-        "step 1+2+3, serial at 1/2": replace(main, serial=4),
-        "step 1+2+3, serial at 3/2": replace(main, serial=12),
-        "step 1+2+3, serial at 2": replace(main, serial=16),
-        "step 1+2+3, leaves always lane by lane": replace(
-            main, serial=2 ** 20),
-        "step 1+2+3 at 768 threads": replace(main, threads=768),
-        "step 1+2+3 without the shared top (R = 0)": replace(
-            main, shared=False),
-        "step 1+2+3 at 128 threads, R = 0": replace(
-            main, threads=128, shared=False)})
-    return out
-
-
 def time_steps(scene, o, d, maxt):
-    """ms a launch of K2 and K3 under each of ``variants()`` on the rays
+    """ms a launch of K2 and K3 at each design step
+    (``cuda_traverse.STEPS``: warp-wide leaf tests alone, with the 48-byte
+    rows, with the shared top on a persistent, refilling grid) on the rays
     unsorted and pre-sorted, in two rounds (the second reversed); each
-    variant's hits must equal the main path's bit for bit."""
+    step's hits must equal the main path's bit for bit."""
     import torch
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     nodes, tri = scene.bvh_nodes, scene.bvh_tris
@@ -458,7 +437,7 @@ def time_steps(scene, o, d, maxt):
            maxt[perm].contiguous())
     main = (*CT.launch_closest(nodes, scene.bvh_tris_k, o, d, maxt),
             CT.launch_any(nodes, scene.bvh_tris_k, o, d, maxt))
-    vs = variants()
+    vs = {f"step {k}": v for k, v in CT.STEPS.items()}
     layouts = {v.layout: CT.kernel_tris(tri, v.layout) for v in vs.values()}
     for name, v in vs.items():
         tk = layouts[v.layout]
@@ -481,9 +460,9 @@ def time_steps(scene, o, d, maxt):
         ms = {f"{k} {kind}": sum(runs[(name, k, kind)]) / 2
               for k in ("K2", "K3") for kind in ("unsorted", "presorted")}
         out[name] = ms
-        say(f"[steps] {name} ({v.layout}, {v.threads} threads, "
-            f"{'persistent, refilled' if v.persistent else 'a warp per 32 rays'}"
-            f", {'top in shared memory' if v.shared else 'R = 0'}, serial "
+        grid = "persistent, refilled" if v.persistent else "32 rays a warp"
+        say(f"[steps] {name} ({v.layout}, {v.threads} threads, {grid}, "
+            f"{'top in shared memory' if v.shared else 'R = 0'}, serial "
             f"{v.serial}/8): "
             + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items())
             + "; hits equal the main path's")

@@ -11,42 +11,51 @@
 // What bounds it: the work is data-dependent, node pops and triangle tests
 // a ray.  On the main path (64,812 triangles, camera, bounce and shadow
 // rays) a ray reads 44 bytes of ray and hit against a few thousand FP32
-// operations of slab and Moeller-Trumbore tests, so the FP32 issue rate
-// bounds the function: the tree (1.4k records of 128 B, 182 KB) and the
-// leaf-ordered triangles (2.3 MB) stay in the 50 MB L2.  What held the
-// one-thread-a-ray walk back was latency, not divergence: a live ray
-// tests ~10 triangles of fat leaves of up to 32, one after another, each
-// 9 scattered 4-byte loads, and every pop waits on a record from L2.
+// operations of slab and Moeller-Trumbore tests, so the FP32 instruction
+// rate bounds the function: the tree (1.4k records of 128 B, 182 KB) and
+// the leaf-ordered triangles (2.3 MB) stay in the 50 MB L2.  The
+// one-thread-a-ray walk ran at 2 % of that bound, held back twice over
+// (lane utilisation from the counting builds, chip_smoke.py): a live ray
+// tests ~10 triangles of fat leaves of up to 32 one after another, each a
+// chain of scattered loads, while its warp's other lanes idle (7 % of the
+// lanes active in the leaf loop); and a warp runs until its longest ray is
+// done (32 % active in the traversal loop).
 //
 // Design (K2 and K3): one lane a ray, with its own stack of up to 64
 // entries in local memory, walking the tree in the plain version's order:
 // pop, stale-entry cull (a popped key not below the ray's current t is
 // skipped), slab test of the record's 4 child boxes, then the inner
 // children still entered pushed far-first, each keyed by its near
-// distance.  Between the slab test and the pushes the warp tests leaves
-// together: for each lane with leaf children entered (a ballot), in lane
-// order, its children in child order, 32 triangles at a time, one a lane,
-// against the owner's ray and t broadcast by shuffles.  A leaf's rows are
-// contiguous (leaf order), and the kernels read them as 9 columns of F
-// floats, so a chunk's loads coalesce.  The closest hit reduces each chunk
-// with __reduce_min_sync on the bits of t (positive or +inf, so they order
-// as unsigned ints) and takes the lowest lane at that t: the first of
-// equal hits, as the plain version's min over a leaf and the serial loop
-// give, since a later triangle at an equal t never passes t < best.  The
-// any hit ends the owner's ray at the first chunk with a hit (__any_sync).
-// Every lane stays in the loop until the warp's rays are done: exited
-// lanes would break the full-mask shuffles.  The grid is persistent
-// (blocks per SM from the occupancy calculator), warps take batches of 32
-// rays from an atomic counter, and each block first copies the records
-// [0, R) into shared memory with one bulk copy (cp.async.bulk and an
-// mbarrier).  Records are in breadth-first order, so [0, R) is the top of
-// the tree and every child id exceeds its parent's; records >= R are read
-// from global memory.  R is a launch argument, from the block's
-// shared-memory budget.  A push past the stack sets *overflow and is
-// dropped; the wrapper reads the flag.  The Moeller-Trumbore test is K1's
-// (mt_test.cuh); built with --fmad=false, with NaN-propagating min/max as
-// torch.minimum/maximum, the kernels round as the plain versions do.
-// Ray order is left to the wrapper (Morton sort or none).
+// distance.  Between the slab test and the pushes comes the leaf phase,
+// in one of two ways chosen warp-wide at each step by its cost: either
+// each lane tests its own leaves serially (coherent rays, where most lanes
+// have a leaf), or the warp takes the lanes with leaf children in turn and
+// tests the owner's children in child order, 32 triangles at a time, one
+// a lane, against the owner's ray and t broadcast by shuffles (scattered
+// rays).  The closest hit reduces each chunk with __reduce_min_sync on the
+// bits of t (positive or +inf, so they order as unsigned ints) and takes
+// the lowest lane at that t: the first of equal hits, as the plain
+// version's min over a leaf and the serial loop give, since a later
+// triangle at an equal t never passes t < best.  The any hit ends the
+// owner's ray at the first chunk with a hit (__any_sync).  Triangles are
+// rows padded to 48 bytes, three 16-byte loads each; a leaf's rows are
+// contiguous (leaf order), so a chunk's loads coalesce.  The grid is
+// persistent (blocks per SM from the occupancy calculator); a lane whose
+// ray is done takes the next one from an atomic counter (one atomicAdd a
+// warp for all its idle lanes), so the warp no longer waits for its
+// longest ray.  Every lane stays in the loop until the rays run out:
+// exited lanes would break the full-mask shuffles.  Each block first
+// copies the records [0, R) into shared memory with cp.async, each
+// record's 16-byte words swizzled by its index so that lanes reading
+// different records hit different banks.  Records are in breadth-first
+// order, so [0, R) is the top of the tree and every child id exceeds its
+// parent's; records >= R are read from global memory.  R is a launch
+// argument, from the block's shared-memory budget.  A push past the stack
+// sets *overflow and is dropped; the wrapper reads the flag.  The
+// Moeller-Trumbore test is K1's (mt_test.cuh); built with --fmad=false,
+// with NaN-propagating min/max as torch.minimum/maximum, the kernels round
+// as the plain versions do.  Ray order is left to the wrapper (Morton sort
+// or none).
 //
 // K4 and the reference: the one-thread-a-ray walk of PR 3, with each leaf
 // tested serially by its lane (bvh4_closest_mp_kernel).  K4 exists on the
@@ -119,14 +128,6 @@ __device__ __forceinline__ Rec ldg_rec(const float4* __restrict__ p) {
   Rec x;
 #pragma unroll
   for (int q = 0; q < 8; ++q) x.q[q] = __ldg(p + q);
-  return x;
-}
-
-// a record in shared or global memory, through a generic pointer
-__device__ __forceinline__ Rec ld_rec(const float4* p) {
-  Rec x;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) x.q[q] = p[q];
   return x;
 }
 
@@ -759,7 +760,6 @@ int launch(Kernel kern, int threads, const Trace& a, const Hits& h,
 #define EPSM_BVH_CONFIGS(X) \
   X(kRows, 128)             \
   X(kPad, 128)              \
-  X(kPad, 768)              \
   X(kPad, 1024)
 
 int launch_closest(const Trace& a, const Hits& h, int layout, int threads,

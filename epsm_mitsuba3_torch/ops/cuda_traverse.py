@@ -11,13 +11,14 @@ at first use into ``_build/`` by ``ops/_native.py`` and loaded with
 ``closest_hit``'s ``multi_pop`` picks the schedule: 0 or 1 is K2, 2 or 4
 is K4 popping that many stack entries an iteration.
 
-K2 and K3 walk the tree one lane a ray and test leaves warp-wide, 32
-triangles of one ray's leaf at a time, one a lane: a lone lane testing
-the up to 32 triangles of a fat leaf one after another, each a chain of
-scattered loads, was what held the one-thread-a-ray walk back (latency,
-not divergence).  They read the triangles as 9 columns of F floats
-(``kernel_tris``), so a chunk's loads coalesce, run a persistent grid
-whose blocks first copy the top ``R`` node records into shared memory
+K2 and K3 walk the tree one lane a ray and test leaves either lane by
+lane or warp-wide, 32 triangles of one ray's leaf at a time, one a lane,
+whichever a step's leaves make cheaper; on a persistent grid a lane whose
+ray is done takes the next one from an atomic counter.  The one-thread-a-
+ray walk they replace was held back by both: a lone lane testing the up
+to 32 triangles of a fat leaf one after another, and warps waiting for
+their longest ray.  They read the triangles as rows padded to 48 bytes
+(``kernel_tris``), keep the top ``R`` node records in shared memory
 (``shared_records``), and take the launch configuration of ``SCHEDULE``.
 K4 and ``closest_hit_reference`` (K2's former walk, kept to time the
 redesign against) test each leaf serially in their lane, on the (F, 9)
@@ -52,8 +53,8 @@ MAX_STACK = 64
 
 #: whether ``closest_hit`` / ``any_hit`` Morton-sort the rays by default.
 #: Set from ``chip_smoke.py`` on the main path's 2^21 rays (H100 80GB
-#: HBM3, 700 W): K2 1.29 ms unsorted against 3.88 ms sorted, sort
-#: included, and 1.16 ms on rays sorted beforehand; K3 0.57, 3.55, 0.60
+#: HBM3, 700 W): K2 0.51 ms unsorted against 5.0 ms sorted, sort
+#: included, and 0.50 ms on rays sorted beforehand; K3 0.28, 4.6, 0.29
 SORT_RAYS = False
 
 #: ``closest_hit``'s schedule where no caller names one: 0 is K2, 2 or 4
@@ -272,6 +273,9 @@ def _trace_args(nodes, tri_k, o, d, maxt, schedule, n_shared):
                          "shared memory")
     if n_shared > 0 and nodes.data_ptr() % 16 != 0:
         raise ValueError("K2/K3: node records must be 16-byte aligned")
+    if schedule.layout == "pad" and tri_k.data_ptr() % 16 != 0:
+        raise ValueError("K2/K3: padded triangle rows must be 16-byte "
+                         "aligned")
     counter = (torch.zeros(1, dtype=torch.int32, device=o.device)
                if schedule.persistent else None)
     args = (nodes.data_ptr(), n_shared, tri_k.data_ptr(),

@@ -1,5 +1,5 @@
 """The inputs and launch rules of the warp-cooperative K2/K3 kernels, on
-the CPU: the column layout of the triangles they read, the breadth-first
+the CPU: the padded rows of the triangles they read, the breadth-first
 record order that lets a block keep the top R records in shared memory,
 R for a shared-memory budget, and the tie rule of the closest hit that
 the kernels' warp reduction reproduces."""
