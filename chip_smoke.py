@@ -11,9 +11,14 @@ Phases (any failed check raises, and the script exits non-zero):
    (``native/bvh.cpp``) with g++, all at once, and print the card's name
    and power limit and each kernel's registers, stack and spills;
 2. K1's closest-hit and any-hit entries against the plain versions on the
-   card, at the Cornell box's shape (12 triangles against 2^20 camera and
-   bounce rays, some dead) and at the largest scene K1 serves (4,096
-   triangles against 65,536 rays), and their times;
+   card, bit for bit, at three shapes: (i) the Cornell box's 12 triangles
+   against 2^20 camera and bounce rays, some dead; (ii) the largest scene
+   K1 serves, 4,096 triangles, against 65,536 rays; (iii) the same against
+   2^20 rays, a user's pass; the main path's launch, every design step of
+   ``cuda_intersect.STEPS`` and 1,000-row tiles, each timed on the device
+   alone beside the bound (the plain versions timed at (i) and (ii)); then
+   the rays one 4-spp box pass hands to ``closest_hit`` / ``any_hit``
+   (wrapped in this script), held bit for bit and timed depth by depth;
 3. the Cornell box's primal render at full width: ``render(load_dict(
    cornell_box(512, 64, 6)), spp=64, spp_chunk=4)``: a warm-up and five
    timed renders, with the launch counts set to 0 before and read after
@@ -126,6 +131,30 @@ def cuda_ms(fn, iters, warm=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters, warm=3):
+    """Mean ms a call of ``fn`` takes on the device, by CUDA events, after
+    warm-up: the calls are queued behind a sleeping kernel long enough for
+    the host to launch all of them, so the host's time a launch (the
+    wrappers' checks) does not show between them."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0  # host and device, an upper bound
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2e9, 1.5 * iters * once * 2e9)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def timed(fn):
     """(result, ms) of one call of ``fn``, by CUDA events."""
     import torch
@@ -181,18 +210,24 @@ def soup_rays(n_tris, n_rays, gen, device):
     return CI.pack_tris(verts, faces), o, d, maxt
 
 
-def anyhit_tests(tri, o, d, maxt, chunk=512):
+def anyhit_tests(tri, o, d, maxt, chunk=512, ray_chunk=2 ** 17):
     """Ray-triangle tests the any-hit entry needs on these rays: up to
     and including each ray's first hit; none for a ray of no extent."""
     import torch
     from epsm_mitsuba3_torch.ops import intersect as I
     f = tri.shape[0]
-    first = torch.full((o.shape[0],), f, dtype=torch.int64, device=o.device)
-    for base, _, hit in I.chunk_hits(tri, o, d, maxt, chunk):
-        idx = torch.arange(base, base + hit.shape[1], device=o.device)
-        first = torch.minimum(first, torch.where(hit, idx, f).amin(dim=1))
-    tests = torch.where(first < f, first + 1, f)
-    return int(torch.where(maxt > 1e-6, tests, 0).sum())
+    total = 0
+    for s in range(0, o.shape[0], ray_chunk):
+        k = slice(s, s + ray_chunk)
+        first = torch.full((o[k].shape[0],), f, dtype=torch.int64,
+                           device=o.device)
+        for base, _, hit in I.chunk_hits(tri, o[k], d[k], maxt[k], chunk):
+            idx = torch.arange(base, base + hit.shape[1], device=o.device)
+            first = torch.minimum(first,
+                                  torch.where(hit, idx, f).amin(dim=1))
+        tests = torch.where(first < f, first + 1, f)
+        total += int(torch.where(maxt[k] > 1e-6, tests, 0).sum())
+    return total
 
 
 def bound_ms(n_bytes, n_flop):
@@ -240,37 +275,181 @@ def hold(label, got, ref):
             float((occ != occ_p).float().max()) if n else 0.0)
 
 
+K1_FIELDS = ("t", "prim", "u", "v", "occ")
+
+
+def plain_k1(tri, o, d, maxt, ray_chunk=2 ** 17):
+    """The plain versions' (t, prim, u, v, occ), in chunks of rays."""
+    import torch
+    from epsm_mitsuba3_torch.ops import intersect as I
+    outs = []
+    for s in range(0, o.shape[0], ray_chunk):
+        k = slice(s, s + ray_chunk)
+        outs.append((*I.ray_intersect_brute(tri, o[k], d[k], maxt[k]),
+                     I.ray_test_brute(tri, o[k], d[k], maxt[k])))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def k1_calls(tri):
+    """Every K1 launch ``chip_smoke.py`` holds and times, by name: the
+    main path's ("main") and each design step of ``cuda_intersect.STEPS``,
+    for the closest hit and the any hit."""
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    closest = {"main": lambda o, d, m: CI.closest_hit(tri, o, d, m)}
+    anyh = {"main": lambda o, d, m: CI.any_hit(tri, o, d, m)}
+    for name, v in CI.STEPS.items():
+        if name in CI.CLOSEST_STEPS:
+            closest[name] = (lambda v_: lambda o, d, m: CI.launch_closest(
+                tri, o, d, m, v_))(v)
+        if name in CI.ANY_STEPS:
+            anyh[name] = (lambda v_: lambda o, d, m: CI.launch_any(
+                tri, o, d, m, v_))(v)
+    return {"mt_closest_hit": closest, "mt_any_hit": anyh}
+
+
 def compare_k1(label, tri, o, d, maxt):
-    """Both K1 entries against the plain versions on the same inputs."""
+    """Both K1 entries against the plain versions on the same inputs, bit
+    for bit (0 lanes may differ in t, prim, u, v or occ): the main path's
+    launch, every design step, and a launch that walks the table in tiles
+    of 1,000 rows.  Returns the largest absolute errors (t, u, v; occ) of
+    the main launch."""
+    from dataclasses import replace
     import torch
     from epsm_mitsuba3_torch.ops import cuda_intersect as CI
-    from epsm_mitsuba3_torch.ops import intersect as I
-    got = (*CI.closest_hit(tri, o, d, maxt), CI.any_hit(tri, o, d, maxt))
+    ref = plain_k1(tri, o, d, maxt)
+    calls = k1_calls(tri)
+    main = (*calls["mt_closest_hit"]["main"](o, d, maxt),
+            calls["mt_any_hit"]["main"](o, d, maxt))
     torch.cuda.synchronize()
-    ref = (*I.ray_intersect_brute(tri, o, d, maxt),
-           I.ray_test_brute(tri, o, d, maxt))
-    return hold(f"K1 {label}, {tri.shape[0]} tris", got, ref)
+    err = hold(f"K1 {label}, {tri.shape[0]} tris", main, ref)
+    got = {"main": main}
+    for name in set(calls["mt_closest_hit"]) | set(calls["mt_any_hit"]):
+        if name == "main":
+            continue
+        c = calls["mt_closest_hit"].get(name, calls["mt_closest_hit"]["main"])
+        a = calls["mt_any_hit"].get(name, calls["mt_any_hit"]["main"])
+        got[name] = (*c(o, d, maxt), a(o, d, maxt))
+    if tri.shape[0] > 1000:
+        f = tri.shape[0]
+        got["tiles of 1000"] = (
+            *CI.launch_closest(tri, o, d, maxt, replace(
+                CI.launch_rule(f, "closest"), tile=1000)),
+            CI.launch_any(tri, o, d, maxt, replace(CI.launch_rule(f, "any"),
+                                                   tile=1000)))
+    torch.cuda.synchronize()
+    for name, g in got.items():
+        diff = {k: int((a != b).sum()) for k, a, b in zip(K1_FIELDS, g, ref)}
+        check(sum(diff.values()) == 0, f"K1 {label}, launch {name!r} "
+              f"differs from the plain versions: {diff}")
+    check(bool(torch.equal(main[4], main[1] >= 0)),
+          f"K1 {label}: any hit != closest hit's valid")
+    say(f"[K1] {label}: the main launch, steps "
+        f"{', '.join(CI.STEPS)} and 1,000-row tiles equal the plain "
+        f"versions bit for bit on {o.shape[0]} rays (0 lanes differ in "
+        f"{', '.join(K1_FIELDS)}); any hit == closest valid")
+    return err
 
 
-def time_k1(tri, o, d, maxt):
-    """ms a launch of both entries and of their plain versions, and the
-    bound of each entry on these inputs."""
-    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+def time_k1(tri, o, d, maxt, iters, plain=True):
+    """ms a launch of both entries (the main path's launch and every design
+    step, two rounds, the second reversed; device time alone) and of their
+    plain versions, and the bound of each entry on these inputs."""
     from epsm_mitsuba3_torch.ops import intersect as I
     n, f = o.shape[0], tri.shape[0]
     args = (tri, o, d, maxt)
+    calls = k1_calls(tri)
+    cases = [(k, name) for k in calls for name in calls[k]]
+    runs = {c: [] for c in cases}
+    for seq in (cases, cases[::-1]):
+        for k, name in seq:
+            fn = calls[k][name]
+            runs[(k, name)].append(device_ms(lambda: fn(o, d, maxt), iters))
     out = {}
     ray_in = n * (12 + 12 + 4)
-    for name, kern, plain, out_bytes, flop in (
-            ("mt_closest_hit", CI.closest_hit, I.ray_intersect_brute,
-             16 * n, n * f * FLOP_PER_TEST),
-            ("mt_any_hit", CI.any_hit, I.ray_test_brute, n,
+    for name, plain_fn, out_bytes, flop in (
+            ("mt_closest_hit", I.ray_intersect_brute, 16 * n,
+             n * f * FLOP_PER_TEST),
+            ("mt_any_hit", I.ray_test_brute, n,
              anyhit_tests(*args) * FLOP_PER_TEST)):
-        ms = cuda_ms(lambda: kern(*args), 50)
-        plain_ms = cuda_ms(lambda: plain(*args), 5)
+        plain_ms = cuda_ms(lambda: plain_fn(*args), 5) if plain else None
         b_ms, by = bound_ms(36 * f + ray_in + out_bytes, flop)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=by)
+        steps = {s: sum(runs[(name, s)]) / 2 for s in calls[name]}
+        out[name] = dict(ms=steps.pop("main"), plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=by, steps_ms=steps)
+        v = out[name]
+        say(f"[time] {name} at {f} tris x {n} rays: {v['ms']:.4f} ms a "
+            f"launch (plain version "
+            + (f"{plain_ms:.3f} ms" if plain else "not timed")
+            + f"), bound {b_ms:.4f} ms by {by} ({b_ms / v['ms']:.1%}); "
+            "steps " + ", ".join(f"{s} {t:.4f}" for s, t in steps.items()))
+    return out
+
+
+def render_rays_k1(scene, spp):
+    """Record the rays one ``spp`` pass of the box hands to
+    ``closest_hit`` and ``any_hit`` (wrapped here, not in the package);
+    then on each depth's batch hold the main path's K1 launches against
+    the plain versions bit for bit (and the any hit against the closest
+    hit's valid on the shadow rays), and time them beside every design step
+    (two rounds, the second reversed; device time alone)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    rec = {"closest": [], "any": []}
+    orig = CI.closest_hit, CI.any_hit
+
+    def keep(kind, fn):
+        def call(tri, o, d, maxt):
+            rec[kind].append((tri.clone(), o.clone(), d.clone(),
+                              maxt.clone()))
+            return fn(tri, o, d, maxt)
+        return call
+
+    CI.closest_hit = keep("closest", orig[0])
+    CI.any_hit = keep("any", orig[1])
+    try:
+        mt.render(scene, spp=spp, seed=5)
+    finally:
+        CI.closest_hit, CI.any_hit = orig
+    torch.cuda.synchronize()
+    check(len(rec["closest"]) == DEPTH and len(rec["any"]) == DEPTH,
+          f"a pass made {len(rec['closest'])} closest-hit and "
+          f"{len(rec['any'])} any-hit calls, expected {DEPTH} each")
+    out = []
+    for depth, (c, a) in enumerate(zip(rec["closest"], rec["any"])):
+        got = (*CI.closest_hit(*c), CI.any_hit(*a))
+        ref_c = plain_k1(*c)
+        ref_a = plain_k1(*a)
+        ref = (*ref_c[:4], ref_a[4])
+        diff = {k: int((x != y).sum()) for k, x, y in
+                zip(K1_FIELDS, got, ref)}
+        check(sum(diff.values()) == 0,
+              f"depth {depth}: K1 differs from the plain versions: {diff}")
+        check(bool(torch.equal(got[4], ref_a[1] >= 0)),
+              f"depth {depth}: any hit != the closest hit's valid")
+        calls = {}
+        for k, rays in (("closest", c), ("any", a)):
+            for name, fn in k1_calls(rays[0])[f"mt_{k}_hit"].items():
+                calls[f"{k} {name}"] = (lambda f_, r_: lambda: f_(*r_[1:]))(
+                    fn, rays)
+        runs = {k: [] for k in calls}
+        for seq in (list(calls), list(calls)[::-1]):
+            for k in seq:
+                runs[k].append(device_ms(calls[k], 20))
+        ms = {k: sum(v) / 2 for k, v in runs.items()}
+        row = dict(depth=depth, rays=c[1].shape[0],
+                   live_closest=int((c[3] > 1e-6).sum()),
+                   live_any=int((a[3] > 1e-6).sum()),
+                   hits=int((got[1] >= 0).sum()),
+                   occluded=int(got[4].sum()), **ms)
+        out.append(row)
+        say(f"[render rays K1] depth {depth}: {row['rays']} rays "
+            f"({row['live_closest']} live, {row['hits']} hits) closest "
+            f"{ms['closest main']:.4f} ms; {row['live_any']} live shadow "
+            f"rays ({row['occluded']} occluded) any {ms['any main']:.4f} ms; "
+            "bit for bit equal to the plain versions; steps "
+            + ", ".join(f"{k} {t:.4f}" for k, t in ms.items()
+                        if not k.endswith(" main")))
     return out
 
 
@@ -950,24 +1129,31 @@ def main() -> int:
                     or "spill" in line or "stack frame" in line:
                 say(f"[build] {lib}: {line.strip()}")
 
-    # -- 2. K1 against its plain version ------------------------------------
+    # -- 2. K1 against its plain version, at three shapes -----------------
     gen = torch.Generator(device=dev).manual_seed(1)
     box = mt.load_dict(cornell_box(res=RES, spp=SPP_CHUNK, max_depth=DEPTH))
     tri_box = CI.pack_tris(box.vertices, box.faces)
     rays_box = main_path_rays(box, gen, SPP_CHUNK)
-    err_box = compare_k1("Cornell-box shape", tri_box, *rays_box)
-    err_big = compare_k1("largest shape", *soup_rays(4096, 65536, gen, dev))
-    times = time_k1(tri_box, *rays_box)
-    for k, v in times.items():
-        say(f"[time] {k} at 12 tris x {rays_box[0].shape[0]} rays: "
-            f"{v['ms']:.4f} ms a launch (plain version {v['plain_ms']:.3f} "
-            f"ms), bound {v['bound_ms']:.4f} ms by {v['bound_by']}")
-    big_times = time_k1(*soup_rays(4096, 65536, gen, dev))
-    for k, v in big_times.items():
-        say(f"[time] {k} at 4096 tris x 65536 rays: {v['ms']:.4f} ms a "
-            f"launch (plain {v['plain_ms']:.3f} ms), bound "
-            f"{v['bound_ms']:.4f} ms by {v['bound_by']}")
-    del rays_box
+    shapes = {
+        "i": ("Cornell-box shape", tri_box, *rays_box),
+        "ii": ("largest shape", *soup_rays(4096, 65536, gen, dev)),
+        "iii": ("largest shape, a user's pass",
+                *soup_rays(4096, 2 ** 20, gen, dev))}
+    k1_err, k1_times = {}, {}
+    for key, (label, *args) in shapes.items():
+        k1_err[key] = compare_k1(label, *args)
+        k1_times[key] = time_k1(*args, iters={"i": 50, "ii": 20,
+                                              "iii": 5}[key],
+                                plain=key != "iii")
+    del rays_box, shapes
+    k1_render = render_rays_k1(box, SPP_CHUNK)
+    times = k1_times["i"]
+    c3 = k1_times["iii"]["mt_closest_hit"]
+    ratio = {key: t["mt_any_hit"]["ms"] / t["mt_closest_hit"]["ms"]
+             for key, t in k1_times.items()}
+    say(f"[speed] closest hit at shape iii: {c3['bound_ms'] / c3['ms']:.1%} "
+        "of its bound (aim >= 60 %); any / closest at ii and iii: "
+        f"{ratio['ii']:.3f}, {ratio['iii']:.3f} (aim <= 0.25)")
 
     # -- 3. the Cornell box at full width ----------------------------------
     scene = mt.load_dict(cornell_box(res=RES, spp=SPP, max_depth=DEPTH))
@@ -1073,10 +1259,19 @@ def main() -> int:
             "source": "epsm_mitsuba3_torch/csrc/mt_intersect.cu",
             "replaces": "epsm_mitsuba3_tpu/ops/pallas_intersect.py:25",
             "launches": train_box[k],
-            "max_abs_err": max(err_box[i], err_big[i]),
+            "max_abs_err": max(e[i] for e in k1_err.values()),
             "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "steps_ms": {key: t[k]["steps_ms"]
+                         for key, t in k1_times.items()},
+            "ms_4096": {"65536": k1_times["ii"][k]["ms"],
+                        "1048576": k1_times["iii"][k]["ms"]},
+            "bound_ms_4096": {"65536": k1_times["ii"][k]["bound_ms"],
+                              "1048576": k1_times["iii"][k]["bound_ms"]},
+            "plain_ms_4096": {"65536": k1_times["ii"][k]["plain_ms"]},
+            "render_rays_ms": [r["closest main" if i == 0 else "any main"]
+                               for r in k1_render]})
     ref = bvh_times["bvh4_closest_hit_ref"]
     for i, (k, line, kk) in enumerate((("bvh4_closest_hit", 164, "K2"),
                                        ("bvh4_any_hit", 446, "K3"))):

@@ -159,8 +159,8 @@ def pack_bvh4(bvh, vertices: torch.Tensor, faces: torch.Tensor):
     boxes = torch.cat([bmin, bmax], dim=-1).reshape(-1, 24)
     nodes = torch.cat([bvh.c4_id.float(), bvh.c4_cnt.float(), boxes],
                       dim=-1).contiguous()
-    tri = CI.pack_tris(vertices, faces[bvh.order.long()])
-    return nodes, tri, kernel_tris(tri)
+    tri_k = CI.pack_tris(vertices, faces[bvh.order.long()])
+    return nodes, tri_k[:, :9].contiguous(), tri_k
 
 
 def shared_records(n_records: int, budget: int) -> int:

@@ -10,7 +10,8 @@ comes from the hit search, the gradient from the re-derivation.
 
 ``ray_intersect_brute`` and ``ray_test_brute`` are the plain versions of
 kernel K1 (``ops/cuda_intersect.py``): they take the kernel's inputs, the
-packed triangles ``tri`` (F, 9) = rows [p0, e1, e2] and the rays
+packed triangles ``tri`` (F, 12) = rows [p0, e1, e2, 0, 0, 0], of which
+they read the first 9 columns (so (F, 9) rows do as well), and the rays
 ``o``, ``d`` (N, 3), ``maxt`` (N,), and repeat its arithmetic operation
 for operation.
 """

@@ -8,6 +8,8 @@ port does not need):
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \\
         tests/test_torch_cuda.py -q
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -44,28 +46,116 @@ def _soup(n_tris, n_rays, seed):
         torch.from_numpy(maxt)
 
 
-@pytest.mark.parametrize("n_tris,n_rays", [
-    (1, 1), (12, 37), (255, 4133), (257, 4133), (600, 1000), (4096, 700)])
-def test_k1_kernel_equals_plain(cuda, n_tris, n_rays):
+def _k1_case(case, n_tris, n_rays, seed):
+    """K1's inputs for a test case: the random soup ("soup"); every ray
+    of no extent ("dead"); every ray aimed at the first triangle, from in
+    front of it, so the any hit stops at its first test ("first"); or
+    rows copied across a warp chunk's edge (31 -> 32) and a tile's edge
+    (999 -> 1000), half the rays aimed at the copies ("ties"); or two
+    triangles 1e19 wide below the soup, whose determinant (1e38) passes
+    2^126 and whose 1 / det is subnormal, hit by half the rays
+    ("huge": the kernels' exact redo)."""
+    tri, o, d, maxt = _soup(n_tris, n_rays, seed)
+    if case == "huge":
+        big = torch.tensor([-3e18, -3e18, -5.0, 1e19, 0.0, 0.0,
+                            0.0, 1e19, 0.0, 0.0, 0.0, 0.0])
+        tri[5] = big
+        tri[n_tris - 3] = big
+        r = np.random.default_rng(seed + 2)
+        down = torch.from_numpy(r.random(n_rays) < 0.5)
+        xy = torch.from_numpy(r.uniform(-1, 1, (n_rays, 2))
+                              .astype(np.float32))
+        o_down = torch.cat([xy, torch.full((n_rays, 1), -3.0)], 1)
+        d_down = torch.tensor([[0.0, 0.0, -1.0]]).expand(n_rays, 3)
+        o = torch.where(down[:, None], o_down, o).contiguous()
+        d = torch.where(down[:, None], d_down, d).contiguous()
+    elif case == "dead":
+        maxt = torch.zeros_like(maxt)
+    elif case in ("first", "ties"):
+        if case == "ties":
+            tri[32], tri[1000] = tri[31], tri[999]
+        r = np.random.default_rng(seed + 1)
+        rows = (np.zeros(n_rays, np.int64) if case == "first" else
+                r.choice([31, 999], n_rays))
+        w = tri[torch.from_numpy(rows)]
+        bary = r.uniform(0.1, 0.4, (n_rays, 2)).astype(np.float32)
+        bary = torch.from_numpy(bary)
+        target = w[:, 0:3] + bary[:, :1] * w[:, 3:6] + bary[:, 1:] * w[:, 6:9]
+        n = torch.linalg.cross(w[:, 3:6], w[:, 6:9])
+        n = n / n.norm(dim=-1, keepdim=True)
+        o = (target + 1e-3 * n).contiguous()
+        d = (-n).contiguous()
+        if case == "ties":     # and the other half as in the soup
+            keep = torch.from_numpy(r.random(n_rays) < 0.5)
+            _, o0, d0, _ = _soup(n_tris, n_rays, seed)
+            o = torch.where(keep[:, None], o, o0).contiguous()
+            d = torch.where(keep[:, None], d, d0).contiguous()
+        maxt = torch.full_like(maxt, float("inf"))
+    return tri, o, d, maxt
+
+
+def _k1_launches(tri, o, d, maxt):
+    """Every K1 launch to hold against the plain versions: the main
+    path's, each design step's and, for tables of more than 1,000 rows,
+    tiles of 1,000 rows."""
+    out = {"main": (*CI.closest_hit(tri, o, d, maxt),
+                    CI.any_hit(tri, o, d, maxt))}
+    for name, v in CI.STEPS.items():
+        closest = (CI.launch_closest(tri, o, d, maxt, v)
+                   if name in CI.CLOSEST_STEPS else out["main"][:4])
+        occ = (CI.launch_any(tri, o, d, maxt, v) if name in CI.ANY_STEPS
+               else out["main"][4])
+        out[name] = (*closest, occ)
+    if tri.shape[0] > 1000:
+        f = tri.shape[0]
+        out["tiles"] = (
+            *CI.launch_closest(tri, o, d, maxt, replace(
+                CI.launch_rule(f, "closest"), tile=1000)),
+            CI.launch_any(tri, o, d, maxt, replace(CI.launch_rule(f, "any"),
+                                                   tile=1000)))
+    return out
+
+
+@pytest.mark.parametrize("n_tris,n_rays,case", [
+    (1, 1, "soup"), (12, 37, "soup"), (255, 4133, "soup"),
+    (257, 4133, "soup"), (600, 1000, "soup"), (4096, 700, "soup"),
+    (12, 1025, "dead"), (4096, 4133, "dead"), (12, 2049, "first"),
+    (4096, 4133, "first"), (5000, 4133, "first"), (4096, 5003, "soup"),
+    (5000, 5003, "soup"), (1100, 3001, "ties"), (5000, 3001, "ties"),
+    (40, 2000, "huge"), (5000, 3001, "huge"), (12, 2 ** 20 + 37, "soup"),
+    (1100, 300037, "ties")])
+def test_k1_kernel_equals_plain(cuda, n_tris, n_rays, case):
     """Built with --fmad=false in the plain version's operation order:
-    hits, indices and t/u/v equal the plain version on the same card."""
-    args_cpu = _soup(n_tris, n_rays, n_tris)
+    every launch (the main path's, each design step's, tiles) equals the
+    plain versions bit for bit on the same card, at ray counts that are
+    no multiple of R x the block, with all rays dead, all hitting the
+    first triangle, copied rows across a chunk's and a tile's edge, and
+    determinants past the fast reciprocal's range, and 2^20 rays; 5,000
+    rows exceed a block's shared memory and go in tiles."""
+    args_cpu = _k1_case(case, n_tris, n_rays, n_tris)
     args = [x.to(cuda) for x in args_cpu]
     before = dict(CI.launches)
-    t, prim, u, v = CI.closest_hit(*args)
-    occ = CI.any_hit(*args)
+    got = _k1_launches(*args)
     torch.cuda.synchronize()
-    assert CI.launches["mt_closest_hit"] == before["mt_closest_hit"] + 1
-    assert CI.launches["mt_any_hit"] == before["mt_any_hit"] + 1
-    t_p, prim_p, u_p, v_p = I.ray_intersect_brute(*args)
-    assert torch.equal(prim, prim_p)
-    assert torch.equal(occ, prim_p >= 0)
-    assert torch.equal(occ, I.ray_test_brute(*args))
-    for a, b in ((t, t_p), (u, u_p), (v, v_p)):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    assert CI.launches["mt_closest_hit"] > before["mt_closest_hit"]
+    assert CI.launches["mt_any_hit"] > before["mt_any_hit"]
+    ref = (*I.ray_intersect_brute(*args), I.ray_test_brute(*args))
+    assert torch.equal(ref[4], ref[1] >= 0)
+    for name, g in got.items():
+        for field, a, b in zip(("t", "prim", "u", "v", "occ"), g, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, field)
+    if case == "dead":
+        assert not ref[4].any()
+    if case == "huge":
+        assert int((ref[1] == 5).sum()) > n_rays // 4
+    if case == "first":
+        assert bool(ref[4].all())
+    if case == "ties":
+        assert not bool(((ref[1] == 32) | (ref[1] == 1000)).any())
+        assert int(((ref[1] == 31) | (ref[1] == 999)).sum()) > n_rays // 8
     # and the CPU plain version agrees on the hits
     t_c, prim_c, _, _ = CI.closest_hit(*args_cpu)
-    assert (prim.cpu() == prim_c).float().mean() >= 0.9999
+    assert (got["main"][1].cpu() == prim_c).float().mean() >= 0.9999
 
 
 def test_k1_rejects_mixed_devices(cuda):
