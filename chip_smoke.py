@@ -14,11 +14,13 @@ Phases (any failed check raises, and the script exits non-zero):
    card, bit for bit, at three shapes: (i) the Cornell box's 12 triangles
    against 2^20 camera and bounce rays, some dead; (ii) the largest scene
    K1 serves, 4,096 triangles, against 65,536 rays; (iii) the same against
-   2^20 rays, a user's pass; the main path's launch, every design step of
+   2^20 rays, a user's pass; the main path's launch, every step of
    ``cuda_intersect.STEPS`` and 1,000-row tiles, each timed on the device
    alone beside the bound (the plain versions timed at (i) and (ii)); then
    the rays one 4-spp box pass hands to ``closest_hit`` / ``any_hit``
    (wrapped in this script), held bit for bit and timed depth by depth;
+   then every step at 12 to 4,096 triangles and 2^16 to 2^21 rays, held
+   bit for bit and timed beside the launch ``launch_rule`` picks;
 3. the Cornell box's primal render at full width: ``render(load_dict(
    cornell_box(512, 64, 6)), spp=64, spp_chunk=4)``: a warm-up and five
    timed renders, with the launch counts set to 0 before and read after
@@ -33,12 +35,12 @@ Phases (any failed check raises, and the script exits non-zero):
    against the brute force; then the times of K2, the reference, K3 and
    K4 at both widths, with the rays unsorted, Morton-sorted (sort
    included) and pre-sorted, in two rounds (the second reversed), beside
-   the plain versions' and the bound; K2 and K3 at each design step, each
-   equal to the main path's launch; the lane
-   utilisation of K2 and of the reference (counting builds); and, on the
-   rays one 8-spp mesh pass hands to ``closest_hit`` / ``any_hit`` (the
-   two wrapped in this script), K2 and K3 against the reference and
-   timed, depth by depth;
+   the plain versions' and the bound, K2 and K3 also on device time alone;
+   K2 and K3 at each design step, each equal to the main path's launch;
+   the lane utilisation of K2 and of the reference (counting builds);
+   and, on the rays one 8-spp mesh pass hands to ``closest_hit`` /
+   ``any_hit`` (the two wrapped in this script), K2 and K3 against the
+   reference and timed, depth by depth;
 6. the mesh's primal render at full width: ``render(load_dict(
    cornell_box_mesh(512, 8, 6)), spp=16, spp_chunk=8)``, each launching
    K2 and K3 12 times and K1 never;
@@ -93,6 +95,11 @@ TIMED_RENDERS = 5
 BOX_PASSES, MESH_PASSES = 16, 2
 #: the ground truth of the [adam] phase
 ADAM_GT_SPP = 16
+#: K1's launch-rule sweep: triangle counts from the box's 12 to the 4,096
+#: that ``ops/accel.py`` sends to K1 at most with a BVH, ray counts from
+#: 65,536 to one 512^2 x 8 spp pass
+SWEEP_TRIS = (12, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+SWEEP_RAYS = tuple(2 ** k for k in range(16, 22))
 
 
 class CheckFailed(AssertionError):
@@ -292,8 +299,9 @@ def plain_k1(tri, o, d, maxt, ray_chunk=2 ** 17):
 
 def k1_calls(tri):
     """Every K1 launch ``chip_smoke.py`` holds and times, by name: the
-    main path's ("main") and each design step of ``cuda_intersect.STEPS``,
-    for the closest hit and the any hit."""
+    main path's ("main") and each step of ``cuda_intersect.STEPS`` (the
+    launches ``launch_rule`` picks among), for the closest hit and the any
+    hit."""
     from epsm_mitsuba3_torch.ops import cuda_intersect as CI
     closest = {"main": lambda o, d, m: CI.closest_hit(tri, o, d, m)}
     anyh = {"main": lambda o, d, m: CI.any_hit(tri, o, d, m)}
@@ -330,12 +338,12 @@ def compare_k1(label, tri, o, d, maxt):
         a = calls["mt_any_hit"].get(name, calls["mt_any_hit"]["main"])
         got[name] = (*c(o, d, maxt), a(o, d, maxt))
     if tri.shape[0] > 1000:
-        f = tri.shape[0]
+        f, n = tri.shape[0], o.shape[0]
         got["tiles of 1000"] = (
             *CI.launch_closest(tri, o, d, maxt, replace(
-                CI.launch_rule(f, "closest"), tile=1000)),
-            CI.launch_any(tri, o, d, maxt, replace(CI.launch_rule(f, "any"),
-                                                   tile=1000)))
+                CI.launch_rule(f, n, "closest"), tile=1000)),
+            CI.launch_any(tri, o, d, maxt, replace(
+                CI.launch_rule(f, n, "any"), tile=1000)))
     torch.cuda.synchronize()
     for name, g in got.items():
         diff = {k: int((a != b).sum()) for k, a, b in zip(K1_FIELDS, g, ref)}
@@ -450,6 +458,72 @@ def render_rays_k1(scene, spp):
             "bit for bit equal to the plain versions; steps "
             + ", ".join(f"{k} {t:.4f}" for k, t in ms.items()
                         if not k.endswith(" main")))
+    return out
+
+
+def k1_rule_sweep(gen, device):
+    """K1's steps at each triangle count of SWEEP_TRIS and ray count of
+    SWEEP_RAYS, on random soups: every step's results equal the main
+    launch's bit for bit, and the plain versions' on the first 65,536
+    rays; each step timed (device time alone, two rounds, the second
+    reversed) beside the launch ``launch_rule`` picks there, and the
+    fastest.  Returns {"F x N": {entry: {step: ms}, "rule": ..., ...}}."""
+    import torch
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    out, worst = {}, {}
+    for f in SWEEP_TRIS:
+        for n in SWEEP_RAYS:
+            tri, o, d, maxt = soup_rays(f, n, gen, device)
+            calls = k1_calls(tri)
+            main = (*calls["mt_closest_hit"]["main"](o, d, maxt),
+                    calls["mt_any_hit"]["main"](o, d, maxt))
+            k = slice(0, 65536)
+            ref = plain_k1(tri, o[k], d[k], maxt[k])
+            diff = {name: int((a[k] != b).sum())
+                    for name, a, b in zip(K1_FIELDS, main, ref)}
+            for kind, fields in (("mt_closest_hit", slice(0, 4)),
+                                 ("mt_any_hit", slice(4, 5))):
+                for name, fn in calls[kind].items():
+                    got = fn(o, d, maxt)
+                    got = got if isinstance(got, tuple) else (got,)
+                    for field, a, b in zip(K1_FIELDS[fields], got,
+                                           main[fields]):
+                        diff[f"{name} {field}"] = int((a != b).sum())
+            torch.cuda.synchronize()
+            check(sum(diff.values()) == 0, f"K1 sweep {f} x {n}: launches "
+                  f"differ from the main launch or the plain versions: "
+                  f"{ {k_: v for k_, v in diff.items() if v} }")
+            cases = [(kind, name) for kind in calls for name in calls[kind]
+                     if name != "main"]
+            iters = 50 if f * n <= 2 ** 24 else 20 if f * n <= 2 ** 27 else 5
+            runs = {c: [] for c in cases}
+            for seq in (cases, cases[::-1]):
+                for kind, name in seq:
+                    fn = calls[kind][name]
+                    runs[(kind, name)].append(
+                        device_ms(lambda: fn(o, d, maxt), iters))
+            row, parts = {}, []
+            for kind, short in (("mt_closest_hit", "closest"),
+                                ("mt_any_hit", "any")):
+                ms = {name: sum(runs[(kind, name)]) / 2
+                      for name in calls[kind] if name != "main"}
+                rule = CI.launch_rule(f, n, short)
+                pick = next(name for name in ms if CI.STEPS[name] == rule)
+                best = min(ms, key=ms.get)
+                ratio = ms[pick] / ms[best]
+                worst[kind] = max(worst.get(kind, (1.0, "")),
+                                  (ratio, f"{f} x {n}"))
+                row[kind] = dict(ms=ms, rule=pick, fastest=best,
+                                 rule_over_fastest=ratio)
+                parts.append(f"{short} " + ", ".join(
+                    f"{name} {t:.4f}" for name, t in ms.items())
+                    + f" -> rule {pick!r}, fastest {best!r} ({ratio:.3f})")
+            out[f"{f}x{n}"] = row
+            say(f"[K1 rule] {f} tris x {n} rays: " + "; ".join(parts))
+    say("[K1 rule] bit for bit equal to the main launch and the plain "
+        "versions at every point; the rule's pick over the fastest, at "
+        "worst: " + ", ".join(f"{k} {r:.3f} at {at}"
+                             for k, (r, at) in worst.items()))
     return out
 
 
@@ -590,6 +664,12 @@ def time_bvh(scene, o, d, maxt, plain_ms, work, k4):
             f"(rounds {runs[(name, 'unsorted')]}, unsorted); plain version "
             f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {by} ({ops / 1e9:.3f} "
             f"G operations, {n_bytes / 1e6:.1f} MB)")
+    for name in ("bvh4_closest_hit", "bvh4_any_hit"):
+        fn = entries[name][0]
+        t = device_ms(lambda: fn(o, d, maxt, False), 20)
+        out[name]["device_ms"] = t
+        say(f"[time] {name} unsorted, device time alone: {t:.4f} ms a "
+            "launch")
     for width in CT.K4_WIDTHS:
         kp, kt = k4[width]["work"]
         say(f"[time] K4 P={width}: its own schedule {kp / n:.2f} pops, "
@@ -1147,6 +1227,7 @@ def main() -> int:
                                 plain=key != "iii")
     del rays_box, shapes
     k1_render = render_rays_k1(box, SPP_CHUNK)
+    k1_sweep = k1_rule_sweep(gen, dev)
     times = k1_times["i"]
     c3 = k1_times["iii"]["mt_closest_hit"]
     ratio = {key: t["mt_any_hit"]["ms"] / t["mt_closest_hit"]["ms"]
@@ -1271,7 +1352,9 @@ def main() -> int:
                               "1048576": k1_times["iii"][k]["bound_ms"]},
             "plain_ms_4096": {"65536": k1_times["ii"][k]["plain_ms"]},
             "render_rays_ms": [r["closest main" if i == 0 else "any main"]
-                               for r in k1_render]})
+                               for r in k1_render],
+            "sweep_ms": {key: {"rule": row[k]["rule"], **row[k]["ms"]}
+                         for key, row in k1_sweep.items()}})
     ref = bvh_times["bvh4_closest_hit_ref"]
     for i, (k, line, kk) in enumerate((("bvh4_closest_hit", 164, "K2"),
                                        ("bvh4_any_hit", 446, "K3"))):
@@ -1282,6 +1365,7 @@ def main() -> int:
             "replaces": f"epsm_mitsuba3_tpu/ops/pallas_traverse.py:{line}",
             "launches": train_mesh[k], "max_abs_err": bvh["err"][i],
             "ms": v["ms"], "ms_unsorted": v["ms_unsorted"],
+            "device_ms": v["device_ms"],
             "ms_sorted": v["ms_sorted"], "ms_presorted": v["ms_presorted"],
             "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],

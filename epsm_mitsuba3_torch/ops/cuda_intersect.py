@@ -12,8 +12,8 @@ A block walks the table in tiles of up to ``TILE_ROWS`` rows in shared
 memory (``tile_rows``); a thread tests R rays against each row it reads,
 or S lanes split a ray's rows; the any hit stops each ray at its first
 hit, lane by lane or warp-wide.  ``launch_rule`` picks the launch from
-the triangle count; ``STEPS`` are the design steps ``chip_smoke.py``
-times.
+the triangle and ray counts; ``STEPS`` are the launches it picks among,
+which ``chip_smoke.py`` times.
 """
 from __future__ import annotations
 
@@ -37,8 +37,8 @@ ROW_BYTES = 48
 #: the (R rays, S lanes a group) pairs compiled for the closest hit, the R
 #: of the "lanes" any hit and the rows a lane tests a step in the "warp"
 #: any hit (``mt_intersect.cu`` EPSM_K1_CONFIGS, _LANES_RAYS, _WARP_ROWS)
-CONFIGS = ((1, 1), (2, 1), (4, 1), (4, 8))
-LANES_RAYS = (1, 2, 4)
+CONFIGS = ((2, 1), (4, 1), (4, 8))
+LANES_RAYS = (4,)
 WARP_ROWS = (1, 2)
 #: the any hit's schedules: each thread stops once its R rays have hit;
 #: or the warp tests 32 x ``rows`` rows of one ray at a time
@@ -53,8 +53,7 @@ class Launch:
     """How K1 is launched: R rays for each group of S lanes, which split
     the rows among them (S > 1: the closest hit only); the any hit's
     schedule (``ANY_MODES``) and, warp-wide, the rows a lane tests a step;
-    and ``tile``, the rows a block holds in shared memory at once (0: as
-    many as fit, the whole table where it fits)."""
+    and ``tile``, the most rows a block holds in shared memory at once."""
     rays: int = 1
     split: int = 1
     any: str = "lanes"
@@ -62,12 +61,11 @@ class Launch:
     tile: int = TILE_ROWS
 
 
-#: the design steps, each timed by ``chip_smoke.py``: the 48-byte rows with
-#: the whole table in shared memory and in tiles of TILE_ROWS (1); R rays a
-#: thread and the rows split among 8 lanes (2); the any hit warp-wide (3)
+#: the launches ``launch_rule`` picks among, by the design step each came
+#: from (``chip_smoke.py`` times each): R rays a thread, or the rows of R
+#: rays split among 8 lanes (2); the any hit warp-wide, 32 or 64 rows of a
+#: ray at a time (3)
 STEPS = {
-    "1": Launch(1, tile=0),
-    "1 tiles": Launch(1),
     "2 R=2": Launch(2),
     "2 R=4": Launch(4),
     "2 R=4 S=8": Launch(4, 8),
@@ -90,34 +88,48 @@ def _fits(v: Launch, kind: str) -> bool:
 CLOSEST_STEPS = tuple(k for k, v in STEPS.items() if _fits(v, "closest"))
 ANY_STEPS = tuple(k for k, v in STEPS.items() if _fits(v, "any"))
 
-#: the closest hit splits each ray's rows among 8 lanes from this many
-#: triangles on, and the any hit goes warp-wide
+#: from this many rays on (128 blocks of R = 4 x 256 rays, about one an SM
+#: of the H100) the closest hit takes R = 4 rays a thread at any triangle
+#: count, and the warp-wide any hit 32 rows a step (``chip_smoke.py``
+#: ``k1_rule_sweep``, 12-4,096 rows x 2^16-2^21 rays; ``PERF.md`` §6)
+FULL_RAYS = 2 ** 17
+#: with fewer rays: the closest hit splits each ray's rows among 8 lanes
+#: from SPLIT_MIN_TRIS rows on, and the warp-wide any hit tests 64 rows a
+#: step from WIDE_MIN_TRIS on; the any hit goes warp-wide from
+#: WARP_MIN_TRIS rows on at any ray count
 SPLIT_MIN_TRIS = 128
+WIDE_MIN_TRIS = 1024
 WARP_MIN_TRIS = 64
 
 
-def launch_rule(n_tris: int, kind: str = "closest") -> Launch:
+def launch_rule(n_tris: int, n_rays: int, kind: str = "closest") -> Launch:
     """The main path's launch of ``kind`` ("closest" or "any") against
-    ``n_tris`` rows, a value every lane shares, so the choice is
-    launch-wide.  Few rows: the closest hit takes R = 2 rays a thread, the
-    any hit R = 4.  More: the closest hit splits each of R = 4 rays' rows
-    among 8 lanes, and the any hit tests 64 rows of a ray at a time
-    warp-wide (``chip_smoke.py``'s step times at 12 and 4,096 rows)."""
+    ``n_tris`` rows for ``n_rays`` rays, values every lane shares, so the
+    choice is launch-wide.  From FULL_RAYS rays on, the closest hit takes
+    R = 4 rays a thread; with fewer, R = 2, or from SPLIT_MIN_TRIS rows on
+    R = 4 for each 8 lanes, which split the rows.  The any hit takes R = 4
+    rays a thread below WARP_MIN_TRIS rows, else tests a ray's rows
+    warp-wide, 32 at a time, or 64 with fewer than FULL_RAYS rays and from
+    WIDE_MIN_TRIS rows on."""
+    full = n_rays >= FULL_RAYS
     if kind == "any":
-        return (Launch(1, any="warp", rows=2) if n_tris >= WARP_MIN_TRIS
-                else Launch(4))
+        if n_tris < WARP_MIN_TRIS:
+            return Launch(4)
+        wide = not full and n_tris >= WIDE_MIN_TRIS
+        return Launch(1, any="warp", rows=2 if wide else 1)
+    if full:
+        return Launch(4)
     return Launch(4, 8) if n_tris >= SPLIT_MIN_TRIS else Launch(2)
 
 
-def tile_rows(n_tris: int, budget: int, tile: int = 0) -> int:
-    """Rows a K1 block holds in shared memory: at most ``tile`` (0: no
-    limit) and as many as ``budget`` bytes hold, and no more than the
-    table's ``n_tris``."""
+def tile_rows(n_tris: int, budget: int, tile: int = TILE_ROWS) -> int:
+    """Rows a K1 block holds in shared memory: at most ``tile``, as many
+    as ``budget`` bytes hold, and no more than the table's ``n_tris``."""
     rows = budget // ROW_BYTES
     if rows < 1:
         raise ValueError(f"K1: a shared-memory budget of {budget} B holds "
                          "no triangle row")
-    return min(n_tris, rows, tile) if tile > 0 else min(n_tris, rows)
+    return min(n_tris, rows, tile)
 
 
 #: launches of each kernel entry, counted where the launch happens
@@ -195,7 +207,7 @@ def _prepare(tri, o, kind, launch):
     holds at once, and the checks common to both entries."""
     n_tris = tri.shape[0]
     if launch is None:
-        launch = launch_rule(n_tris, kind)
+        launch = launch_rule(n_tris, o.shape[0], kind)
     tile = tile_rows(n_tris, shared_budget(o.device), launch.tile)
     if tri.data_ptr() % 16 != 0:
         raise ValueError("K1: triangle rows must be 16-byte aligned")

@@ -94,25 +94,36 @@ def _k1_case(case, n_tris, n_rays, seed):
     return tri, o, d, maxt
 
 
+def _once(kind, fn, *args):
+    """``fn(*args)``, which must launch K1's ``kind`` entry exactly once
+    and no other kernel entry."""
+    expect = dict(CI.launches)
+    expect[f"mt_{kind}_hit"] += 1
+    out = fn(*args)
+    assert CI.launches == expect, (kind, fn)
+    return out
+
+
 def _k1_launches(tri, o, d, maxt):
     """Every K1 launch to hold against the plain versions: the main
-    path's, each design step's and, for tables of more than 1,000 rows,
-    tiles of 1,000 rows."""
-    out = {"main": (*CI.closest_hit(tri, o, d, maxt),
-                    CI.any_hit(tri, o, d, maxt))}
+    path's, each step's and, for tables of more than 1,000 rows, tiles of
+    1,000 rows; each call launches its kernel exactly once."""
+    args = (tri, o, d, maxt)
+    out = {"main": (*_once("closest", CI.closest_hit, *args),
+                    _once("any", CI.any_hit, *args))}
     for name, v in CI.STEPS.items():
-        closest = (CI.launch_closest(tri, o, d, maxt, v)
+        closest = (_once("closest", CI.launch_closest, *args, v)
                    if name in CI.CLOSEST_STEPS else out["main"][:4])
-        occ = (CI.launch_any(tri, o, d, maxt, v) if name in CI.ANY_STEPS
-               else out["main"][4])
+        occ = (_once("any", CI.launch_any, *args, v)
+               if name in CI.ANY_STEPS else out["main"][4])
         out[name] = (*closest, occ)
     if tri.shape[0] > 1000:
-        f = tri.shape[0]
+        f, n = tri.shape[0], o.shape[0]
         out["tiles"] = (
-            *CI.launch_closest(tri, o, d, maxt, replace(
-                CI.launch_rule(f, "closest"), tile=1000)),
-            CI.launch_any(tri, o, d, maxt, replace(CI.launch_rule(f, "any"),
-                                                   tile=1000)))
+            *_once("closest", CI.launch_closest, *args, replace(
+                CI.launch_rule(f, n, "closest"), tile=1000)),
+            _once("any", CI.launch_any, *args, replace(
+                CI.launch_rule(f, n, "any"), tile=1000)))
     return out
 
 
@@ -137,8 +148,11 @@ def test_k1_kernel_equals_plain(cuda, n_tris, n_rays, case):
     before = dict(CI.launches)
     got = _k1_launches(*args)
     torch.cuda.synchronize()
-    assert CI.launches["mt_closest_hit"] > before["mt_closest_hit"]
-    assert CI.launches["mt_any_hit"] > before["mt_any_hit"]
+    tiles = 1 if n_tris > 1000 else 0
+    assert CI.launches["mt_closest_hit"] == (
+        before["mt_closest_hit"] + 1 + len(CI.CLOSEST_STEPS) + tiles)
+    assert CI.launches["mt_any_hit"] == (
+        before["mt_any_hit"] + 1 + len(CI.ANY_STEPS) + tiles)
     ref = (*I.ray_intersect_brute(*args), I.ray_test_brute(*args))
     assert torch.equal(ref[4], ref[1] >= 0)
     for name, g in got.items():

@@ -93,6 +93,7 @@ def test_configs_are_compiled():
     for name, v in CI.STEPS.items():
         assert name in CI.CLOSEST_STEPS or name in CI.ANY_STEPS, name
     for kind in ("closest", "any"):
+        assert not CI._fits(CI.Launch(1), kind)
         assert not CI._fits(CI.Launch(3), kind)
     assert not CI._fits(CI.Launch(1, any="warp", rows=3), "any")
     assert not CI._fits(CI.Launch(4, 8), "any")
@@ -100,16 +101,18 @@ def test_configs_are_compiled():
 
 
 @pytest.mark.parametrize("n_tris,budget,tile,expect", [
-    (12, H100_BUDGET, 0, 12),
-    (4096, H100_BUDGET, 0, 4096),       # the whole table fits: 196,608 B
-    (4842, H100_BUDGET, 0, 4842),
-    (5000, H100_BUDGET, 0, 4842),       # tiles of as many rows as fit
+    (12, H100_BUDGET, 5000, 12),
+    (4096, H100_BUDGET, 5000, 4096),    # the whole table fits: 196,608 B
+    (4842, H100_BUDGET, 5000, 4842),
+    (5000, H100_BUDGET, 5000, 4842),    # tiles of as many rows as fit
     (5000, H100_BUDGET, 1024, 1024),
     (12, H100_BUDGET, 1024, 12),
     (4096, 48 * 100, 1024, 100),
-    (4096, 48, 0, 1)])
+    (4096, 48, 1024, 1)])
 def test_tile_rows(n_tris, budget, tile, expect):
     assert CI.tile_rows(n_tris, budget, tile) == expect
+    if tile == CI.TILE_ROWS:
+        assert CI.tile_rows(n_tris, budget) == expect
 
 
 def test_tile_rows_refuses_no_room():
@@ -117,24 +120,52 @@ def test_tile_rows_refuses_no_room():
         CI.tile_rows(12, CI.ROW_BYTES - 1)
 
 
+RAY_COUNTS = (1, 65536, CI.FULL_RAYS - 1, CI.FULL_RAYS, 2 ** 21)
+
+
 @pytest.mark.parametrize("n_tris", [1, 12, 63, 64, 127, 128, 4096, 5000,
                                     64812])
 def test_launch_rule(n_tris):
     """The rule names a compiled launch of each kind, in tiles of at most
-    TILE_ROWS rows; the any hit goes warp-wide from WARP_MIN_TRIS rows on,
-    the closest hit splits rows among 8 lanes from SPLIT_MIN_TRIS on, and
-    otherwise a thread takes R = 2 rays (closest) or 4 (any)."""
-    for kind in ("closest", "any"):
-        v = CI.launch_rule(n_tris, kind)
-        assert CI._fits(v, kind), (kind, v)
-        rows = CI.tile_rows(n_tris, H100_BUDGET, v.tile)
-        assert rows == min(n_tris, CI.TILE_ROWS)
-    occ = CI.launch_rule(n_tris, "any")
-    assert (occ.any == "warp") == (n_tris >= CI.WARP_MIN_TRIS)
-    assert (occ.rays, occ.rows) == ((1, 2) if occ.any == "warp" else (4, 1))
-    v = CI.launch_rule(n_tris, "closest")
-    assert (v.rays, v.split) == ((4, 8) if n_tris >= CI.SPLIT_MIN_TRIS
-                                 else (2, 1))
+    TILE_ROWS rows, for any ray count.  From FULL_RAYS rays on the closest
+    hit takes R = 4 rays a thread; below, R = 2, or from SPLIT_MIN_TRIS
+    rows on R = 4 for each 8 lanes.  The any hit takes R = 4 below
+    WARP_MIN_TRIS rows, else goes warp-wide, 64 rows a step below
+    FULL_RAYS rays from WIDE_MIN_TRIS rows on, else 32."""
+    for n_rays in RAY_COUNTS:
+        full = n_rays >= CI.FULL_RAYS
+        for kind in ("closest", "any"):
+            v = CI.launch_rule(n_tris, n_rays, kind)
+            assert CI._fits(v, kind), (kind, v)
+            rows = CI.tile_rows(n_tris, H100_BUDGET, v.tile)
+            assert rows == min(n_tris, CI.TILE_ROWS)
+        occ = CI.launch_rule(n_tris, n_rays, "any")
+        assert (occ.any == "warp") == (n_tris >= CI.WARP_MIN_TRIS)
+        wide = not full and n_tris >= CI.WIDE_MIN_TRIS
+        assert (occ.rays, occ.rows) == (
+            (1, 2 if wide else 1) if occ.any == "warp" else (4, 1))
+        v = CI.launch_rule(n_tris, n_rays, "closest")
+        assert (v.rays, v.split) == (
+            (4, 1) if full else (4, 8) if n_tris >= CI.SPLIT_MIN_TRIS
+            else (2, 1))
+
+
+def test_rule_picks_every_step():
+    """Every compiled launch is one the rule picks at some triangle and
+    ray count, and each is a step that ``chip_smoke.py`` times: no launch
+    is compiled that the main path cannot reach."""
+    picked = {kind: {CI.launch_rule(f, n, kind)
+                     for f in (1, CI.WARP_MIN_TRIS, CI.SPLIT_MIN_TRIS,
+                               CI.WIDE_MIN_TRIS)
+                     for n in RAY_COUNTS}
+              for kind in ("closest", "any")}
+    assert picked["closest"] == {CI.STEPS[k] for k in CI.CLOSEST_STEPS}
+    assert picked["any"] == {CI.STEPS[k] for k in CI.ANY_STEPS}
+    assert {(v.rays, v.split) for v in picked["closest"]} == set(CI.CONFIGS)
+    assert {v.rays for v in picked["any"] if v.any == "lanes"} == set(
+        CI.LANES_RAYS)
+    assert {v.rows for v in picked["any"] if v.any == "warp"} == set(
+        CI.WARP_ROWS)
 
 
 def test_tiles_leave_room_for_four_blocks():
