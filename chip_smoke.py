@@ -9,7 +9,8 @@ Phases (any failed check raises, and the script exits non-zero):
 1. build kernels K1 (``csrc/mt_intersect.cu``) and K2/K4/K3
    (``csrc/bvh_traverse.cu``) with nvcc for sm_90a and the BVH builder
    (``native/bvh.cpp``) with g++, all at once, and print the card's name
-   and power limit and each kernel's registers, stack and spills;
+   and power limit and each kernel's registers, stack and spills (K4's
+   by instantiation);
 2. K1's closest-hit and any-hit entries against the plain versions on the
    card, bit for bit, at three shapes: (i) the Cornell box's 12 triangles
    against 2^20 camera and bounce rays, some dead; (ii) the largest scene
@@ -31,16 +32,20 @@ Phases (any failed check raises, and the script exits non-zero):
    on 65,536 of them against K1's plain brute force over all 64,812
    triangles; the stack-overflow flag stays 0;
 5. K4 at P = 2 and 4 on the same rays against its plain version (every
-   output equal), against K2 (t and valid equal, tie rays counted) and
-   against the brute force; then the times of K2, the reference, K3 and
-   K4 at both widths, with the rays unsorted, Morton-sorted (sort
-   included) and pre-sorted, in two rounds (the second reversed), beside
-   the plain versions' and the bound, K2 and K3 also on device time alone;
-   K2 and K3 at each design step, each equal to the main path's launch;
-   the lane utilisation of K2 and of the reference (counting builds);
-   and, on the rays one 8-spp mesh pass hands to ``closest_hit`` /
-   ``any_hit`` (the two wrapped in this script), K2 and K3 against the
-   reference and timed, depth by depth;
+   output equal, for the main path's launch, each design step of
+   ``cuda_traverse.K4_STEPS`` and PR 3's one-thread-a-ray kernel),
+   against K2 (t and valid equal, tie rays counted) and against the
+   brute force; then the times of K2, the reference, K3 and K4 at both
+   widths, with the rays unsorted, Morton-sorted (sort included) and
+   pre-sorted, in two rounds (the second reversed), beside the plain
+   versions' and the bound, K2, K3 and K4 also on device time alone;
+   every K4 launch at both widths on device time alone beside K2 and the
+   reference; K2 and K3 at each design step, each equal to the main
+   path's launch; the lane utilisation of K2, K4 at both widths and the
+   reference (counting builds); and, on the rays one 8-spp mesh pass
+   hands to ``closest_hit`` / ``any_hit`` (the two wrapped in this
+   script), K2 and K3 against the reference, K4 against its plain
+   version, all timed, depth by depth;
 6. the mesh's primal render at full width: ``render(load_dict(
    cornell_box_mesh(512, 8, 6)), spp=16, spp_chunk=8)``, each launching
    K2 and K3 12 times and K1 never;
@@ -63,6 +68,7 @@ The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
 prints no result.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -172,6 +178,47 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def ptxas_usage(log):
+    """{function: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from ``nvcc -Xptxas=-v`` output, keyed by the mangled name."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def k4_registers(log):
+    """ptxas's registers, stack and spills of each K4 instantiation
+    (``bvh4_closest_mp_warp_kernel<layout, threads, P, fetch, count>``),
+    keyed "P=<P> <layout> <threads> <fetch>[ counting]"."""
+    import re
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    layouts = {v: k for k, v in CT.LAYOUTS.items()}
+    fetches = {v: k for k, v in CT.FETCHES.items()}
+    out = {}
+    for name, use in ptxas_usage(log).items():
+        m = re.search(r"bvh4_closest_mp_warp_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)ELb([01])E", name)
+        if m:
+            lay, threads, p, fetch, count = (int(x) for x in m.groups())
+            out[f"P={p} {layouts[lay]} {threads} {fetches[fetch]}"
+                + (" counting" if count else "")] = use
+    return dict(sorted(out.items()))
 
 
 def main_path_rays(scene, gen, spp):
@@ -623,7 +670,7 @@ def time_bvh(scene, o, d, maxt, plain_ms, work, k4):
 
     def k4_of(width):
         return lambda o_, d_, m_, s_: CT.closest_hit(
-            nodes, tri, o_, d_, m_, sort=s_, multi_pop=width)
+            nodes, tri, o_, d_, m_, sort=s_, multi_pop=width, tri_k=tri_k)
 
     entries = {
         "bvh4_closest_hit": (lambda o_, d_, m_, s_: CT.closest_hit(
@@ -664,7 +711,8 @@ def time_bvh(scene, o, d, maxt, plain_ms, work, k4):
             f"(rounds {runs[(name, 'unsorted')]}, unsorted); plain version "
             f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {by} ({ops / 1e9:.3f} "
             f"G operations, {n_bytes / 1e6:.1f} MB)")
-    for name in ("bvh4_closest_hit", "bvh4_any_hit"):
+    for name in ("bvh4_closest_hit", "bvh4_any_hit",
+                 "bvh4_closest_hit_mp P=2", "bvh4_closest_hit_mp P=4"):
         fn = entries[name][0]
         t = device_ms(lambda: fn(o, d, maxt, False), 20)
         out[name]["device_ms"] = t
@@ -728,18 +776,64 @@ def time_steps(scene, o, d, maxt):
     return out
 
 
+def time_k4_steps(scene, o, d, maxt, bound):
+    """ms a launch, on the device alone, of every K4 launch of
+    ``k4_calls`` at each width (the main path's, each design step, PR 3's
+    kernel), with K2 and the reference beside them, in two rounds (the
+    second reversed); each set against ``bound``, the least time of K2's
+    function on these rays, and the main path's launch against the aim
+    (at least 3 x faster than PR 3's kernel, at most 1.25 x K2).  Returns
+    {name: ms}, the K4 launches named "P=<width> <launch>"."""
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
+    calls = {"K2": lambda o_, d_, m_: CT.launch_closest(nodes, tri_k, o_,
+                                                         d_, m_),
+             "reference": lambda o_, d_, m_: CT.closest_hit_reference(
+                 nodes, tri, o_, d_, m_)}
+    for width in CT.K4_WIDTHS:
+        for name, fn in k4_calls(scene, width).items():
+            calls[f"P={width} {name}"] = fn
+    runs = {k: [] for k in calls}
+    for seq in (list(calls), list(calls)[::-1]):
+        for k in seq:
+            runs[k].append(device_ms(lambda: calls[k](o, d, maxt), 20))
+    ms = {k: sum(v) / 2 for k, v in runs.items()}
+    say(f"[K4 steps] device time alone, {o.shape[0]} rays: K2 "
+        f"{ms['K2']:.4f} ms, reference {ms['reference']:.4f} ms; bound "
+        f"{bound:.4f} ms")
+    for width in CT.K4_WIDTHS:
+        pr3 = ms[f"P={width} PR 3"]
+        say(f"[K4 steps] P={width}: " + "; ".join(
+            f"{k.split(' ', 1)[1]} {t:.4f} ms ({t / ms['K2']:.2f} x K2, "
+            f"{pr3 / t:.2f} x faster than PR 3, {bound / t:.1%} of the "
+            "bound)" for k, t in ms.items() if k.startswith(f"P={width} ")))
+        main = ms[f"P={width} main"]
+        say(f"[speed] K4 P={width}: {pr3 / main:.2f} x faster than PR 3's "
+            f"kernel (aim >= 3: {'met' if pr3 / main >= 3 else 'missed'}), "
+            f"{main / ms['K2']:.3f} x K2 (aim <= 1.25: "
+            f"{'met' if main <= 1.25 * ms['K2'] else 'missed'})")
+    return ms
+
+
 def lane_utilisation(scene, o, d, maxt):
     """Active lane-steps over 32 x warp-steps in the traversal loop and in
-    the leaf tests, from the counting builds of the main path's K2 and of
-    the reference, whose hits must equal the uncounted ones."""
+    the leaf tests, from the counting builds of the main path's K2 and K4
+    at each width and of the reference, whose hits must equal the
+    uncounted ones.  K4's traversal step is one batch position visited by
+    the warp."""
     import torch
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
-    nodes, tri = scene.bvh_nodes, scene.bvh_tris
+    nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
     out = {}
+    k4 = [(f"K4 P={w}", (lambda w_: lambda c: CT.launch_closest_mp(
+        nodes, tri_k, o, d, maxt, w_, counts=c))(w),
+           (lambda w_: lambda: CT.launch_closest_mp(
+               nodes, tri_k, o, d, maxt, w_))(w)) for w in CT.K4_WIDTHS]
     for name, fn, plain in (
-            ("K2", lambda c: CT.launch_closest(nodes, scene.bvh_tris_k, o, d,
+            ("K2", lambda c: CT.launch_closest(nodes, tri_k, o, d,
                                                maxt, counts=c),
-             lambda: CT.launch_closest(nodes, scene.bvh_tris_k, o, d, maxt)),
+             lambda: CT.launch_closest(nodes, tri_k, o, d, maxt)),
+            *k4,
             ("reference", lambda c: CT.closest_hit_reference(
                 nodes, tri, o, d, maxt, counts=c),
              lambda: CT.closest_hit_reference(nodes, tri, o, d, maxt))):
@@ -761,12 +855,14 @@ def lane_utilisation(scene, o, d, maxt):
 def render_rays(scene, spp):
     """Record the rays one ``spp`` pass hands to ``closest_hit`` and
     ``any_hit`` (wrapped here, not in the package); then, on each depth's
-    batch, time the main path's K2 against the reference and K3 (two
-    rounds, the second reversed), and check K2 against the reference and
-    K3 against the reference's valid, bit for bit."""
+    batch, time the main path's K2 against the reference, K3 and K4 at
+    each width (two rounds, the second reversed), and check K2 against
+    the reference, K3 against the reference's valid, and K4 against its
+    plain version, bit for bit, and its t and valid against K2's."""
     import torch
     import epsm_mitsuba3_torch as mt
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import traverse as TR
     rec = {"closest": [], "any": []}
     orig = CT.closest_hit, CT.any_hit
 
@@ -800,6 +896,16 @@ def render_rays(scene, spp):
                  "reference": lambda: CT.closest_hit_reference(
                      nodes, tri, *c),
                  "K3": lambda: CT.launch_any(nodes, tri_k, *a)}
+        for w in CT.K4_WIDTHS:
+            k4 = CT.launch_closest_mp(nodes, tri_k, *c, w)
+            plain = TR.bvh_ray_intersect_plain(nodes, tri, *c, multi_pop=w)
+            diff = sum(int((x != y).sum()) for x, y in zip(k4, plain))
+            check(diff == 0 and torch.equal(k4[0], k2[0])
+                  and torch.equal(k4[1] >= 0, k2[1] >= 0),
+                  f"depth {depth}: K4 P={w} differs from its plain version "
+                  f"on {diff} lanes, or its t / valid from K2's")
+            calls[f"K4 P={w}"] = (lambda w_: lambda: CT.launch_closest_mp(
+                nodes, tri_k, *c, w_))(w)
         runs = {k: [] for k in calls}
         for seq in (list(calls), list(calls)[::-1]):
             for k in seq:
@@ -814,9 +920,12 @@ def render_rays(scene, spp):
         out.append(row)
         say(f"[render rays] depth {depth}: {c[0].shape[0]} rays ({live_c} "
             f"live, {row['hits']} hits) K2 {ms['K2']:.4f} ms, reference "
-            f"{ms['reference']:.4f} ms ({ms['K2'] / ms['reference']:.3f}); "
-            f"{live_a} live shadow rays ({row['occluded']} occluded) K3 "
-            f"{ms['K3']:.4f} ms; bit for bit equal to the reference")
+            f"{ms['reference']:.4f} ms ({ms['K2'] / ms['reference']:.3f}), "
+            + ", ".join(f"K4 P={w} {ms[f'K4 P={w}']:.4f} ms"
+                        for w in CT.K4_WIDTHS)
+            + f"; {live_a} live shadow rays ({row['occluded']} occluded) K3 "
+            f"{ms['K3']:.4f} ms; K2/K3 bit for bit equal to the reference, "
+            "K4 to its plain version (t and valid to K2's)")
     slower = [r["depth"] for r in out if r["K2_ms"] > r["reference_ms"]]
     say(f"[speed] render rays: K2 slower than the reference at depths "
         f"{slower or 'none'}")
@@ -913,9 +1022,29 @@ def profile_pass(label, fn, names):
     return dict(wall=wall, busy=busy, launches=n_launch)
 
 
+def k4_calls(scene, width):
+    """Every K4 launch ``chip_smoke.py`` holds and times at one width, by
+    name: the main path's (``closest_hit``), each design step of
+    ``cuda_traverse.K4_STEPS`` and PR 3's one-thread-a-ray kernel; each
+    takes (o, d, maxt)."""
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
+    layouts = {"pad": tri_k, "rows": tri}
+    calls = {"main": lambda o, d, m: CT.closest_hit(
+        nodes, tri, o, d, m, multi_pop=width, tri_k=tri_k)}
+    for name, v in CT.K4_STEPS.items():
+        calls[f"step {name}"] = (lambda v_: lambda o, d, m: (
+            CT.launch_closest_mp(nodes, layouts[v_.layout], o, d, m, width,
+                                 v_)))(v)
+    calls["PR 3"] = lambda o, d, m: CT.closest_hit_thread(nodes, tri, o, d,
+                                                          m, width)
+    return calls
+
+
 def compare_k4(scene, o, d, maxt, n_brute=65536):
     """K4 at each multi-pop width against its plain version (every output
-    equal), against K2 (t and valid equal; the rays where the two keep
+    equal, for the main path's launch, each design step and PR 3's
+    kernel), against K2 (t and valid equal; the rays where the two keep
     different triangles at the same t counted) and, on the first
     ``n_brute`` rays, against K1's plain brute force.  Returns per width
     the errors, the plain version's ms and its work counts."""
@@ -934,14 +1063,24 @@ def compare_k4(scene, o, d, maxt, n_brute=65536):
              brute[1] >= 0)
     out = {}
     for width in CT.K4_WIDTHS:
-        got = CT.closest_hit(nodes, tri, o, d, maxt, multi_pop=width)
+        calls = k4_calls(scene, width)
+        runs = {name: fn(o, d, maxt) for name, fn in calls.items()}
+        got = runs["main"]
         torch.cuda.synchronize()
         CT.raise_on_overflow(o.device)
         (*plain, pops, tests), plain_ms = timed(
             lambda: TR.bvh_ray_intersect_plain(nodes, tri, o, d, maxt,
                                                counts=True,
                                                multi_pop=width))
-        n_diff = sum(int((a != b).sum()) for a, b in zip(got, plain))
+        diffs = {name: sum(int((a != b).sum()) for a, b in zip(g, plain))
+                 for name, g in runs.items()}
+        say(f"[k4] P={width}: lanes differing from the plain version, by "
+            "launch: " + ", ".join(f"{k} {v}" for k, v in diffs.items())
+            + "  [limit 0 each]")
+        check(sum(diffs.values()) == 0,
+              f"K4 P={width}: a launch differs from its plain version: "
+              f"{diffs}")
+        n_diff = diffs["main"]
         # t is +inf on a miss in both: compare the finite entries
         err = max(float(torch.where(torch.isfinite(b), a - b, 0.0).abs()
                         .max()) for a, b in zip((got[0], got[2], got[3]),
@@ -1208,6 +1347,9 @@ def main() -> int:
             if "entry function" in line or "registers" in line \
                     or "spill" in line or "stack frame" in line:
                 say(f"[build] {lib}: {line.strip()}")
+    k4_regs = k4_registers(_native.build_logs.get(CT.SPEC.name, ""))
+    for key, use in k4_regs.items():
+        say(f"[build] K4 {key}: {use}")
 
     # -- 2. K1 against its plain version, at three shapes -----------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1263,6 +1405,8 @@ def main() -> int:
     # -- 5. K4 against its plain version, K2 and the brute force; times ------
     k4 = compare_k4(mesh, *rays_mesh)
     bvh_times = time_bvh(mesh, *rays_mesh, bvh["plain_ms"], bvh["work"], k4)
+    k4_steps = time_k4_steps(mesh, *rays_mesh,
+                             bvh_times["bvh4_closest_hit"]["bound_ms"])
     steps = time_steps(mesh, *rays_mesh)
     lanes = lane_utilisation(mesh, *rays_mesh)
     del rays_mesh
@@ -1380,7 +1524,8 @@ def main() -> int:
         "reference_ms_sorted": ref["ms_sorted"],
         "reference_ms_presorted": ref["ms_presorted"],
         "reference_render_rays_ms": [r["reference_ms"] for r in per_depth],
-        "lane_utilisation": lanes})
+        "lane_utilisation": {k: v for k, v in lanes.items()
+                             if not k.startswith("K4")}})
     v, v2 = bvh_times["bvh4_closest_hit_mp P=4"], bvh_times[
         "bvh4_closest_hit_mp P=2"]
     kernels.append({
@@ -1393,10 +1538,23 @@ def main() -> int:
         "ms_presorted": v["ms_presorted"],
         "ms_p2": v2["ms"], "ms_p2_sorted": v2["ms_sorted"],
         "ms_p2_presorted": v2["ms_presorted"], "plain_ms": v["plain_ms"],
+        "device_ms": v["device_ms"], "device_ms_p2": v2["device_ms"],
         "plain_ms_p2": v2["plain_ms"],
         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
         "schedule_pops_per_ray": k4[4]["work"][0] / (RES * RES * MESH_CHUNK),
         "schedule_tests_per_ray": k4[4]["work"][1] / (RES * RES * MESH_CHUNK),
+        "schedule_p2_pops_per_ray": k4[2]["work"][0] / (RES * RES
+                                                        * MESH_CHUNK),
+        "schedule_p2_tests_per_ray": k4[2]["work"][1] / (RES * RES
+                                                         * MESH_CHUNK),
+        "launch": dataclasses.asdict(CT.K4_SCHEDULE),
+        "steps_ms": {k: t for k, t in k4_steps.items() if k.startswith("P=")},
+        "k2_ms_beside_steps": k4_steps["K2"],
+        "registers": k4_regs,
+        "lane_utilisation": {k: v for k, v in lanes.items()
+                             if k.startswith("K4")},
+        "render_rays_ms": [r["K4 P=4_ms"] for r in per_depth],
+        "render_rays_ms_p2": [r["K4 P=2_ms"] for r in per_depth],
         "library_ms": None})
     say(json.dumps({"kernels": kernels}))
     say(f"[device] {gpu}")

@@ -57,13 +57,22 @@
 // as the plain versions do.  Ray order is left to the wrapper (Morton sort
 // or none).
 //
-// K4 and the reference: the one-thread-a-ray walk of PR 3, with each leaf
-// tested serially by its lane (bvh4_closest_mp_kernel).  K4 exists on the
-// TPU to shorten the chain of dependent scalar steps a pop costs (stack
-// read, node fetch, slab, push): it loads the records of up to P popped
-// entries before visiting any of them, with P a template parameter (2 and
-// 4).  P = 1 is K2's former walk, kept as the reference the redesign is
-// timed against.
+// K4 (bvh4_closest_mp_warp_kernel): K2's function and K2's walk, with the
+// reference's batched pop.  K4 exists on the TPU to shorten the chain of
+// dependent scalar steps a pop costs (stack read, node fetch, slab,
+// push): a lane pops up to P entries (a template parameter, 2 or 4) and
+// fetches the records of those not stale before it visits any of them.
+// Here the batch sits on K2's machinery: the persistent grid whose lanes
+// refill, the shared-memory top, the 48-byte rows, and K2's leaf phase,
+// run once for each batch position b, warp-wide, with the lanes whose
+// entry b is still live.  A batch's records are either all loaded and
+// slab-tested before its first visit (the loads in flight together, P
+// slab results held in registers) or each at its turn after a prefetch
+// into L1 (one held), a register trade timed in chip_smoke.py.
+//
+// The reference (bvh4_closest_mp_kernel): the one-thread-a-ray walk of PR
+// 2 and 3, each leaf tested serially by its lane, with the batched pop at
+// P = 1, which is K2's former walk, kept to time K2 and K4 against.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,7 +80,7 @@
 
 namespace {
 
-constexpr int kBlock = 128;  // the one-thread-a-ray kernels (K4, reference)
+constexpr int kBlock = 128;  // the one-thread-a-ray walk (the reference)
 constexpr int kMaxStack = 64;
 constexpr int kRecordBytes = 128;  // 32 floats, 8 float4
 constexpr unsigned kFull = 0xffffffffu;
@@ -277,14 +286,14 @@ __device__ __forceinline__ void store_hit(int i, float best_t, int best,
   slot_out[i] = best;
 }
 
-// K4: the one-thread-a-ray walk popping up to P entries an iteration
-// (_traverse_kernel_mp).  The batch's entries are read first, because the
-// pushes recycle the popped region from sp0; the records of the entries
-// not already stale are then loaded and slab-tested together, so their
-// loads are in flight at once; then each entry is visited in batch order
-// (the stale-entry cull against the current t included), its pushes
-// appended at sp0 + pos.  The entries are the stack's top first, so P = 1
-// is K2's former walk, the reference.
+// The one-thread-a-ray walk popping up to P entries an iteration (PR 3's
+// K4).  The batch's entries are read first, because the pushes recycle
+// the popped region from sp0; the records of the entries not already
+// stale are then loaded and slab-tested together, so their loads are in
+// flight at once; then each entry is visited in batch order (the
+// stale-entry cull against the current t included), its pushes appended
+// at sp0 + pos.  The entries are the stack's top first, so P = 1 is K2's
+// former walk, the reference.
 template <int P, bool kCount>
 __global__ void __launch_bounds__(kBlock)
 bvh4_closest_mp_kernel(const float4* __restrict__ nodes,
@@ -618,6 +627,163 @@ bvh4_closest_kernel(const Trace a, const Hits h) {
   if (kCount && (threadIdx.x & 31) == 0) flush_counts(c, a.counts);
 }
 
+// How K4 fetches a batch's node records: every live one loaded, then all
+// slab-tested, before the batch's first visit (the loads in flight
+// together, P slab results held through the batch), or each loaded and
+// slab-tested at its turn, the global ones prefetched into L1 at the
+// batch's start (one slab result held).
+enum Fetch { kAhead = 0, kTurn = 1 };
+
+__device__ __forceinline__ unsigned enter_mask(const Node& s) {
+  bool enter[4];
+  child_entered(s, enter);
+  unsigned m = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) m |= static_cast<unsigned>(enter[k]) << k;
+  return m;
+}
+
+__device__ __forceinline__ void prefetch_rec(const float4* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+// Entry b of a batch held in registers, b known only at run time: the
+// visit loop is not unrolled, so that K2's leaf phase is compiled once
+// and not P times.
+template <int P, typename V>
+__device__ __forceinline__ V pick(const V (&x)[P], int b) {
+  V v = x[0];
+#pragma unroll
+  for (int k = 1; k < P; ++k)
+    if (b == k) v = x[k];
+  return v;
+}
+
+// K4 (_traverse_kernel_mp) on K2's walk.  Each lane pops a batch of up to
+// P entries, top first, and reads all of them before any push recycles
+// their region from sp0; a batch stale throughout is dropped in the lane
+// (it would push nothing), as K2 drops a stale entry.  The records of the
+// entries not stale are fetched (ahead or at their turn, ``F``); then the
+// warp visits batch positions b = 0..P-1 in turn: a lane whose entry b is
+// still below its ray's t (the stale cull against t as it stands, after
+// the leaves of entries 0..b-1) passes its leaf children to K2's leaf
+// phase and pushes its inner children far-first at sp0 + pos.
+template <int L, int T, int P, int F, bool kCount>
+__global__ void __launch_bounds__(T)
+bvh4_closest_mp_warp_kernel(const Trace a, const Hits h) {
+  extern __shared__ float4 top[];
+  copy_top(a, top);
+  const int warp = blockIdx.x * (T / 32) + threadIdx.x / 32;
+  const float inf = __int_as_float(0x7f800000);
+  LaneCount c = {0, 0, 0, 0};
+  int stack_node[kMaxStack];
+  float stack_key[kMaxStack];
+  RayIn r = {};
+  float best_t = 0.f, best_u = 0.f, best_v = 0.f;
+  int best = -1, ray = -1, sp = 0;
+  bool more = true;
+  for (;;) {
+    if (more) {
+      const int i = take_ray(a, ray < 0, more, warp);
+      if (i >= 0) {
+        ray = i;
+        r = load_ray(a.o, a.d, i);
+        best_t = a.maxt[i];
+        best = -1;
+        best_u = best_v = 0.f;
+        stack_node[0] = 0;
+        stack_key[0] = 0.f;
+        sp = 1;
+      }
+    }
+    if (!__any_sync(kFull, ray >= 0)) break;
+    int bnode[P];
+    float bkey[P];
+#pragma unroll
+    for (int b = 0; b < P; ++b) {
+      bnode[b] = 0;
+      bkey[b] = inf;
+    }
+    int sp0 = 0;
+    while (sp > 0) {
+      const int npop = sp < P ? sp : P;
+      sp0 = sp - npop;
+      bool live = false;
+#pragma unroll
+      for (int b = 0; b < P; ++b) {
+        const int at = b < npop ? sp - 1 - b : 0;
+        bnode[b] = stack_node[at];
+        bkey[b] = b < npop ? stack_key[at] : inf;
+        live |= bkey[b] < best_t;
+      }
+      if (live) break;
+      sp = sp0;  // stale throughout: t shrank since
+    }
+    // t only shrinks: an entry stale now is stale at its turn too
+    Node s[P];
+    unsigned em[P];
+    if (F == kAhead) {
+      Rec x[P];
+#pragma unroll
+      for (int b = 0; b < P; ++b)
+        if (bkey[b] < best_t) x[b] = fetch(a, top, bnode[b]);
+#pragma unroll
+      for (int b = 0; b < P; ++b) {
+        s[b] = Node{};
+        em[b] = 0;
+        if (bkey[b] < best_t) {
+          s[b] = slab(x[b], r);
+          em[b] = enter_mask(s[b]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < P; ++b)
+        if (bkey[b] < best_t && bnode[b] >= a.n_shared)
+          prefetch_rec(a.nodes + static_cast<size_t>(bnode[b]) * 8);
+    }
+    int pos = 0;
+#pragma unroll 1
+    for (int b = 0; b < P; ++b) {
+      const bool live = pick(bkey, b) < best_t;  // the stale cull
+      if (!__any_sync(kFull, live)) continue;  // warp-uniform
+      Node sb = {};
+      unsigned eb = 0;
+      if (live) {
+        if (F == kAhead) {
+          sb = pick(s, b);
+          eb = pick(em, b);
+        } else {
+          sb = slab(fetch(a, top, pick(bnode, b)), r);
+          eb = enter_mask(sb);
+        }
+      }
+      bool enter[4];
+      unsigned leaf = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        enter[k] = (eb >> k) & 1u;
+        leaf |= static_cast<unsigned>(enter[k] && sb.cnt[k] > 0) << k;
+      }
+      if (kCount) {
+        c.trav_steps += 1;
+        c.trav_active += __popc(__ballot_sync(kFull, live));
+      }
+      closest_leaves<L, kCount>(a, leaf, sb, r, best_t, best, best_u, best_v,
+                                c);
+      if (live)
+        pos += push_inner(sb, enter, best_t, stack_node, stack_key, sp0 + pos,
+                          a.stack_cap, a.overflow);
+    }
+    sp = sp0 + pos;
+    if (ray >= 0 && sp == 0) {
+      store_hit(ray, best_t, best, best_u, best_v, h.t, h.u, h.v, h.slot);
+      ray = -1;
+    }
+  }
+  if (kCount && (threadIdx.x & 31) == 0) flush_counts(c, a.counts);
+}
+
 // K3's leaf phase: true on the lanes whose ray hits a triangle of an
 // entered leaf child; a ray stops testing at its first hit (serially) or
 // at its first chunk with a hit (cooperatively).
@@ -786,6 +952,29 @@ int launch_any(const Trace& a, const Hits& h, int layout, int threads,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K4's instantiations: (layout, threads, fetch) triples, each at P = 2, 4.
+#define EPSM_K4_CONFIGS(X) \
+  X(kRows, 128, kAhead)    \
+  X(kPad, 1024, kAhead)    \
+  X(kPad, 512, kAhead)     \
+  X(kPad, 1024, kTurn)     \
+  X(kPad, 512, kTurn)
+
+template <int P>
+int launch_closest_mp(const Trace& a, const Hits& h, int layout, int threads,
+                      int fetch, int persistent, cudaStream_t stream) {
+  const bool count = a.counts != nullptr;
+#define EPSM_CASE(L, T, F)                                                  \
+  if (layout == L && threads == T && fetch == F)                            \
+    return count ? launch(bvh4_closest_mp_warp_kernel<L, T, P, F, true>, T, \
+                          a, h, persistent, stream)                         \
+                 : launch(bvh4_closest_mp_warp_kernel<L, T, P, F, false>,   \
+                          T, a, h, persistent, stream);
+  EPSM_K4_CONFIGS(EPSM_CASE)
+#undef EPSM_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename Kernel>
 int static_shared(Kernel kern, int* bytes) {
   cudaFuncAttributes attr;
@@ -895,18 +1084,58 @@ int bvh4_shared_budget(int* bytes) {
   err |= static_shared(bvh4_any_kernel<L, T>, &fixed);
   EPSM_BVH_CONFIGS(EPSM_CASE)
 #undef EPSM_CASE
+#define EPSM_CASE(L, T, F)                                                  \
+  err |= static_shared(bvh4_closest_mp_warp_kernel<L, T, 2, F, false>,      \
+                       &fixed);                                             \
+  err |= static_shared(bvh4_closest_mp_warp_kernel<L, T, 2, F, true>,       \
+                       &fixed);                                             \
+  err |= static_shared(bvh4_closest_mp_warp_kernel<L, T, 4, F, false>,      \
+                       &fixed);                                             \
+  err |= static_shared(bvh4_closest_mp_warp_kernel<L, T, 4, F, true>, &fixed);
+  EPSM_K4_CONFIGS(EPSM_CASE)
+#undef EPSM_CASE
   if (err != 0) return static_cast<int>(cudaErrorInvalidValue);
   *bytes = optin - fixed;
   return 0;
 }
 
-// K4: the one-thread-a-ray closest hit popping up to multi_pop (2 or 4)
-// entries an iteration; tri the (F, 9) rows; results as bvh4_closest_hit.
-int bvh4_closest_hit_mp(const float* nodes, const float* tri, const float* o,
-                        const float* d, const float* maxt, int n_rays,
-                        int stack_cap, int multi_pop, float* t_out,
-                        float* u_out, float* v_out, int* slot_out,
-                        int* overflow, cudaStream_t stream) {
+// K4: the closest hit popping up to multi_pop (2 or 4) entries an
+// iteration, on K2's warp-cooperative walk; ``fetch`` 0 loads and
+// slab-tests a batch's live records before its first visit, 1 each at its
+// turn; (layout, threads, fetch) one of the compiled configurations; the
+// other arguments and the results as bvh4_closest_hit's.
+int bvh4_closest_hit_mp(const float* nodes, int n_shared, const float* tri,
+                        int layout, const float* o, const float* d,
+                        const float* maxt, int n_rays, int stack_cap,
+                        int threads, int persistent, unsigned* next_ray,
+                        int serial_x8, int multi_pop, int fetch,
+                        float* t_out, float* u_out, float* v_out,
+                        int* slot_out, int* overflow,
+                        unsigned long long* counts, cudaStream_t stream) {
+  if (bad_trace(stack_cap, n_shared, nodes, persistent, next_ray))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Trace a = make_trace(nodes, n_shared, tri, o, d, maxt, n_rays,
+                             stack_cap, next_ray, serial_x8, overflow,
+                             counts);
+  Hits h = {t_out, u_out, v_out, slot_out, nullptr};
+  if (multi_pop == 2)
+    return launch_closest_mp<2>(a, h, layout, threads, fetch, persistent,
+                                stream);
+  if (multi_pop == 4)
+    return launch_closest_mp<4>(a, h, layout, threads, fetch, persistent,
+                                stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// PR 3's K4, the one-thread-a-ray walk popping up to multi_pop (2 or 4)
+// entries an iteration, kept to time the redesign against; tri the (F, 9)
+// rows; results as bvh4_closest_hit.
+int bvh4_closest_hit_mp_thread(const float* nodes, const float* tri,
+                               const float* o, const float* d,
+                               const float* maxt, int n_rays, int stack_cap,
+                               int multi_pop, float* t_out, float* u_out,
+                               float* v_out, int* slot_out, int* overflow,
+                               cudaStream_t stream) {
   if (stack_cap < 1 || stack_cap > kMaxStack)
     return static_cast<int>(cudaErrorInvalidValue);
   const float4* n4 = reinterpret_cast<const float4*>(nodes);
@@ -926,8 +1155,8 @@ int bvh4_closest_hit_mp(const float* nodes, const float* tri, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The reference: K2's former one-thread-a-ray walk (K4's kernel at P = 1),
-// with the arguments and results of bvh4_closest_hit_mp; ``counts`` as
+// The reference: K2's former one-thread-a-ray walk (the batched pop at P =
+// 1); tri the (F, 9) rows; the results and ``counts`` as
 // bvh4_closest_hit's.
 int bvh4_closest_hit_ref(const float* nodes, const float* tri,
                          const float* o, const float* d, const float* maxt,

@@ -20,9 +20,11 @@ to 32 triangles of a fat leaf one after another, and warps waiting for
 their longest ray.  They read the triangles as rows padded to 48 bytes
 (``kernel_tris``), keep the top ``R`` node records in shared memory
 (``shared_records``), and take the launch configuration of ``SCHEDULE``.
-K4 and ``closest_hit_reference`` (K2's former walk, kept to time the
-redesign against) test each leaf serially in their lane, on the (F, 9)
-rows.
+K4 is K2's walk with the reference's batched pop: a lane pops up to P
+entries and fetches their records before it visits them, and K2's leaf
+phase runs once for each batch position; it takes ``K4_SCHEDULE``.
+``closest_hit_reference`` (K2's former walk, kept to time the redesigns
+against) tests each leaf serially in its lane, on the (F, 9) rows.
 
 Around the launch the rays may be sorted by a 30-bit 6-D Morton key of
 origin and direction (``sort_keys``) and the results un-sorted, as the
@@ -89,6 +91,34 @@ class Schedule:
 
 #: the main path's K2/K3 launch
 SCHEDULE = Schedule()
+
+
+@dataclass(frozen=True)
+class K4Schedule(Schedule):
+    """How K4 is launched: a ``Schedule`` (compiled with ``fetch`` as a
+    (layout, threads, fetch) triple), and how a lane fetches its batch's
+    node records: "ahead", every live record loaded and then slab-tested
+    before the batch's first visit (the loads in flight together, P slab
+    results held in registers), or "turn", each loaded and slab-tested at
+    its turn after the global ones are prefetched into L1 (one held)."""
+    fetch: str = "ahead"
+
+
+#: K4's record fetches (``bvh_traverse.cu`` ``Fetch``)
+FETCHES = {"ahead": 0, "turn": 1}
+#: K4's design steps and register alternatives, each timed by
+#: ``chip_smoke.py``: warp-wide leaf tests alone (the (F, 9) rows, one
+#: warp per 32 rays); with the persistent, refilling grid, the shared top
+#: and the 48-byte rows; and the same with 512-thread blocks (more
+#: registers a thread) or the records fetched at their turn
+K4_STEPS = {"1": K4Schedule("rows", 128, False, False),
+            "2": K4Schedule(),
+            "2, 512 threads": K4Schedule(threads=512),
+            "2, turn": K4Schedule(fetch="turn"),
+            "2, turn, 512 threads": K4Schedule(threads=512, fetch="turn")}
+#: the K4 launch ``closest_hit`` takes; its layout is ``SCHEDULE``'s, so
+#: both read the scene's ``bvh_tris_k``
+K4_SCHEDULE = K4_STEPS["2"]
 #: the design steps, each timed by ``chip_smoke.py``: warp-cooperative
 #: leaf tests alone (on the (F, 9) rows, one warp per 32 rays), with the
 #: rows padded to 48 bytes, and with the top of the tree in shared memory
@@ -99,7 +129,8 @@ STEPS = {"1": Schedule("rows", 128, False, False),
 
 #: launches of each kernel entry, counted where the launch happens
 launches = {"bvh4_closest_hit": 0, "bvh4_closest_hit_mp": 0,
-            "bvh4_any_hit": 0, "bvh4_closest_hit_ref": 0}
+            "bvh4_any_hit": 0, "bvh4_closest_hit_ref": 0,
+            "bvh4_closest_hit_mp_thread": 0}
 
 _lib = None
 _overflow = {}      # device -> int32 flag the kernels set
@@ -116,14 +147,16 @@ def build() -> ctypes.CDLL:
     trace = [ptr, i32, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
              i32]
     lib.bvh4_closest_hit.argtypes = trace + [ptr] * 7
+    lib.bvh4_closest_hit_mp.argtypes = trace + [i32, i32] + [ptr] * 7
     lib.bvh4_any_hit.argtypes = trace + [ptr] * 3
-    lib.bvh4_closest_hit_mp.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                        i32, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.bvh4_closest_hit_ref.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                          ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.bvh4_closest_hit_mp_thread.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.bvh4_shared_budget.argtypes = [ctypes.POINTER(i32)]
     for entry in ("bvh4_closest_hit", "bvh4_any_hit", "bvh4_closest_hit_mp",
-                  "bvh4_closest_hit_ref", "bvh4_shared_budget"):
+                  "bvh4_closest_hit_ref", "bvh4_closest_hit_mp_thread",
+                  "bvh4_shared_budget"):
         getattr(lib, entry).restype = i32
     _lib = lib
     return lib
@@ -286,15 +319,10 @@ def _trace_args(nodes, tri_k, o, d, maxt, schedule, n_shared):
     return args, counter
 
 
-def launch_closest(nodes, tri_k, o, d, maxt, schedule: Schedule = SCHEDULE,
-                   n_shared: Optional[int] = None,
-                   counts: Optional[torch.Tensor] = None):
-    """K2 on CUDA tensors: ``tri_k`` the triangles in ``schedule.layout``;
-    ``n_shared`` records in shared memory (``None``: as many as the block
-    holds when ``schedule.shared``, else 0); ``counts``, a zeroed (4,)
-    int64 tensor, receives the lane utilisation (traversal steps, active
-    lanes in them, leaf steps, active lanes in them) from the counting
-    build.  Returns (t, slot, u, v) as ``closest_hit``."""
+def _launch_closest(entry, extra, nodes, tri_k, o, d, maxt, schedule,
+                    n_shared, counts):
+    """Launch the closest-hit ``entry`` (K2 or K4) with the trace
+    arguments, then ``extra``, then the outputs."""
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     slot = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -307,14 +335,44 @@ def launch_closest(nodes, tri_k, o, d, maxt, schedule: Schedule = SCHEDULE,
         args, counter = _trace_args(nodes, tri_k, o, d, maxt, schedule,
                                     n_shared)
         flag = _flag(o.device)
-        err = lib.bvh4_closest_hit(
-            *args, t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
-            flag.data_ptr(), None if counts is None else counts.data_ptr(),
+        err = getattr(lib, entry)(
+            *args, *extra, t.data_ptr(), u.data_ptr(), v.data_ptr(),
+            slot.data_ptr(), flag.data_ptr(),
+            None if counts is None else counts.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
     del counter
-    _native.check_launch(err, "bvh4_closest_hit")
-    launches["bvh4_closest_hit"] += 1
+    _native.check_launch(err, entry)
+    launches[entry] += 1
     return t, slot, u, v
+
+
+def launch_closest(nodes, tri_k, o, d, maxt, schedule: Schedule = SCHEDULE,
+                   n_shared: Optional[int] = None,
+                   counts: Optional[torch.Tensor] = None):
+    """K2 on CUDA tensors: ``tri_k`` the triangles in ``schedule.layout``;
+    ``n_shared`` records in shared memory (``None``: as many as the block
+    holds when ``schedule.shared``, else 0); ``counts``, a zeroed (4,)
+    int64 tensor, receives the lane utilisation (traversal steps, active
+    lanes in them, leaf steps, active lanes in them) from the counting
+    build.  Returns (t, slot, u, v) as ``closest_hit``."""
+    return _launch_closest("bvh4_closest_hit", (), nodes, tri_k, o, d, maxt,
+                           schedule, n_shared, counts)
+
+
+def launch_closest_mp(nodes, tri_k, o, d, maxt, multi_pop: int,
+                      schedule: K4Schedule = K4_SCHEDULE,
+                      n_shared: Optional[int] = None,
+                      counts: Optional[torch.Tensor] = None):
+    """K4 on CUDA tensors, popping ``multi_pop`` (one of ``K4_WIDTHS``)
+    stack entries an iteration; the other arguments as
+    ``launch_closest``'s, a traversal step being one batch position
+    visited by the warp.  Returns (t, slot, u, v) as ``closest_hit``."""
+    if multi_pop not in K4_WIDTHS:
+        raise ValueError(f"K4: multi_pop {multi_pop} is not one of "
+                         f"{K4_WIDTHS}")
+    return _launch_closest("bvh4_closest_hit_mp",
+                           (multi_pop, FETCHES[schedule.fetch]), nodes,
+                           tri_k, o, d, maxt, schedule, n_shared, counts)
 
 
 def launch_any(nodes, tri_k, o, d, maxt, schedule: Schedule = SCHEDULE,
@@ -339,8 +397,8 @@ def launch_any(nodes, tri_k, o, d, maxt, schedule: Schedule = SCHEDULE,
 
 
 def _launch_one_thread(nodes, tri, o, d, maxt, multi_pop, counts=None):
-    """K4 (``multi_pop`` 2 or 4) or, at 1, the reference: the
-    one-thread-a-ray walk on the (F, 9) rows."""
+    """The one-thread-a-ray walk on the (F, 9) rows: the reference at
+    ``multi_pop`` 1, PR 3's K4 at 2 or 4."""
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     slot = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -358,8 +416,9 @@ def _launch_one_thread(nodes, tri, o, d, maxt, multi_pop, counts=None):
         hits = (t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
                 flag.data_ptr())
         if multi_pop > 1:
-            entry = "bvh4_closest_hit_mp"
-            err = lib.bvh4_closest_hit_mp(*rays, multi_pop, *hits, stream)
+            entry = "bvh4_closest_hit_mp_thread"
+            err = lib.bvh4_closest_hit_mp_thread(*rays, multi_pop, *hits,
+                                                 stream)
         else:
             entry = "bvh4_closest_hit_ref"
             err = lib.bvh4_closest_hit_ref(
@@ -375,7 +434,7 @@ def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
                 tri_k: Optional[torch.Tensor] = None):
     """Closest hit of each ray through the BVH4: K2, or K4 with
     ``multi_pop`` in ``K4_WIDTHS``; ``None`` reads ``MULTI_POP``, the one
-    place the default is set.  K2 reads ``tri_k``, the triangles in
+    place the default is set.  K2 and K4 read ``tri_k``, the triangles in
     ``SCHEDULE.layout`` (``pack_bvh4``'s third output; made from ``tri``
     when not given).
 
@@ -393,18 +452,25 @@ def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
     if o.device.type == "cpu":
         out = T.bvh_ray_intersect_plain(nodes, tri, o, d, maxt,
                                         multi_pop=multi_pop)
-    elif multi_pop > 1:
-        out = _launch_one_thread(nodes, tri, o, d, maxt, multi_pop)
     else:
-        out = launch_closest(nodes, kernel_tris(tri) if tri_k is None
-                             else tri_k, o, d, maxt)
+        tri_k = kernel_tris(tri) if tri_k is None else tri_k
+        out = (launch_closest_mp(nodes, tri_k, o, d, maxt, multi_pop)
+               if multi_pop > 1 else launch_closest(nodes, tri_k, o, d,
+                                                    maxt))
     return tuple(_unsort(x, perm) for x in out) if sort else out
+
+
+def closest_hit_thread(nodes, tri, o, d, maxt, multi_pop: int):
+    """PR 3's K4 (the one-thread-a-ray walk popping ``multi_pop`` entries
+    an iteration) on CUDA tensors, kept to time the redesign against."""
+    _check(nodes, tri, o, d, maxt)
+    return _launch_one_thread(nodes, tri, o, d, maxt, multi_pop)
 
 
 def closest_hit_reference(nodes, tri, o, d, maxt,
                           counts: Optional[torch.Tensor] = None):
-    """K2's former one-thread-a-ray walk (K4's kernel at P = 1), kept to
-    time the redesign against; never on the main path.  ``counts`` as
+    """K2's former one-thread-a-ray walk (the batched pop at P = 1), kept
+    to time K2 and K4 against; never on the main path.  ``counts`` as
     ``launch_closest``'s.  Returns ``closest_hit``'s outputs."""
     _check(nodes, tri, o, d, maxt)
     if o.device.type == "cpu":

@@ -271,28 +271,146 @@ def test_bvh_render_cuda_matches_cpu(mesh_scene):
     assert float((diff.amax(-1) <= 1e-3).float().mean()) >= 0.99
 
 
+def _k4_once(fn, *args, **kw):
+    """``fn(*args, **kw)``, which must launch K4 exactly once and no other
+    kernel entry."""
+    expect = dict(CT.launches)
+    expect["bvh4_closest_hit_mp"] += 1
+    out = fn(*args, **kw)
+    assert CT.launches == expect, fn
+    return out
+
+
+@pytest.mark.parametrize("sort", [False, True])
 @pytest.mark.parametrize("multi_pop", [2, 4])
 @pytest.mark.parametrize("n_rays", [1, 129, 4133, 65536])
-def test_k4_kernel_equals_plain(mesh_scene, n_rays, multi_pop):
-    """K4 walks the plain version's order: every output equal; and K2's
-    t and valid."""
+def test_k4_kernel_equals_plain(mesh_scene, n_rays, multi_pop, sort):
+    """K4 (``closest_hit(..., multi_pop=P)``, the main path's launch) walks
+    the plain version's order: every output equal, the rays Morton-sorted
+    or not; and K2's t and valid; one K4 launch a call."""
     sc = mesh_scene
     args = [x.to(sc.device) for x in _mesh_rays(n_rays, n_rays + 1)]
-    before = dict(CT.launches)
-    got = CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args,
-                         multi_pop=multi_pop)
+    got = _k4_once(CT.closest_hit, sc.bvh_nodes, sc.bvh_tris, *args,
+                   multi_pop=multi_pop, tri_k=sc.bvh_tris_k, sort=sort)
     torch.cuda.synchronize()
     CT.raise_on_overflow(sc.device)
-    assert (CT.launches["bvh4_closest_hit_mp"]
-            == before["bvh4_closest_hit_mp"] + 1)
-    assert CT.launches["bvh4_closest_hit"] == before["bvh4_closest_hit"]
     plain = TR.bvh_ray_intersect_plain(sc.bvh_nodes, sc.bvh_tris, *args,
                                        multi_pop=multi_pop)
-    for a, b in zip(got, plain):
-        assert torch.equal(a, b)
+    _assert_equal_hits(got, plain)
     k2 = CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args)
     assert torch.equal(got[0], k2[0])
     assert torch.equal(got[1] >= 0, k2[1] >= 0)
+
+
+def _k4_steps():
+    return [(name, p) for name in sorted(CT.K4_STEPS) for p in CT.K4_WIDTHS]
+
+
+@pytest.mark.parametrize("step,multi_pop", _k4_steps())
+@pytest.mark.parametrize("n_shared", [0, None])
+@pytest.mark.parametrize("n_rays", [129, 2 ** 18])
+def test_k4_steps_equal_plain(mesh_scene, n_rays, n_shared, step,
+                              multi_pop):
+    """Every K4 design step with no record and with the whole tree (the
+    block's budget) in shared memory, on more rays than the card holds at
+    once: bit for bit the plain version's hits, one launch a call."""
+    sc = mesh_scene
+    sched = CT.K4_STEPS[step]
+    args = [x.to(sc.device) for x in _mesh_rays(n_rays, n_rays + 2)]
+    if n_shared is None:
+        n_shared = CT.shared_records(sc.bvh_nodes.shape[0],
+                                     CT.shared_budget(sc.device))
+        assert n_shared == sc.bvh_nodes.shape[0]
+    got = _k4_once(CT.launch_closest_mp, sc.bvh_nodes,
+                   CT.kernel_tris(sc.bvh_tris, sched.layout), *args,
+                   multi_pop, sched, n_shared)
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(sc.device)
+    _assert_equal_hits(got, TR.bvh_ray_intersect_plain(
+        sc.bvh_nodes, sc.bvh_tris, *args, multi_pop=multi_pop))
+
+
+@pytest.mark.parametrize("multi_pop", [2, 4])
+@pytest.mark.parametrize("serial", [0, 2 ** 20])
+def test_k4_leaf_phase_either_way(mesh_scene, serial, multi_pop):
+    """K4's leaves tested always warp-wide and always lane by lane give
+    the plain version's hits, on the mesh's rays and on coincident
+    triangles."""
+    from dataclasses import replace
+    sched = replace(CT.K4_SCHEDULE, serial=serial)
+    _, nodes, rows, soup = _dup_soup(1500, 20000, 13, mesh_scene.device)
+    mesh = [x.to(mesh_scene.device) for x in _mesh_rays(20000, 4)]
+    for nodes, rows, args in ((nodes, rows, soup),
+                              (mesh_scene.bvh_nodes, mesh_scene.bvh_tris,
+                               mesh)):
+        got = CT.launch_closest_mp(nodes, CT.kernel_tris(rows, sched.layout),
+                                   *args, multi_pop, sched)
+        _assert_equal_hits(got, TR.bvh_ray_intersect_plain(
+            nodes, rows, *args, multi_pop=multi_pop))
+
+
+@pytest.mark.parametrize("step,multi_pop", _k4_steps())
+def test_k4_on_ties_and_full_leaves(mesh_scene, step, multi_pop):
+    """Coincident triangles (every triangle twice, the copies in one leaf
+    or across leaves) and leaves of 32: K4's warp reduction keeps the
+    plain version's slot, u and v exactly, and K2's t and valid."""
+    sched = CT.K4_STEPS[step]
+    _, nodes, rows, args = _dup_soup(1500, 20000, 11, mesh_scene.device)
+    assert bool((mesh_scene.bvh.c4_cnt == 32).any())
+    scenes = [(nodes, rows, args),
+              (mesh_scene.bvh_nodes, mesh_scene.bvh_tris,
+               [x.to(mesh_scene.device) for x in _mesh_rays(20000, 3)])]
+    for nodes, rows, args in scenes:
+        got = CT.launch_closest_mp(nodes, CT.kernel_tris(rows, sched.layout),
+                                   *args, multi_pop, sched)
+        _assert_equal_hits(got, TR.bvh_ray_intersect_plain(
+            nodes, rows, *args, multi_pop=multi_pop))
+        k2 = CT.launch_closest(nodes, CT.kernel_tris(rows), *args)
+        assert torch.equal(got[0], k2[0])
+        assert torch.equal(got[1] >= 0, k2[1] >= 0)
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("multi_pop", [2, 4])
+def test_k4_overflow_is_flagged(mesh_scene, monkeypatch, multi_pop):
+    """A stack too small for the tree sets K4's device flag, and
+    raise_on_overflow raises once and clears it."""
+    sc = mesh_scene
+    args = [x.to(sc.device) for x in _mesh_rays(1024, 5)]
+    monkeypatch.setattr(TR, "STACK_SIZE", 2)
+    CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args, multi_pop=multi_pop)
+    with pytest.raises(TR.StackOverflow):
+        CT.raise_on_overflow(sc.device)
+    CT.raise_on_overflow(sc.device)
+
+
+def test_k4_rejects_other_widths(mesh_scene):
+    sc = mesh_scene
+    args = [x.to(sc.device) for x in _mesh_rays(64, 6)]
+    for width in (0, 1, 3, 8):
+        with pytest.raises(ValueError):
+            CT.launch_closest_mp(sc.bvh_nodes, sc.bvh_tris_k, *args, width)
+    with pytest.raises(ValueError):
+        CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args, multi_pop=3)
+
+
+@pytest.mark.parametrize("multi_pop", [2, 4])
+def test_k4_render_cuda_matches_cpu(mesh_scene, multi_pop):
+    """``render(..., integrator={"multi_pop": P})`` reaches K4 (max_depth
+    launches, K2 none) and renders as the plain K4 does on the CPU."""
+    d = cornell_box_mesh(res=16, spp=2, max_depth=4, subdiv=46)
+    mp = {"multi_pop": multi_pop}
+    before = dict(CT.launches)
+    img_c = mt.render(mt.load_dict(d, device="cuda"), spp=2, seed=0,
+                      integrator=mp)
+    assert (CT.launches["bvh4_closest_hit_mp"]
+            == before["bvh4_closest_hit_mp"] + 4)
+    assert CT.launches["bvh4_closest_hit"] == before["bvh4_closest_hit"]
+    img_h = mt.render(mt.load_dict(d, device="cpu"), spp=2, seed=0,
+                      device="cpu", integrator=mp)
+    diff = (img_c.cpu() - img_h).abs()
+    assert float(diff.mean()) <= 1e-3 * float(img_h.mean())
+    assert float((diff.amax(-1) <= 1e-3).float().mean()) >= 0.99
 
 
 _PLAIN = {}
@@ -412,11 +530,20 @@ def test_lane_counts(mesh_scene):
     for name, fn in (
             ("warp", lambda c: CT.launch_closest(
                 sc.bvh_nodes, sc.bvh_tris_k, *args, counts=c)),
+            ("K4 P=2", lambda c: CT.launch_closest_mp(
+                sc.bvh_nodes, sc.bvh_tris_k, *args, 2, counts=c)),
+            ("K4 P=4", lambda c: CT.launch_closest_mp(
+                sc.bvh_nodes, sc.bvh_tris_k, *args, 4, counts=c)),
             ("reference", lambda c: CT.closest_hit_reference(
                 sc.bvh_nodes, sc.bvh_tris, *args, counts=c))):
         counts = torch.zeros(4, dtype=torch.int64, device=sc.device)
         got = fn(counts)
-        _assert_equal_hits(got, ref[:4])
+        if name.startswith("K4"):
+            ref_k4 = TR.bvh_ray_intersect_plain(
+                sc.bvh_nodes, sc.bvh_tris, *args, multi_pop=int(name[-1]))
+            _assert_equal_hits(got, ref_k4)
+        else:
+            _assert_equal_hits(got, ref[:4])
         steps, active, leaf_steps, leaf_active = counts.tolist()
         assert 0 < active <= 32 * steps, name
         assert 0 < leaf_active <= 32 * leaf_steps, name

@@ -92,6 +92,23 @@ def test_k4_wrapper_routes_and_rejects(mesh_scene):
         CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, o, d, maxt, multi_pop=3)
 
 
+@pytest.mark.parametrize("multi_pop", [2, 4])
+def test_k4_wrapper_on_cpu_takes_the_plain_k4(mesh_scene, multi_pop):
+    """With the kernels' rows given (``tri_k``), as ``ops/accel.py`` gives
+    them, ``closest_hit(..., multi_pop=P)`` on CPU tensors still returns
+    the plain K4's outputs, with the rays Morton-sorted or not."""
+    sc = mesh_scene
+    o, d, maxt = _random_rays(700, 8)
+    ref = TT.bvh_ray_intersect_plain(sc.bvh_nodes, sc.bvh_tris, o, d, maxt,
+                                     multi_pop=multi_pop)
+    for sort in (False, True):
+        got = CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, o, d, maxt,
+                             sort=sort, multi_pop=multi_pop,
+                             tri_k=sc.bvh_tris_k)
+        for x, y in zip(got, ref):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
 def test_multi_pop_default_is_read_by_closest_hit(monkeypatch):
     """With no ``multi_pop`` named, every layer from ``render`` and
     ``render_prb`` down passes None and ``closest_hit`` reads
@@ -116,15 +133,18 @@ def test_multi_pop_default_is_read_by_closest_hit(monkeypatch):
     assert seen and set(seen) == {2}
 
 
-def test_k4_plain_matches_pallas_k4_interpreted():
-    """The JAX package's K4 (``_traverse_kernel_mp`` at P = 4), run in
-    interpret mode: 1,058 triangles, 512 rays aimed at the mesh."""
+@pytest.mark.parametrize("multi_pop,n,spread", [(2, 128, 0.4),
+                                                (4, 512, 0.6)])
+def test_k4_plain_matches_pallas_k4_interpreted(multi_pop, n, spread):
+    """The JAX package's K4 (``_traverse_kernel_mp`` at P = 2 and 4), run
+    in interpret mode: 1,058 triangles, ``n`` rays aimed at points within
+    ``spread`` of the mesh's centre (fewer rays at P = 2, to keep the
+    interpreter's time down, aimed closer so that most hit)."""
     V, F = bumpy_sphere(subdiv=23)
     r = np.random.default_rng(17)
-    n = 512
     o = r.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
     o[:, 2] = 2.0
-    target = r.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+    target = r.uniform(-spread, spread, (n, 3)).astype(np.float32)
     target[:, 1] += 0.7
     d = target - o
     d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
@@ -134,7 +154,7 @@ def test_k4_plain_matches_pallas_k4_interpreted():
     bj = BJ.build(V, F)
     ray = RayJ.make(jnp.asarray(o), jnp.asarray(d), jnp.asarray(maxt))
     pi = PTJ.bvh_ray_intersect_pallas(_GeomOnly(V, F, bj), ray, block_sub=8,
-                                      multi_pop=4)
+                                      multi_pop=multi_pop)
 
     bt = BT.from_arrays({k: np.asarray(getattr(bj, k))
                          for k in BT.ARRAY_FIELDS}, "cpu")
@@ -142,7 +162,7 @@ def test_k4_plain_matches_pallas_k4_interpreted():
                                  torch.from_numpy(F))
     t, slot, u, v = TT.bvh_ray_intersect_plain(
         nodes, tri, torch.from_numpy(o), torch.from_numpy(d),
-        torch.from_numpy(maxt), multi_pop=4)
+        torch.from_numpy(maxt), multi_pop=multi_pop)
     prim = torch.where(slot >= 0, bt.order[slot.clamp(min=0).long()], -1)
     prim_j = np.where(pi.valid, pi.prim_index, -1)
     skip = _grazing(tri.numpy(), slot.numpy(), d)

@@ -67,6 +67,26 @@ def test_schedules_are_compiled_configurations():
     assert CT.STEPS["1+2+3"] == CT.SCHEDULE
 
 
+def test_k4_schedules_are_compiled_configurations():
+    """K4's compiled (layout, threads, fetch) triples are exactly its
+    design steps, ``K4_SCHEDULE`` is one of them, and it reads the rows
+    of K2's layout that ``closest_hit`` hands both."""
+    src = (_native.PKG / "csrc" / "bvh_traverse.cu").read_text()
+    body = src[src.index("#define EPSM_K4_CONFIGS"):]
+    body = body[:body.index("\n\n")]
+    names = {"kRows": "rows", "kPad": "pad", "kAhead": "ahead",
+             "kTurn": "turn"}
+    compiled = {(names[a], int(b), names[c]) for a, b, c in
+                re.findall(r"X\((k\w+), (\d+), (k\w+)\)", body)}
+    steps = {(v.layout, v.threads, v.fetch) for v in CT.K4_STEPS.values()}
+    assert compiled == steps
+    assert CT.K4_SCHEDULE in CT.K4_STEPS.values()
+    assert set(CT.FETCHES) == {"ahead", "turn"}
+    assert CT.K4_SCHEDULE.layout == CT.SCHEDULE.layout
+    assert CT.K4_SCHEDULE.persistent and CT.K4_SCHEDULE.shared
+    assert CT.MULTI_POP == 0
+
+
 @pytest.mark.parametrize("subdiv", [SUBDIV, 120])
 def test_children_follow_parents(subdiv):
     """Records are in breadth-first order: every inner child's index
