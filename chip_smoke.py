@@ -32,20 +32,20 @@ Phases (any failed check raises, and the script exits non-zero):
    on 65,536 of them against K1's plain brute force over all 64,812
    triangles; the stack-overflow flag stays 0;
 5. K4 at P = 2 and 4 on the same rays against its plain version (every
-   output equal, for the main path's launch, each design step of
-   ``cuda_traverse.K4_STEPS`` and PR 3's one-thread-a-ray kernel),
-   against K2 (t and valid equal, tie rays counted) and against the
-   brute force; then the times of K2, the reference, K3 and K4 at both
-   widths, with the rays unsorted, Morton-sorted (sort included) and
-   pre-sorted, in two rounds (the second reversed), beside the plain
-   versions' and the bound, K2, K3 and K4 also on device time alone;
-   every K4 launch at both widths on device time alone beside K2 and the
-   reference; K2 and K3 at each design step, each equal to the main
-   path's launch; the lane utilisation of K2, K4 at both widths and the
-   reference (counting builds); and, on the rays one 8-spp mesh pass
-   hands to ``closest_hit`` / ``any_hit`` (the two wrapped in this
-   script), K2 and K3 against the reference, K4 against its plain
-   version, all timed, depth by depth;
+   output equal, for the main path's launch and each design step of
+   ``cuda_traverse.K4_STEPS``), against K2 (t and valid equal, tie rays
+   counted) and against the brute force; then the times of K2, the
+   reference, K3 and K4 at both widths, with the rays unsorted,
+   Morton-sorted (sort included) and pre-sorted, in two rounds (the
+   second reversed), beside the plain versions' and the bound, K2, K3
+   and K4 also on device time alone; every K4 launch at both widths on
+   device time alone beside K2 and the reference; K2 and K3 at each
+   design step, each equal to the main path's launch; the lane
+   utilisation of K2, K4 at both widths and the reference (counting
+   builds); and, on the rays one 8-spp mesh pass hands to
+   ``closest_hit`` / ``any_hit`` (the two wrapped in this script), K2
+   and K3 against the reference, K4 against its plain version, all
+   timed, depth by depth;
 6. the mesh's primal render at full width: ``render(load_dict(
    cornell_box_mesh(512, 8, 6)), spp=16, spp_chunk=8)``, each launching
    K2 and K3 12 times and K1 never;
@@ -778,12 +778,12 @@ def time_steps(scene, o, d, maxt):
 
 def time_k4_steps(scene, o, d, maxt, bound):
     """ms a launch, on the device alone, of every K4 launch of
-    ``k4_calls`` at each width (the main path's, each design step, PR 3's
-    kernel), with K2 and the reference beside them, in two rounds (the
-    second reversed); each set against ``bound``, the least time of K2's
+    ``k4_calls`` at each width (the main path's and each design step),
+    with K2 and the reference beside them, in two rounds (the second
+    reversed); each set against ``bound``, the least time of K2's
     function on these rays, and the main path's launch against the aim
-    (at least 3 x faster than PR 3's kernel, at most 1.25 x K2).  Returns
-    {name: ms}, the K4 launches named "P=<width> <launch>"."""
+    of at most 1.25 x K2.  Returns {name: ms}, the K4 launches named
+    "P=<width> <launch>"."""
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
     calls = {"K2": lambda o_, d_, m_: CT.launch_closest(nodes, tri_k, o_,
@@ -802,16 +802,14 @@ def time_k4_steps(scene, o, d, maxt, bound):
         f"{ms['K2']:.4f} ms, reference {ms['reference']:.4f} ms; bound "
         f"{bound:.4f} ms")
     for width in CT.K4_WIDTHS:
-        pr3 = ms[f"P={width} PR 3"]
         say(f"[K4 steps] P={width}: " + "; ".join(
-            f"{k.split(' ', 1)[1]} {t:.4f} ms ({t / ms['K2']:.2f} x K2, "
-            f"{pr3 / t:.2f} x faster than PR 3, {bound / t:.1%} of the "
-            "bound)" for k, t in ms.items() if k.startswith(f"P={width} ")))
+            f"{k.split(' ', 1)[1]} {t:.4f} ms ({t / ms['K2']:.3f} x K2, "
+            f"{t / ms['reference']:.3f} x the reference, {bound / t:.1%} "
+            "of the bound)" for k, t in ms.items()
+            if k.startswith(f"P={width} ")))
         main = ms[f"P={width} main"]
-        say(f"[speed] K4 P={width}: {pr3 / main:.2f} x faster than PR 3's "
-            f"kernel (aim >= 3: {'met' if pr3 / main >= 3 else 'missed'}), "
-            f"{main / ms['K2']:.3f} x K2 (aim <= 1.25: "
-            f"{'met' if main <= 1.25 * ms['K2'] else 'missed'})")
+        say(f"[speed] K4 P={width}: {main / ms['K2']:.3f} x K2 (aim <= "
+            f"1.25: {'met' if main <= 1.25 * ms['K2'] else 'missed'})")
     return ms
 
 
@@ -1024,9 +1022,8 @@ def profile_pass(label, fn, names):
 
 def k4_calls(scene, width):
     """Every K4 launch ``chip_smoke.py`` holds and times at one width, by
-    name: the main path's (``closest_hit``), each design step of
-    ``cuda_traverse.K4_STEPS`` and PR 3's one-thread-a-ray kernel; each
-    takes (o, d, maxt)."""
+    name: the main path's (``closest_hit``) and each design step of
+    ``cuda_traverse.K4_STEPS``; each takes (o, d, maxt)."""
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
     layouts = {"pad": tri_k, "rows": tri}
@@ -1036,18 +1033,16 @@ def k4_calls(scene, width):
         calls[f"step {name}"] = (lambda v_: lambda o, d, m: (
             CT.launch_closest_mp(nodes, layouts[v_.layout], o, d, m, width,
                                  v_)))(v)
-    calls["PR 3"] = lambda o, d, m: CT.closest_hit_thread(nodes, tri, o, d,
-                                                          m, width)
     return calls
 
 
 def compare_k4(scene, o, d, maxt, n_brute=65536):
     """K4 at each multi-pop width against its plain version (every output
-    equal, for the main path's launch, each design step and PR 3's
-    kernel), against K2 (t and valid equal; the rays where the two keep
-    different triangles at the same t counted) and, on the first
-    ``n_brute`` rays, against K1's plain brute force.  Returns per width
-    the errors, the plain version's ms and its work counts."""
+    equal, for the main path's launch and each design step), against K2
+    (t and valid equal; the rays where the two keep different triangles
+    at the same t counted) and, on the first ``n_brute`` rays, against
+    K1's plain brute force.  Returns per width the errors, the plain
+    version's ms and its work counts."""
     import torch
     from epsm_mitsuba3_torch.ops import cuda_intersect as CI
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT

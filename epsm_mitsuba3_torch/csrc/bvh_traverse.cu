@@ -65,14 +65,19 @@
 // Here the batch sits on K2's machinery: the persistent grid whose lanes
 // refill, the shared-memory top, the 48-byte rows, and K2's leaf phase,
 // run once for each batch position b, warp-wide, with the lanes whose
-// entry b is still live.  A batch's records are either all loaded and
-// slab-tested before its first visit (the loads in flight together, P
-// slab results held in registers) or each at its turn after a prefetch
-// into L1 (one held), a register trade timed in chip_smoke.py.
+// entry b is still live.  Each record is loaded and slab-tested at its
+// entry's turn, the global ones prefetched into L1 at the batch's start,
+// so one slab result is held: at 1,024 threads a thread has 64
+// registers, and holding all P (the reference's order, kept for the
+// 128-thread first design step) spilled 0.7-1.4 KB and ran 4-8 x slower
+// (chip_smoke.py, PERF.md).  The loop over the batch positions is not
+// unrolled, so K2's leaf phase is compiled once: unrolled P times it ran
+// 1.3-3.3 x slower.
 //
-// The reference (bvh4_closest_mp_kernel): the one-thread-a-ray walk of PR
-// 2 and 3, each leaf tested serially by its lane, with the batched pop at
-// P = 1, which is K2's former walk, kept to time K2 and K4 against.
+// The reference (bvh4_closest_mp_kernel): the former one-thread-a-ray
+// walk of K2 and K4, each leaf tested serially by its lane, with the
+// batched pop at P = 1, which is K2's former walk, kept to time K2 and K4
+// against.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -286,14 +291,15 @@ __device__ __forceinline__ void store_hit(int i, float best_t, int best,
   slot_out[i] = best;
 }
 
-// The one-thread-a-ray walk popping up to P entries an iteration (PR 3's
-// K4).  The batch's entries are read first, because the pushes recycle
-// the popped region from sp0; the records of the entries not already
-// stale are then loaded and slab-tested together, so their loads are in
-// flight at once; then each entry is visited in batch order (the
-// stale-entry cull against the current t included), its pushes appended
-// at sp0 + pos.  The entries are the stack's top first, so P = 1 is K2's
-// former walk, the reference.
+// The one-thread-a-ray walk popping up to P entries an iteration (the
+// former K4, at P = 2 and 4, before K4 moved onto K2's walk).  The batch's
+// entries are read first, because the pushes recycle the popped region
+// from sp0; the records of the entries not already stale are then loaded
+// and slab-tested together, so their loads are in flight at once; then
+// each entry is visited in batch order (the stale-entry cull against the
+// current t included), its pushes appended at sp0 + pos.  The entries are
+// the stack's top first, so P = 1 is K2's former walk, the reference,
+// the one instantiation kept.
 template <int P, bool kCount>
 __global__ void __launch_bounds__(kBlock)
 bvh4_closest_mp_kernel(const float4* __restrict__ nodes,
@@ -955,10 +961,7 @@ int launch_any(const Trace& a, const Hits& h, int layout, int threads,
 // K4's instantiations: (layout, threads, fetch) triples, each at P = 2, 4.
 #define EPSM_K4_CONFIGS(X) \
   X(kRows, 128, kAhead)    \
-  X(kPad, 1024, kAhead)    \
-  X(kPad, 512, kAhead)     \
-  X(kPad, 1024, kTurn)     \
-  X(kPad, 512, kTurn)
+  X(kPad, 1024, kTurn)
 
 template <int P>
 int launch_closest_mp(const Trace& a, const Hits& h, int layout, int threads,
@@ -1125,34 +1128,6 @@ int bvh4_closest_hit_mp(const float* nodes, int n_shared, const float* tri,
     return launch_closest_mp<4>(a, h, layout, threads, fetch, persistent,
                                 stream);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// PR 3's K4, the one-thread-a-ray walk popping up to multi_pop (2 or 4)
-// entries an iteration, kept to time the redesign against; tri the (F, 9)
-// rows; results as bvh4_closest_hit.
-int bvh4_closest_hit_mp_thread(const float* nodes, const float* tri,
-                               const float* o, const float* d,
-                               const float* maxt, int n_rays, int stack_cap,
-                               int multi_pop, float* t_out, float* u_out,
-                               float* v_out, int* slot_out, int* overflow,
-                               cudaStream_t stream) {
-  if (stack_cap < 1 || stack_cap > kMaxStack)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float4* n4 = reinterpret_cast<const float4*>(nodes);
-  if (multi_pop == 2) {
-    bvh4_closest_mp_kernel<2, false>
-        <<<blocks_for(n_rays), kBlock, 0, stream>>>(
-            n4, tri, o, d, maxt, n_rays, stack_cap, t_out, u_out, v_out,
-            slot_out, overflow, nullptr);
-  } else if (multi_pop == 4) {
-    bvh4_closest_mp_kernel<4, false>
-        <<<blocks_for(n_rays), kBlock, 0, stream>>>(
-            n4, tri, o, d, maxt, n_rays, stack_cap, t_out, u_out, v_out,
-            slot_out, overflow, nullptr);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The reference: K2's former one-thread-a-ray walk (the batched pop at P =

@@ -97,28 +97,27 @@ SCHEDULE = Schedule()
 class K4Schedule(Schedule):
     """How K4 is launched: a ``Schedule`` (compiled with ``fetch`` as a
     (layout, threads, fetch) triple), and how a lane fetches its batch's
-    node records: "ahead", every live record loaded and then slab-tested
-    before the batch's first visit (the loads in flight together, P slab
-    results held in registers), or "turn", each loaded and slab-tested at
-    its turn after the global ones are prefetched into L1 (one held)."""
-    fetch: str = "ahead"
+    node records: "turn", each loaded and slab-tested at its entry's turn
+    after the global ones are prefetched into L1 (one slab result held),
+    or "ahead", every live record loaded and then slab-tested before the
+    batch's first visit (the loads in flight together, P results held in
+    registers)."""
+    fetch: str = "turn"
 
 
 #: K4's record fetches (``bvh_traverse.cu`` ``Fetch``)
 FETCHES = {"ahead": 0, "turn": 1}
-#: K4's design steps and register alternatives, each timed by
-#: ``chip_smoke.py``: warp-wide leaf tests alone (the (F, 9) rows, one
-#: warp per 32 rays); with the persistent, refilling grid, the shared top
-#: and the 48-byte rows; and the same with 512-thread blocks (more
-#: registers a thread) or the records fetched at their turn
-K4_STEPS = {"1": K4Schedule("rows", 128, False, False),
-            "2": K4Schedule(),
-            "2, 512 threads": K4Schedule(threads=512),
-            "2, turn": K4Schedule(fetch="turn"),
-            "2, turn, 512 threads": K4Schedule(threads=512, fetch="turn")}
+#: K4's design steps, each timed by ``chip_smoke.py``: warp-wide leaf
+#: tests alone (the (F, 9) rows, one warp per 32 rays, the records
+#: fetched ahead as the reference does); then the persistent, refilling
+#: grid, the shared top and the 48-byte rows, with each record fetched at
+#: its turn (fetched ahead at 1,024 or 512 threads, or at its turn at
+#: 512, it lost: ``PERF.md`` §6)
+K4_STEPS = {"1": K4Schedule("rows", 128, False, False, fetch="ahead"),
+            "2, turn": K4Schedule()}
 #: the K4 launch ``closest_hit`` takes; its layout is ``SCHEDULE``'s, so
 #: both read the scene's ``bvh_tris_k``
-K4_SCHEDULE = K4_STEPS["2"]
+K4_SCHEDULE = K4_STEPS["2, turn"]
 #: the design steps, each timed by ``chip_smoke.py``: warp-cooperative
 #: leaf tests alone (on the (F, 9) rows, one warp per 32 rays), with the
 #: rows padded to 48 bytes, and with the top of the tree in shared memory
@@ -129,8 +128,7 @@ STEPS = {"1": Schedule("rows", 128, False, False),
 
 #: launches of each kernel entry, counted where the launch happens
 launches = {"bvh4_closest_hit": 0, "bvh4_closest_hit_mp": 0,
-            "bvh4_any_hit": 0, "bvh4_closest_hit_ref": 0,
-            "bvh4_closest_hit_mp_thread": 0}
+            "bvh4_any_hit": 0, "bvh4_closest_hit_ref": 0}
 
 _lib = None
 _overflow = {}      # device -> int32 flag the kernels set
@@ -151,12 +149,9 @@ def build() -> ctypes.CDLL:
     lib.bvh4_any_hit.argtypes = trace + [ptr] * 3
     lib.bvh4_closest_hit_ref.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                          ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.bvh4_closest_hit_mp_thread.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.bvh4_shared_budget.argtypes = [ctypes.POINTER(i32)]
     for entry in ("bvh4_closest_hit", "bvh4_any_hit", "bvh4_closest_hit_mp",
-                  "bvh4_closest_hit_ref", "bvh4_closest_hit_mp_thread",
-                  "bvh4_shared_budget"):
+                  "bvh4_closest_hit_ref", "bvh4_shared_budget"):
         getattr(lib, entry).restype = i32
     _lib = lib
     return lib
@@ -319,16 +314,19 @@ def _trace_args(nodes, tri_k, o, d, maxt, schedule, n_shared):
     return args, counter
 
 
+def _empty_hits(o):
+    """The closest hit's outputs (t, slot, u, v) for the rays ``o``."""
+    t = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
+    slot = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
+    return t, slot, torch.empty_like(t), torch.empty_like(t)
+
+
 def _launch_closest(entry, extra, nodes, tri_k, o, d, maxt, schedule,
                     n_shared, counts):
     """Launch the closest-hit ``entry`` (K2 or K4) with the trace
     arguments, then ``extra``, then the outputs."""
-    n = o.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    slot = torch.empty(n, dtype=torch.int32, device=o.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    if n == 0:
+    t, slot, u, v = _empty_hits(o)
+    if o.shape[0] == 0:
         return t, slot, u, v
     lib = build()
     with torch.cuda.device(o.device):
@@ -396,39 +394,6 @@ def launch_any(nodes, tri_k, o, d, maxt, schedule: Schedule = SCHEDULE,
     return occ
 
 
-def _launch_one_thread(nodes, tri, o, d, maxt, multi_pop, counts=None):
-    """The one-thread-a-ray walk on the (F, 9) rows: the reference at
-    ``multi_pop`` 1, PR 3's K4 at 2 or 4."""
-    n = o.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    slot = torch.empty(n, dtype=torch.int32, device=o.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    if n == 0:
-        return t, slot, u, v
-    lib = build()
-    cap = _stack_cap()
-    with torch.cuda.device(o.device):
-        flag = _flag(o.device)
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        rays = (nodes.data_ptr(), tri.data_ptr(), o.data_ptr(),
-                d.data_ptr(), maxt.data_ptr(), n, cap)
-        hits = (t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
-                flag.data_ptr())
-        if multi_pop > 1:
-            entry = "bvh4_closest_hit_mp_thread"
-            err = lib.bvh4_closest_hit_mp_thread(*rays, multi_pop, *hits,
-                                                 stream)
-        else:
-            entry = "bvh4_closest_hit_ref"
-            err = lib.bvh4_closest_hit_ref(
-                *rays, *hits, None if counts is None else counts.data_ptr(),
-                stream)
-    _native.check_launch(err, entry)
-    launches[entry] += 1
-    return t, slot, u, v
-
-
 def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
                 multi_pop: Optional[int] = None,
                 tri_k: Optional[torch.Tensor] = None):
@@ -460,22 +425,31 @@ def closest_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
     return tuple(_unsort(x, perm) for x in out) if sort else out
 
 
-def closest_hit_thread(nodes, tri, o, d, maxt, multi_pop: int):
-    """PR 3's K4 (the one-thread-a-ray walk popping ``multi_pop`` entries
-    an iteration) on CUDA tensors, kept to time the redesign against."""
-    _check(nodes, tri, o, d, maxt)
-    return _launch_one_thread(nodes, tri, o, d, maxt, multi_pop)
-
-
 def closest_hit_reference(nodes, tri, o, d, maxt,
                           counts: Optional[torch.Tensor] = None):
-    """K2's former one-thread-a-ray walk (the batched pop at P = 1), kept
-    to time K2 and K4 against; never on the main path.  ``counts`` as
-    ``launch_closest``'s.  Returns ``closest_hit``'s outputs."""
+    """K2's former one-thread-a-ray walk (the batched pop at P = 1) on the
+    (F, 9) rows, kept to time K2 and K4 against; never on the main path.
+    ``counts`` as ``launch_closest``'s.  Returns ``closest_hit``'s
+    outputs."""
     _check(nodes, tri, o, d, maxt)
     if o.device.type == "cpu":
         return T.bvh_ray_intersect_plain(nodes, tri, o, d, maxt)
-    return _launch_one_thread(nodes, tri, o, d, maxt, 1, counts)
+    t, slot, u, v = _empty_hits(o)
+    if o.shape[0] == 0:
+        return t, slot, u, v
+    lib = build()
+    cap = _stack_cap()
+    with torch.cuda.device(o.device):
+        flag = _flag(o.device)
+        err = lib.bvh4_closest_hit_ref(
+            nodes.data_ptr(), tri.data_ptr(), o.data_ptr(), d.data_ptr(),
+            maxt.data_ptr(), o.shape[0], cap, t.data_ptr(), u.data_ptr(),
+            v.data_ptr(), slot.data_ptr(), flag.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    _native.check_launch(err, "bvh4_closest_hit_ref")
+    launches["bvh4_closest_hit_ref"] += 1
+    return t, slot, u, v
 
 
 def any_hit(nodes, tri, o, d, maxt, sort: bool = SORT_RAYS,
