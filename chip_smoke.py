@@ -56,7 +56,7 @@ Phases (any failed check raises, and the script exits non-zero):
    and the mesh, 2 passes of 2,097,152 lanes (K2 and K3 6 each), again
    with ``multi_pop`` 4 (K4 6, K2 none) and the gradients compared; no
    kernel launches in any backward; a warm-up and 3 timed runs each, and
-   one profiled pass;
+   one profiled pass each (the mesh's with K2 and with K4);
 9. three iterations of ``app/optim.run("prb", ...)`` on the mesh at 512^2
    x 8 spp, theta a translation of the sphere through ``set_vertices``;
    then K2 on the re-packed scene against K1's brute force over the moved
@@ -1447,6 +1447,9 @@ def main() -> int:
         "train mesh K4", mesh, MESH_CHUNK, MESH_PASSES,
         {"bvh4_closest_hit": 0, "bvh4_closest_hit_mp": DEPTH,
          "bvh4_any_hit": DEPTH, "mt_closest_hit": 0, "mt_any_hit": 0}, mp)
+    profile_pass(f"train mesh K4, one {MESH_CHUNK}-spp fwd+bwd pass",
+                 lambda: fwd_bwd(sc_mesh, lv_mesh, MESH_CHUNK, 99, mp),
+                 ("bvh4_closest", "bvh4_any"))
     l2, g2, _, _ = fwd_bwd(sc_mesh, lv_mesh, MESH_CHUNK, 1)
     l4, g4, _, _ = fwd_bwd(sc_mesh, lv_mesh, MESH_CHUNK, 1, mp)
     errs = {k: rel_l2(a, b) for k, a, b in zip(TRAIN_LEAVES, g4, g2)}

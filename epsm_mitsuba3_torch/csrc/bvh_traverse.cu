@@ -69,10 +69,10 @@
 // entry's turn, the global ones prefetched into L1 at the batch's start,
 // so one slab result is held: at 1,024 threads a thread has 64
 // registers, and holding all P (the reference's order, kept for the
-// 128-thread first design step) spilled 0.7-1.4 KB and ran 4-8 x slower
-// (chip_smoke.py, PERF.md).  The loop over the batch positions is not
-// unrolled, so K2's leaf phase is compiled once: unrolled P times it ran
-// 1.3-3.3 x slower.
+// 128-thread first design step) spilled 0.7-1.4 KB and ran 4.6-7.7 x
+// slower (chip_smoke.py, PERF.md).  The loop over the batch positions is
+// not unrolled, so K2's leaf phase is compiled once: unrolled P times it
+// ran 1.3-3.3 x slower.
 //
 // The reference (bvh4_closest_mp_kernel): the former one-thread-a-ray
 // walk of K2 and K4, each leaf tested serially by its lane, with the

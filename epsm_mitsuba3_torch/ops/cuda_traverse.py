@@ -91,6 +91,13 @@ class Schedule:
 
 #: the main path's K2/K3 launch
 SCHEDULE = Schedule()
+#: the design steps, each timed by ``chip_smoke.py``: warp-cooperative
+#: leaf tests alone (on the (F, 9) rows, one warp per 32 rays), with the
+#: rows padded to 48 bytes, and with the top of the tree in shared memory
+#: on a persistent grid whose lanes refill
+STEPS = {"1": Schedule("rows", 128, False, False),
+         "1+2": Schedule("pad", 128, False, False),
+         "1+2+3": SCHEDULE}
 
 
 @dataclass(frozen=True)
@@ -118,13 +125,6 @@ K4_STEPS = {"1": K4Schedule("rows", 128, False, False, fetch="ahead"),
 #: the K4 launch ``closest_hit`` takes; its layout is ``SCHEDULE``'s, so
 #: both read the scene's ``bvh_tris_k``
 K4_SCHEDULE = K4_STEPS["2, turn"]
-#: the design steps, each timed by ``chip_smoke.py``: warp-cooperative
-#: leaf tests alone (on the (F, 9) rows, one warp per 32 rays), with the
-#: rows padded to 48 bytes, and with the top of the tree in shared memory
-#: on a persistent grid whose lanes refill
-STEPS = {"1": Schedule("rows", 128, False, False),
-         "1+2": Schedule("pad", 128, False, False),
-         "1+2+3": SCHEDULE}
 
 #: launches of each kernel entry, counted where the launch happens
 launches = {"bvh4_closest_hit": 0, "bvh4_closest_hit_mp": 0,
