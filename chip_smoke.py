@@ -57,12 +57,28 @@ Phases (any failed check raises, and the script exits non-zero):
    with ``multi_pop`` 4 (K4 6, K2 none) and the gradients compared; no
    kernel launches in any backward; a warm-up and 3 timed runs each, and
    one profiled pass each (the mesh's with K2 and with K4);
-9. three iterations of ``app/optim.run("prb", ...)`` on the mesh at 512^2
+9. three iterations of ``app/optim.run("prb_hybrid", ...)`` at thres 0
+   on the mesh at 512^2
    x 8 spp, theta a translation of the sphere through ``set_vertices``;
    then K2 on the re-packed scene against K1's brute force over the moved
    vertices;
 10. the fwd+bwd gradients at 64^2 x 4 spp on the card against the CPU's,
-    for both scenes.
+    for both scenes;
+11. [epsm mesh]: bench.py's ``manifold_iter`` at its own size, the
+    ``manifold`` integrator on cornell_box_mesh at 128^2 x 8 spp with the
+    Sinkhorn matcher at 128^2: a warm-up and 4 timed iterations, ms by
+    phase (forward render, Sinkhorn match, logged pass, first hit,
+    Jacobians, solves, injection, PRB recording pass and replay) by CUDA
+    events, K2/K3 launches an iteration (exactly 25 / 18), the gradient
+    finite and non-zero, peak memory, one profiled iteration;
+12. [epsm cornellbox]: ``app/optim.run("manifold_caustic_hybrid", ...)``
+    on ``app/exp/cornellbox.make`` at 512^2, six lights, depth 6,
+    match_res 128, spp 32 (published 256) and a 64-spp ground truth, 3
+    iterations at thres 2 (the switch to PRB and the Adam reset run): ms,
+    loss, theta and K1 launches an iteration, each count exact;
+13. [epsm card vs cpu]: a manifold_caustic theta gradient on cornellbox at
+    32^2 on the card and on the CPU, and the Sinkhorn matcher at 128^2 on
+    the card and the CPU against float64.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -70,6 +86,7 @@ prints no result.
 """
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -106,6 +123,16 @@ ADAM_GT_SPP = 16
 #: 65,536 to one 512^2 x 8 spp pass
 SWEEP_TRIS = (12, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 SWEEP_RAYS = tuple(2 ** k for k in range(16, 22))
+#: [epsm mesh]: bench.py's ``manifold_iter`` (bench.py:196-236) at its own
+#: size: cornell_box_mesh at 128^2 x 8 spp, depth 6, match_res 128 (the
+#: reference's backward budget, 128^2 at spp 8), a warm-up and 4 timed
+#: iterations
+EPSM_RES, EPSM_SPP, EPSM_ITERS = 128, 8, 4
+#: [epsm cornellbox]: app/exp/cornellbox.make at its published widths
+#: (512^2, six lights, depth 6, match_res 128); spp 32 of the published
+#: 256 and a ground truth at 64 spp of the default 512, to fit the time
+#: limit; 3 iterations of manifold_caustic_hybrid with thres 2
+CB_RES, CB_SPP, CB_GT_SPP, CB_ITERS, CB_THRES = 512, 32, 64, 3, 2
 
 
 class CheckFailed(AssertionError):
@@ -1237,7 +1264,8 @@ def grad_card_vs_cpu(label, d, spp):
 
 
 def adam_phase(mesh_dict, gen):
-    """The port's ``app/optim.run("prb", ...)`` for 3 iterations on
+    """The port's ``app/optim.run("prb_hybrid", ...)`` at thres 0 (PRB's
+    loss from the first iteration) for 3 iterations on
     cornell_box_mesh: theta is a translation of the sphere's vertices,
     applied through ``set_vertices``.  Afterwards K2 on the re-packed
     scene must equal K1's brute force over the moved vertices."""
@@ -1263,11 +1291,11 @@ def adam_phase(mesh_dict, gen):
                target_theta={"t": torch.tensor([0.1, -0.05, 0.08],
                                                device=scene.device)},
                gt_spp=ADAM_GT_SPP, it=3, spp=MESH_CHUNK, resolution=RES,
-               max_depth=DEPTH, match_res=64, output=str)
+               max_depth=DEPTH, match_res=64, output=str, thres=0)
     losses = []
     t0 = time.perf_counter()
     opt, history = optim.run(
-        "prb", exp, iters=3,
+        "prb_hybrid", exp, iters=3,
         log=lambda it, loss, theta: losses.append(loss))
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
@@ -1309,6 +1337,338 @@ def card_vs_cpu(label, d, spp):
         "of pixels within 1e-3 (limit 99 %)")
     check(mad <= 1e-3 * mean and within >= 0.99,
           f"{label}: card and CPU renders disagree")
+
+
+class PhaseTimer:
+    """CUDA events around named functions of the port, by wrapping the
+    module attributes the EPSM backward calls them through (the path run
+    is unchanged): ``wrap(module, attr, label)``; ``read()`` waits for
+    the device and returns ms by label since the last read."""
+
+    def __init__(self):
+        self.pending, self.saved = [], []
+
+    def wrap(self, module, attr, label):
+        import torch
+        fn = getattr(module, attr)
+
+        def timed_fn(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.pending.append((label, start, end))
+            return out
+
+        setattr(module, attr, timed_fn)
+        self.saved.append((module, attr, fn))
+
+    def wrap_call(self, label, fn):
+        import torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        self.pending.append((label, start, end))
+        return out
+
+    def read(self):
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for label, s, e in self.pending:
+            out[label] = out.get(label, 0.0) + s.elapsed_time(e)
+        self.pending = []
+        return out
+
+    def close(self):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+        self.saved = []
+
+
+def epsm_backward_timer():
+    """A PhaseTimer on the stages of the EPSM backward: the logged pass,
+    the first-hit derivative, the Jacobians (within calc_grad, whose rest
+    is the solves), the injection, and the PRB recording pass and replay."""
+    from epsm_mitsuba3_torch.ad import prb
+    from epsm_mitsuba3_torch.integrators import epsm as ET
+    from epsm_mitsuba3_torch.integrators import path as P
+    timer = PhaseTimer()
+    timer.wrap(ET, "sample_path_logged", "logged pass")
+    timer.wrap(ET, "first_hit_jvp", "first hit")
+    timer.wrap(ET, "_row_jacobians_all", "Jacobians")
+    timer.wrap(ET, "calc_grad", "calc_grad")
+    timer.wrap(ET, "inject_gradients", "injection")
+    timer.wrap(P, "sample_primal_recorded", "PRB recording pass")
+    timer.wrap(prb, "prb_backward", "PRB replay")
+    return timer
+
+
+def split_phases(ms):
+    """The phase split of one EPSM iteration from a PhaseTimer's read."""
+    out = dict(ms)
+    out["solves"] = out.pop("calc_grad", 0.0) - out.get("Jacobians", 0.0)
+    bwd = out.pop("backward", 0.0)
+    out["backward, other"] = bwd - sum(
+        out.get(k, 0.0) for k in ("logged pass", "first hit", "Jacobians",
+                                  "solves", "injection",
+                                  "PRB recording pass", "PRB replay"))
+    return out
+
+
+def epsm_mesh_phase():
+    """[epsm mesh]: bench.py's ``manifold_iter`` at its own size. theta is
+    an x-offset of every vertex (through ``set_vertices``); each iteration
+    renders with the ``manifold`` integrator, matches at 128^2 with the
+    Sinkhorn matcher against a 8-spp reference (seed 123) and takes the
+    gradient of sum(img * g5).  A warm-up and EPSM_ITERS timed
+    iterations: ms by phase (CUDA events), K1-K4 launches (exactly 4
+    depth + 1 K2 and 3 depth K3 an iteration, K1 and K4 none), the
+    gradient finite and non-zero, the overflow flag 0, peak memory; then
+    one profiled iteration.  Returns (the timed iterations' phases and
+    walls, the last launch counts, the Sinkhorn inputs)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    scene = mt.load_dict(cornell_box_mesh(res=EPSM_RES, spp=EPSM_SPP,
+                                          max_depth=DEPTH))
+    dev = scene.device
+    matcher = Matcher(EPSM_RES)
+    integ = {"type": "manifold", "max_depth": DEPTH}
+    with torch.no_grad():
+        img_ref = mt.render(scene, spp=EPSM_SPP, seed=123,
+                            integrator={"type": "path", "max_depth": DEPTH})
+    gt_low = img_ref[..., :3].reshape(-1, 3)
+    v0 = scene.vertices
+    ex = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    timer = epsm_backward_timer()
+    last = {}
+
+    def iteration(seed):
+        theta = torch.tensor(0.01, device=dev, requires_grad=True)
+        sc = scene.set_vertices(v0 + theta * ex)
+        img = timer.wrap_call("forward render", lambda: mt.render(
+            sc, spp=EPSM_SPP, seed=seed, integrator=integ))
+        with torch.no_grad():
+            img_low = img[..., :3].reshape(-1, 3)
+            g5 = timer.wrap_call("Sinkhorn match", lambda: (
+                matcher.match_Sinkhorn(img_low, gt_low)))
+            g5 = g5.reshape(EPSM_RES, EPSM_RES, 5)
+        loss = torch.sum(img * g5)
+        (g,) = timer.wrap_call("backward", lambda: torch.autograd.grad(
+            loss, theta))
+        last["img_low"] = img_low
+        return g
+
+    phases, walls = [], []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for i, run in enumerate(["warm-up"] + [f"timed {k + 1}" for k in
+                                               range(EPSM_ITERS)]):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = iteration(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            ms = split_phases(timer.read())
+            gval = float(g)
+            say(f"[epsm mesh] {run}: {wall:.1f} ms, dL/dtheta {gval:.6g}; "
+                + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+                + f" ms; launches {counts}")
+            check(math.isfinite(gval) and gval != 0.0,
+                  f"epsm mesh: gradient {gval} not finite and non-zero")
+            expect = {"bvh4_closest_hit": 4 * DEPTH + 1,
+                      "bvh4_any_hit": 3 * DEPTH, "bvh4_closest_hit_mp": 0,
+                      "mt_closest_hit": 0, "mt_any_hit": 0}
+            for k, n in expect.items():
+                check(counts[k] == n, f"epsm mesh: {k} launched "
+                      f"{counts[k]} times an iteration, expected {n}")
+            CT.raise_on_overflow(dev)
+            if i:
+                phases.append(ms)
+                walls.append(wall)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_pass("epsm mesh, one manifold iteration",
+                            lambda: iteration(99),
+                            ("bvh4_closest", "bvh4_any"))
+        timer.read()
+    finally:
+        timer.close()
+    mean = {k: sum(p[k] for p in phases) / len(phases) for k in phases[0]}
+    ws = sorted(walls)
+    say(f"[epsm mesh] cornell_box_mesh {EPSM_RES}^2 x {EPSM_SPP} spp, depth "
+        f"{DEPTH}, match_res {EPSM_RES}, {len(walls)} timed iterations: "
+        f"wall median {ws[len(ws) // 2]:.1f} ms (range {ws[0]:.1f}-"
+        f"{ws[-1]:.1f}); mean ms by phase (CUDA events): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in mean.items())
+        + f"; peak device memory {peak:.2f} GiB; device busy "
+        + (f"{prof['busy']:.1f} of {prof['wall']:.1f} ms "
+           f"({100 * prof['busy'] / prof['wall']:.1f} %)" if prof
+           else "not measured"))
+    return dict(phases=mean, walls=walls, peak_gib=peak, profile=prof,
+                counts=counts, x=last["img_low"], y=gt_low)
+
+
+def epsm_cornellbox_phase():
+    """[epsm cornellbox]: ``run("manifold_caustic_hybrid", cornellbox.make(
+    ...), iters=CB_ITERS)`` at the experiment's published widths, thres
+    CB_THRES, so that the switch to PRB's loss and the Adam reset run.
+    K1 launches counted an iteration: exactly 25 closest and 18 any hits
+    a manifold pass (6 + 6 forward; the logged pass 12 + 6, the first hit
+    1, the recording pass 6 + 6), 6 + 6 a PRB pass, and the ground
+    truth's 6 + 6 a pass in iteration 0.  Returns the counts of the run."""
+    import torch
+    from epsm_mitsuba3_torch.app import optim
+    from epsm_mitsuba3_torch.app.exp import cornellbox
+    exp = cornellbox.make(resolution=CB_RES, spp=CB_SPP, it=CB_ITERS,
+                          thres=CB_THRES, max_depth=DEPTH, match_res=128)
+    exp["gt_spp"] = CB_GT_SPP
+    chunk = max(1, min(CB_SPP, 2_000_000 // (CB_RES * CB_RES)))
+    n_pass, n_gt = -(-CB_SPP // chunk), -(-CB_GT_SPP // chunk)
+    rows, total = [], {}
+    zero_counts()
+    torch.cuda.synchronize()
+    mark = [time.perf_counter()]
+
+    def log(it, loss, theta):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = read_counts()
+        zero_counts()
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        rows.append(dict(it=it, ms=(now - mark[0]) * 1e3, loss=loss,
+                         theta=[float(theta[f"rot{i}"]) for i in range(6)],
+                         counts=counts))
+        mark[0] = now
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    optim.run("manifold_caustic_hybrid", exp, iters=CB_ITERS, log=log)
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r in rows:
+        manifold = r["it"] < CB_THRES
+        per = (25, 18) if manifold else (DEPTH, DEPTH)
+        gt = n_gt * DEPTH if r["it"] == 0 else 0
+        expect = {"mt_closest_hit": n_pass * per[0] + gt,
+                  "mt_any_hit": n_pass * per[1] + gt,
+                  "bvh4_closest_hit": 0, "bvh4_any_hit": 0}
+        say(f"[epsm cornellbox] iteration {r['it']} "
+            f"({'manifold_caustic' if manifold else 'prb, Adam reset'}"
+            f"{', with the ground truth' if r['it'] == 0 else ''}): "
+            f"{r['ms']:.1f} ms, loss {r['loss']:.6g}, theta "
+            f"{[round(x, 6) for x in r['theta']]}, launches {r['counts']}")
+        for k, n in expect.items():
+            check(r["counts"][k] == n, f"epsm cornellbox: {k} launched "
+                  f"{r['counts'][k]} times in iteration {r['it']}, "
+                  f"expected {n}")
+        check(math.isfinite(r["loss"]) and all(
+            math.isfinite(x) for x in r["theta"]), "epsm cornellbox: "
+            "loss or theta not finite")
+    check(max(abs(x - math.pi / 3) for x in rows[-1]["theta"]) > 0,
+          "epsm cornellbox: theta did not move")
+    say(f"[epsm cornellbox] {CB_RES}^2, six lights, depth {DEPTH}, "
+        f"match_res 128, spp {CB_SPP} (published 256) in {n_pass} passes "
+        f"of {chunk}, ground truth at {CB_GT_SPP} spp (default 512), "
+        f"{CB_ITERS} iterations of manifold_caustic_hybrid at thres "
+        f"{CB_THRES}: {wall:.1f} ms in all; K1 launches "
+        f"{total.get('mt_closest_hit', 0)} closest / "
+        f"{total.get('mt_any_hit', 0)} any; peak device memory "
+        f"{peak:.2f} GiB")
+    exp["gt_spp"] = 1
+    prof = profile_pass("epsm cornellbox, one manifold_caustic iteration "
+                        "(and a 1-spp ground truth)",
+                        lambda: optim.run("manifold_caustic", exp, iters=1),
+                        ("mt_closest", "mt_any"))
+    return dict(rows=rows, total=total, wall=wall, peak_gib=peak,
+                profile=prof)
+
+
+def epsm_card_vs_cpu(x, y):
+    """[epsm card vs cpu]: (i) one manifold_caustic gradient of theta on
+    cornellbox at 32^2, spp 4, match_res 32, depth 4, on the card and on
+    the CPU (the plain versions), both through one OT gradient (the
+    card's matcher on the card's render): relative L2 <= 1e-3, as the
+    other gradient checks; (ii) the Sinkhorn matcher at 128^2 on the
+    mesh phase's inputs on the card and on the CPU in float32, and on the
+    card in float64: at eps = 1e-4 float32 is itself ~1e-3 of the largest
+    entry off the exact result, so the check is relative L2 <= 1e-2 and a
+    largest difference within twice the larger of the two float32
+    results' distances to float64."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.app import optim
+    from epsm_mitsuba3_torch.app.exp import cornellbox
+    from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
+    kw = dict(resolution=32, spp=4, match_res=32, max_depth=4)
+    integ = {"type": "manifold_caustic", "max_depth": 4}
+    g5 = None
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        exp = cornellbox.make(device=dev, **kw)
+        if g5 is None:
+            with torch.no_grad():
+                gt = mt.render(exp["apply"](exp["scene"],
+                                            exp["target_theta"]), spp=16,
+                               seed=0, device=dev,
+                               integrator={"type": "path", "max_depth": 4})
+                img = mt.render(exp["apply"](exp["scene"],
+                                             exp["init_theta"]), spp=4,
+                                seed=0, sensor=1, device=dev, integrator=integ)
+                g5 = Matcher(32).match_Sinkhorn(
+                    optim._resize(img[..., :3], 32).reshape(-1, 3),
+                    optim._resize(gt[..., :3], 32).reshape(-1, 3)).reshape(
+                        32, 32, 5)
+        theta = {k: v.clone().requires_grad_(True)
+                 for k, v in exp["init_theta"].items()}
+        img = mt.render(exp["apply"](exp["scene"], theta), spp=4, seed=0,
+                        sensor=1, integrator=integ, device=dev)
+        loss = torch.sum(img * g5.to(dev))
+        gs = torch.autograd.grad(loss, list(theta.values()))
+        grads[dev] = torch.stack([g.detach().cpu() for g in gs])
+    err = rel_l2(grads["cuda"], grads["cpu"])
+    say(f"[epsm card vs cpu] manifold_caustic dL/dtheta on cornellbox 32^2 "
+        f"x 4 spp, depth 4: card {[round(float(v), 7) for v in grads['cuda']]}"
+        f", cpu {[round(float(v), 7) for v in grads['cpu']]}; |g_gpu - "
+        f"g_cpu| / |g_cpu| {err:.3g}  [limit 1e-3]")
+    check(err <= 1e-3, f"epsm: card and CPU theta gradients differ by {err}")
+    check(float(grads["cpu"].abs().max()) > 0, "epsm: zero theta gradient")
+
+    t0 = time.perf_counter()
+    g_card = Matcher(EPSM_RES).match_Sinkhorn(x, y)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    g64 = Matcher(EPSM_RES).match_Sinkhorn(x.double(), y.double())
+    t0 = time.perf_counter()
+    g_cpu = Matcher(EPSM_RES, device="cpu").match_Sinkhorn(x.cpu(), y.cpu())
+    cpu_s = time.perf_counter() - t0
+    g_card, g64 = g_card.cpu(), g64.cpu()
+    top = float(g64.abs().max())
+
+    def far(a, b):
+        return float((a.double() - b.double()).abs().max()) / top
+
+    e_cc, e_card, e_cpu = far(g_card, g_cpu), far(g_card, g64), far(g_cpu,
+                                                                     g64)
+    l2 = rel_l2(g_card.double(), g_cpu.double())
+    say(f"[epsm card vs cpu] match_Sinkhorn at {EPSM_RES}^2 ({x.shape[0]} "
+        f"points, the mesh phase's inputs): card {card_s:.2f} s, cpu "
+        f"{cpu_s:.2f} s; largest |difference| / largest |g64|: card-cpu "
+        f"{e_cc:.3g}, card-f64 {e_card:.3g}, cpu-f64 {e_cpu:.3g}; relative "
+        f"L2 card-cpu {l2:.3g}  [limits: L2 1e-2, card-cpu <= 2 x "
+        f"max(card-f64, cpu-f64)]")
+    check(l2 <= 1e-2 and e_cc <= 2.0 * max(e_card, e_cpu),
+          "epsm: card and CPU matchers disagree")
+    return dict(theta_grad_rel_l2=err, match_rel_l2=l2, match_far=e_cc,
+                card_f64=e_card, cpu_f64=e_cpu)
 
 
 def main() -> int:
@@ -1473,6 +1833,14 @@ def main() -> int:
     grad_card_vs_cpu("cornell_box_mesh (sphere normals)", blob_normals(
         cornell_box_mesh(res=64, spp=4, max_depth=DEPTH)), 4)
 
+    # -- 11-13. the EPSM leg: bench.py's manifold_iter on the mesh, the
+    # cornellbox experiment at its widths, card against CPU ------------------
+    epsm_mesh = epsm_mesh_phase()
+    epsm_cb = epsm_cornellbox_phase()
+    epsm_card_vs_cpu(epsm_mesh["x"], epsm_mesh["y"])
+    epsm_launches = {"launches_epsm_mesh_iteration": epsm_mesh["counts"],
+                     "launches_epsm_cornellbox_run": epsm_cb["total"]}
+
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []
     for i, k in enumerate(("mt_closest_hit", "mt_any_hit")):
@@ -1554,6 +1922,9 @@ def main() -> int:
         "render_rays_ms": [r["K4 P=4_ms"] for r in per_depth],
         "render_rays_ms_p2": [r["K4 P=2_ms"] for r in per_depth],
         "library_ms": None})
+    for entry in kernels:
+        for key, counts in epsm_launches.items():
+            entry[key] = counts.get(entry["name"], 0)
     say(json.dumps({"kernels": kernels}))
     say(f"[device] {gpu}")
     say(json.dumps({"ok": True, "device": {

@@ -204,3 +204,27 @@ def to_local(n, s, t, v):
 def to_world(n, s, t, v):
     """Frame -> world coordinates."""
     return s * v[..., 0:1] + t * v[..., 1:2] + n * v[..., 2:3]
+
+
+def reflect(wi: torch.Tensor) -> torch.Tensor:
+    """Local-frame mirror reflection about n = (0, 0, 1): (-x, -y, z)."""
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def fresnel_conductor(cos_theta_i: torch.Tensor, eta: torch.Tensor,
+                      k: torch.Tensor) -> torch.Tensor:
+    """Unpolarized conductor Fresnel term (fresnel.h
+    ``fresnel_conductor``; ``fresnel_conductor``, :323-346)."""
+    cos_theta_i_2 = cos_theta_i * cos_theta_i
+    sin_theta_i_2 = 1.0 - cos_theta_i_2
+    sin_theta_i_4 = sin_theta_i_2 * sin_theta_i_2
+    temp_1 = eta * eta - k * k - sin_theta_i_2
+    a_2_pb_2 = safe_sqrt(temp_1 * temp_1 + 4.0 * k * k * eta * eta)
+    a = safe_sqrt(0.5 * (a_2_pb_2 + temp_1))
+    term_1 = a_2_pb_2 + cos_theta_i_2
+    term_2 = 2.0 * cos_theta_i * a
+    r_s = (term_1 - term_2) / (term_1 + term_2 + 1e-37)
+    term_3 = a_2_pb_2 * cos_theta_i_2 + sin_theta_i_4
+    term_4 = term_2 * sin_theta_i_2
+    r_p = r_s * (term_3 - term_4) / (term_3 + term_4 + 1e-37)
+    return 0.5 * (r_s + r_p)

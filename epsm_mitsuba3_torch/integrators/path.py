@@ -61,7 +61,8 @@ def _emitter_hit_le(scene, si, ray_d, prev_p, prev_bsdf_pdf, prev_bsdf_delta,
 
 def _nee(scene, si, sampler, active_em):
     """Emitter sampling with visibility (epsm.py:585-605).  Returns
-    (sampler, lr_dir, occluded)."""
+    (sampler, ds, lr_dir, active_em, occluded): the direction sample, and
+    the mask of the lanes that sampled an emitter."""
     sampler, s2 = smp.next_2d(sampler)
     ds, em_weight = E.sample_direction(
         scene.emitters, scene.static.emitter_kinds, si.p, s2,
@@ -79,7 +80,8 @@ def _nee(scene, si, sampler, active_em):
         scene.bsdfs, scene.static.bsdf_kinds, si.bsdf_index, si.wi, wo,
         active_em)
     mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf_em))
-    return sampler, mis_em[..., None] * bsdf_val_em * em_weight, occluded
+    lr_dir = mis_em[..., None] * bsdf_val_em * em_weight
+    return sampler, ds, lr_dir, active_em, occluded
 
 
 def advance(st: LoopState, si, sampler, bsdfs, bsdf_kinds, active_next,
@@ -150,7 +152,7 @@ def bounce(scene, st: LoopState, max_depth: int, rr_depth: int,
     ``occl`` (``bounce`` :204-219) that the replay reads back."""
     pi, si, le, active_next, active_em = hit_stage(
         scene, st, max_depth, multi_pop=multi_pop)
-    sampler, lr_dir, occl = _nee(scene, si, st.sampler, active_em)
+    sampler, _, lr_dir, _, occl = _nee(scene, si, st.sampler, active_em)
     lr_dir = st.beta * lr_dir
 
     st2, _ = advance(st, si, sampler, scene.bsdfs, scene.static.bsdf_kinds,

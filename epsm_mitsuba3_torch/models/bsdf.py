@@ -1,9 +1,10 @@
-"""BSDF models (counterpart of ``models/bsdf.py``): the diffuse BSDF with
-the two-sided wrapper.
+"""BSDF models (counterpart of ``models/bsdf.py``): the diffuse BSDF and
+the smooth conductor, with the two-sided wrapper.
 
 All BSDFs of a scene live in one table of per-slot parameters.  ``sample``
-and ``eval_pdf`` check the kinds present in the scene and run the diffuse
-BSDF on every lane; a kind the port does not have yet raises.
+and ``eval_pdf`` check the kinds present in the scene, evaluate each of
+them on every lane and select per lane by the slot's kind, as the
+reference does; a kind the port does not have yet raises.
 
 Conventions (bsdf.h): directions are in the local shading frame with the
 normal = +Z; ``wi`` points away from the surface; ``sample`` returns
@@ -16,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..core import math as m
 from ..core import warp
 from ..ops.gather import take_rows
 from .records import BSDFSample
@@ -51,16 +53,28 @@ def has_flag(flags: torch.Tensor, flag: int) -> torch.Tensor:
     return (flags & flag) != 0
 
 
+#: kind ids in the reference's numbering (``KIND_*``, :56-57)
 KIND_DIFFUSE = 0
-KIND_NAMES = {"diffuse": KIND_DIFFUSE}
-KIND_FLAGS = {KIND_DIFFUSE: BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide}
+KIND_CONDUCTOR = 1
+KIND_NAMES = {"diffuse": KIND_DIFFUSE, "conductor": KIND_CONDUCTOR}
+KIND_FLAGS = {
+    KIND_DIFFUSE: BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide,
+    KIND_CONDUCTOR: BSDFFlags.DeltaReflection | BSDFFlags.FrontSide,
+}
+#: the table columns each kind reads, beside ``kind`` and ``twosided``
+KIND_FIELDS = {
+    KIND_DIFFUSE: ("reflectance",),
+    KIND_CONDUCTOR: ("eta_c", "k_c", "specular_reflectance"),
+}
+
 
 def check_kinds(kinds_present: Tuple[int, ...]) -> None:
     """Raise unless every kind of the scene is one the port has."""
-    missing = [k for k in kinds_present if k != KIND_DIFFUSE]
+    missing = [k for k in kinds_present if k not in KIND_FLAGS]
     if missing:
         raise NotImplementedError(
-            f"BSDF kinds {missing}: the port has the diffuse BSDF only")
+            f"BSDF kinds {missing}: the port has the diffuse and the "
+            "smooth conductor BSDFs only")
 
 
 def gather_params(table: Dict[str, torch.Tensor], idx: torch.Tensor,
@@ -69,6 +83,13 @@ def gather_params(table: Dict[str, torch.Tensor], idx: torch.Tensor,
     with idx -1 (no surface) read slot 0."""
     safe = torch.clamp(idx, min=0)
     return {k: take_rows(table[k], safe) for k in fields}
+
+
+def _kind_params(table, kinds_present, bsdf_idx):
+    fields = ["kind", "twosided"]
+    for kind in kinds_present:
+        fields += [f for f in KIND_FIELDS[kind] if f not in fields]
+    return gather_params(table, bsdf_idx, fields)
 
 
 def _diffuse_sample(p, wi, s1, s2):
@@ -93,6 +114,46 @@ def _diffuse_eval_pdf(p, wi, wo):
     return torch.where(ok[..., None], value, 0.0), torch.where(ok, pdf, 0.0)
 
 
+def _conductor_sample(p, wi, s1, s2):
+    """Smooth conductor (conductor.cpp): the mirror direction, a delta
+    lobe of pdf 1 and weight R * F(cos_theta_i); the half vector is the
+    normal."""
+    cos_i = wi[..., 2]
+    wo = m.reflect(wi)
+    pdf = torch.ones_like(cos_i)
+    f = m.fresnel_conductor(cos_i[..., None], p["eta_c"], p["k_c"])
+    bs = BSDFSample(
+        wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
+        sampled_type=torch.full(pdf.shape, BSDFFlags.DeltaReflection,
+                                dtype=torch.int32, device=pdf.device),
+        hf=torch.cat([torch.zeros_like(wo[..., :2]),
+                      torch.ones_like(wo[..., 2:3])], dim=-1))
+    ok = cos_i > 0.0
+    weight = p["specular_reflectance"] * f
+    return bs, torch.where(ok[..., None], weight, 0.0), ok
+
+
+def _conductor_eval_pdf(p, wi, wo):
+    return (torch.zeros(wi.shape[:-1] + (3,), dtype=wi.dtype,
+                        device=wi.device),
+            torch.zeros(wi.shape[:-1], dtype=wi.dtype, device=wi.device))
+
+
+_SAMPLE_FNS = {KIND_DIFFUSE: _diffuse_sample,
+               KIND_CONDUCTOR: _conductor_sample}
+_EVAL_PDF_FNS = {KIND_DIFFUSE: _diffuse_eval_pdf,
+                 KIND_CONDUCTOR: _conductor_eval_pdf}
+
+
+def _select_bs(mask, a: BSDFSample, b: BSDFSample) -> BSDFSample:
+    mm = mask[..., None]
+    return BSDFSample(
+        wo=torch.where(mm, a.wo, b.wo), pdf=torch.where(mask, a.pdf, b.pdf),
+        eta=torch.where(mask, a.eta, b.eta),
+        sampled_type=torch.where(mask, a.sampled_type, b.sampled_type),
+        hf=torch.where(mm, a.hf, b.hf))
+
+
 def _apply_twosided_in(p, wi):
     """twosided wrapper (src/bsdfs/twosided.cpp): flip the frame when wi
     arrives from the back side."""
@@ -109,9 +170,18 @@ def sample(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, s1, s2,
            active=None):
     """BSDF::sample over the wavefront: (BSDFSample, weight (N,3), ok)."""
     check_kinds(kinds_present)
-    p = gather_params(table, bsdf_idx)
+    p = _kind_params(table, kinds_present, bsdf_idx)
     wi_f, flip = _apply_twosided_in(p, wi)
-    bs, w, ok = _diffuse_sample(p, wi_f, s1, s2)
+    bs = w = ok = None
+    for kind in kinds_present:
+        bs_k, w_k, ok_k = _SAMPLE_FNS[kind](p, wi_f, s1, s2)
+        is_k = p["kind"] == kind
+        if bs is None:
+            bs, w, ok = bs_k, w_k, ok_k & is_k
+        else:
+            bs = _select_bs(is_k, bs_k, bs)
+            w = torch.where(is_k[..., None], w_k, w)
+            ok = torch.where(is_k, ok_k, ok)
     bs = bs.replace(wo=_flip_z(bs.wo, flip), hf=_flip_z(bs.hf, flip))
     if active is not None:
         ok = ok & active
@@ -123,9 +193,16 @@ def eval_pdf(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, wo,
              active=None):
     """BSDF::eval_pdf over the wavefront: (f * cos_theta_o (N,3), pdf)."""
     check_kinds(kinds_present)
-    p = gather_params(table, bsdf_idx)
+    p = _kind_params(table, kinds_present, bsdf_idx)
     wi_f, flip = _apply_twosided_in(p, wi)
-    val, pdf = _diffuse_eval_pdf(p, wi_f, _flip_z(wo, flip))
+    wo_f = _flip_z(wo, flip)
+    val = torch.zeros_like(wi)
+    pdf = torch.zeros_like(wi[..., 0])
+    for kind in kinds_present:
+        val_k, pdf_k = _EVAL_PDF_FNS[kind](p, wi_f, wo_f)
+        is_k = p["kind"] == kind
+        val = torch.where(is_k[..., None], val_k, val)
+        pdf = torch.where(is_k, pdf_k, pdf)
     if active is not None:
         val = torch.where(active[..., None], val, 0.0)
         pdf = torch.where(active, pdf, 0.0)

@@ -5,9 +5,11 @@ Geometry is one flat set of arrays (all meshes concatenated); structure
 (kinds present, integrator settings, film sizes) is static metadata.
 ``load_dict`` takes the subset of the reference schema that the port's
 scenes use: ``rectangle``/``cube`` shapes and in-memory ``mesh`` shapes,
-``diffuse`` (optionally ``twosided``), ``area``, ``perspective``,
-``independent``, ``hdrfilm`` with a ``box`` filter, and the ``path``
-integrator.  A scene of more than ``ops/accel.py``
+``diffuse`` and the smooth ``conductor`` (optionally ``twosided``),
+``area``, ``perspective``, ``independent``, ``hdrfilm`` with a ``box``
+filter, and the ``path``, ``prb``, ``manifold`` and ``manifold_caustic``
+integrators.  Shapes keep their names and vertex ranges, by which the
+experiments (``app/exp``) move them.  A scene of more than ``ops/accel.py``
 ``BRUTE_FORCE_MAX_TRIS`` triangles gets a BVH at load, packed once into
 the records of kernels K2/K3.
 
@@ -41,6 +43,9 @@ GEOMETRY_FIELDS = ("vertices", "normals", "uvs", "faces", "face_shape",
 
 @dataclass(frozen=True)
 class SceneStatic:
+    shape_names: Tuple[str, ...] = ()
+    #: per shape (vertex_start, vertex_count)
+    vertex_ranges: Tuple[Tuple[int, int], ...] = ()
     bsdf_kinds: Tuple[int, ...] = ()
     emitter_kinds: Tuple[int, ...] = ()
     integrator: Tuple[Tuple[str, Any], ...] = ()
@@ -144,7 +149,7 @@ class Scene:
 
 _SHAPE_FNS = {"rectangle": shapes_mod.rectangle, "cube": shapes_mod.cube}
 _SENSOR_TYPES = ("perspective",)
-_INTEGRATOR_TYPES = ("path",)
+_INTEGRATOR_TYPES = ("path", "prb", "manifold", "manifold_caustic")
 
 
 def _rgb(value, default=(1.0, 1.0, 1.0)):
@@ -174,6 +179,7 @@ class _Builder:
     def __init__(self):
         self.vertices, self.normals, self.uvs, self.faces = [], [], [], []
         self.face_shape, self.shape_bsdf, self.shape_emitter = [], [], []
+        self.shape_names, self.vertex_ranges = [], []
         self.bsdf_rows = []
         self.em_rows, self.em_shape, self.em_face_list = [], [], []
         self.sensors = []
@@ -196,12 +202,22 @@ class _Builder:
         if kind_name not in bsdf_mod.KIND_NAMES:
             raise NotImplementedError(f"bsdf type '{kind_name}' is not ported")
         kind = bsdf_mod.KIND_NAMES[kind_name]
+        if kind == bsdf_mod.KIND_CONDUCTOR and isinstance(
+                p.get("material"), str):
+            raise NotImplementedError(
+                f"conductor material '{p['material']}': the spectral "
+                "tables of named materials are not ported; give eta and k")
         self.bsdf_rows.append({
             "kind": kind,
             "flags": bsdf_mod.KIND_FLAGS[kind]
             | (bsdf_mod.BSDFFlags.BackSide if twosided else 0),
             "twosided": twosided,
             "reflectance": _rgb(p.get("reflectance"), (0.5, 0.5, 0.5)),
+            "specular_reflectance": _rgb(p.get("specular_reflectance")),
+            "eta_c": _rgb(p.get("eta"), (0.0, 0.0, 0.0))
+            if kind == bsdf_mod.KIND_CONDUCTOR
+            else np.zeros(3, np.float32),
+            "k_c": _rgb(p.get("k"), (1.0, 1.0, 1.0)),
         })
         return len(self.bsdf_rows) - 1
 
@@ -218,7 +234,7 @@ class _Builder:
         return len(self.em_rows) - 1
 
     # -- shapes (_Builder.add_shape) ----------------------------------------
-    def add_shape(self, d: dict):
+    def add_shape(self, d: dict, name: str):
         t = d["type"]
         if t == "mesh":
             # raw in-memory mesh: vertex and face arrays
@@ -266,6 +282,8 @@ class _Builder:
             bsdf_idx = self.add_bsdf({"type": "diffuse"})
 
         nf, nv = len(f), len(v)
+        self.shape_names.append(name)
+        self.vertex_ranges.append((self._v_off, nv))
         self.shape_bsdf.append(bsdf_idx)
         self.shape_emitter.append(em_idx)
         self.vertices.append(v.astype(np.float32))
@@ -344,7 +362,7 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
         elif t in _INTEGRATOR_TYPES:
             b.integrator = dict(val)
         elif t in _SHAPE_FNS or t == "mesh":
-            b.add_shape(val)
+            b.add_shape(val, key)
         else:
             raise NotImplementedError(
                 f"scene element '{key}' of type '{t}' is not ported")
@@ -354,13 +372,17 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
                for s in b.sensors]
     return scene_from_arrays(b.arrays(), sensors=sensors,
                              integrator=b.integrator, spp=b.spp,
-                             sampler_kind=b.sampler_kind, device=device)
+                             sampler_kind=b.sampler_kind,
+                             shape_names=b.shape_names,
+                             vertex_ranges=b.vertex_ranges, device=device)
 
 
 def scene_from_arrays(arrays: Mapping[str, np.ndarray],
                       sensors: Sequence[Mapping[str, Any]] = (),
                       integrator: Mapping[str, Any] = None,
                       spp: int = 16, sampler_kind: str = "independent",
+                      shape_names: Sequence[str] = (),
+                      vertex_ranges: Sequence[Tuple[int, int]] = (),
                       device=None) -> Scene:
     """Build a Scene from numpy arrays named as the reference Scene's
     fields: ``vertices``, ``normals``, ``uvs``, ``faces``, ``face_shape``,
@@ -371,7 +393,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     ``sensors``: per sensor, the static fields of ``Sensor`` other than
     ``to_world`` (kind, fov_x, width, height, rfilter, ...).
     ``integrator``: the scene's integrator properties (type, max_depth,
-    rr_depth).  ``device=None`` means the GPU; without CUDA that raises.
+    rr_depth).  ``shape_names`` / ``vertex_ranges``: per shape its name
+    and (vertex_start, vertex_count).  ``device=None`` means the GPU; without CUDA that raises.
 
     The BVH of a scene of more than ``accel.BRUTE_FORCE_MAX_TRIS``
     triangles is taken from the arrays ``bvh.<field>`` (the reference
@@ -391,6 +414,11 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
                    torch.int32),
         "twosided": t(arrays["bsdfs.twosided"], torch.bool),
         "reflectance": t(arrays["bsdfs.reflectance"], torch.float32),
+        # the smooth conductor's columns (``models/scene.py:501, 522-525``)
+        "specular_reflectance": t(arrays["bsdfs.specular_reflectance"],
+                                  torch.float32),
+        "eta_c": t(arrays["bsdfs.eta_c"], torch.float32),
+        "k_c": t(arrays["bsdfs.k_c"], torch.float32),
     }
     emitters = {
         "kind": t(arrays["emitters.kind"], torch.int32),
@@ -406,6 +434,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
                **dict(s))
         for i, s in enumerate(sensors))
     static = SceneStatic(
+        shape_names=tuple(str(x) for x in shape_names),
+        vertex_ranges=tuple((int(a), int(b)) for a, b in vertex_ranges),
         bsdf_kinds=bsdf_kinds, emitter_kinds=emitter_kinds,
         integrator=tuple(sorted(dict(integrator or {}).items())),
         spp=int(spp), sampler_kind=sampler_kind)

@@ -73,3 +73,22 @@ def test_cpu_calls_run_plain_versions_and_launch_nothing():
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
     assert CI.launches == before
     assert CI._lib is None      # nothing was built or loaded
+
+
+def test_epsm_entry_points_without_device_raise():
+    """The EPSM slice's entry points: a manifold render, the matcher and
+    the cornellbox experiment default to the GPU too."""
+    _require_no_cuda()
+    from epsm_mitsuba3_torch.app.exp import cornellbox
+    from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
+    scene = mt.load_dict(cornell_box(res=8, spp=1), device="cpu")
+    for kind in ("manifold", "manifold_caustic"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mt.render(scene, spp=1, integrator={"type": kind})
+        img = mt.render(scene, spp=1, integrator={"type": kind},
+                        device="cpu")
+        assert img.shape == (8, 8, 5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Matcher(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cornellbox.make(resolution=8, match_res=8)

@@ -51,7 +51,9 @@ def port_scene_of(sj, device="cpu"):
     st = sj.static
     return mt.scene_from_arrays(jax_arrays(sj), sensors=sensors,
                                 integrator=dict(st.integrator), spp=st.spp,
-                                sampler_kind=st.sampler_kind, device=device)
+                                sampler_kind=st.sampler_kind,
+                                shape_names=st.shape_names,
+                                vertex_ranges=st.vertex_ranges, device=device)
 
 
 def assert_images_close(a, b, tol=1e-4):
