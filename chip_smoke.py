@@ -78,7 +78,20 @@ Phases (any failed check raises, and the script exits non-zero):
     loss, theta and K1 launches an iteration, each count exact;
 13. [epsm card vs cpu]: a manifold_caustic theta gradient on cornellbox at
     32^2 on the card and on the CPU, and the Sinkhorn matcher at 128^2 on
-    the card and the CPU against float64.
+    the card and the CPU against float64;
+14. [epsm experiments]: ``run`` on ``app/exp``'s egg (a glass sphere,
+    manifold_caustic, depth 6), glossyball (a GGX rough-conductor sphere,
+    theta its translation and roughness), highlight (a rough-conductor
+    floor) and shadow (400 spheres, 1,587,204 triangles in a BVH) at
+    512^2, match_res 128, 3 iterations each (spp and ground truth cut,
+    ``EXP_CELLS``): ms an iteration and by phase, launches (each count
+    exact), theta and its gradients finite and non-zero, peak memory,
+    device busy share of one profiled iteration, shadow's BVH build and
+    refit + re-pack; bunny, bathroom and bedroom one iteration each; K1
+    on one egg pass's rays and K2/K3 on one shadow pass's rays, each held
+    bit for bit against its plain version and timed beside its bound; the
+    card against the CPU on glossyball's theta gradients and egg's
+    glass-vertex gradients at 64^2 x 4 spp.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -133,6 +146,18 @@ EPSM_RES, EPSM_SPP, EPSM_ITERS = 128, 8, 4
 #: 256 and a ground truth at 64 spp of the default 512, to fit the time
 #: limit; 3 iterations of manifold_caustic_hybrid with thres 2
 CB_RES, CB_SPP, CB_GT_SPP, CB_ITERS, CB_THRES = 512, 32, 64, 3, 2
+#: [epsm experiments]: app/exp's egg, glossyball, highlight and shadow at
+#: their published widths (512^2, match_res 128, each config's depth and
+#: method; shadow's 400 spheres), EXP_ITERS iterations of run(); (config,
+#: spp, ground-truth spp): spp cut from the published 256 (egg), 64
+#: (highlight, shadow) and a ground truth of the default 512 cut, for the
+#: time limit
+EXP_RES, EXP_MATCH, EXP_ITERS = 512, 128, 3
+EXP_CELLS = (("egg", 32, 32), ("glossyball", 32, 32), ("highlight", 32, 32),
+             ("shadow", 16, 16))
+#: bunny, bathroom and bedroom (procedural stand-ins): one iteration each
+#: at 512^2 and this spp (ground truth too)
+EXP_ONE, EXP_ONE_SPP = ("bunny", "bathroom", "bedroom"), 4
 
 
 class CheckFailed(AssertionError):
@@ -1009,14 +1034,18 @@ def render_phase(label, scene, spp, chunk, expect):
     return median, counts
 
 
-def profile_pass(label, fn, names):
+def profile_pass(label, fn, names, cpu=True):
     """Device time by kernel over one call of ``fn`` (torch.profiler),
     with the share of the kernels whose names contain one of ``names``;
-    the full table goes to standard error."""
+    the full table goes to standard error.  ``cpu=False`` traces the
+    device alone: no host operator events, whose collection takes tens
+    of seconds on a call of ~10^5 launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1671,12 +1700,475 @@ def epsm_card_vs_cpu(x, y):
                 card_f64=e_card, cpu_f64=e_cpu)
 
 
+# ---------------------------------------------------------------------------
+# [epsm experiments]: the paper's glass, rough-metal and many-object
+# experiments through run(...), and K1-K3 on their own rays
+# ---------------------------------------------------------------------------
+
+def _pass_count(spp, res):
+    """The passes ``run`` renders ``spp`` in at ``res``^2 (its
+    ``spp_chunk``: at most 2,000,000 lanes a pass) and the chunk."""
+    chunk = max(1, min(spp, 2_000_000 // (res * res)))
+    return -(-spp // chunk), chunk
+
+
+def _labelled_render(timer, render):
+    """``app/optim.py``'s ``render`` timed by CUDA events: the ground
+    truth (the ``path`` integrator) apart from the method's forward."""
+    def call(*a, **kw):
+        kind = (kw.get("integrator") or {}).get("type")
+        label = "ground truth" if kind == "path" else "forward render"
+        return timer.wrap_call(label, lambda: render(*a, **kw))
+    return call
+
+
+def experiment_run(name, spp, gt_spp, iters, do_profile=True,
+                   each_leaf=True):
+    """``run(method, <name>.make(...))`` at EXP_RES^2 and match_res
+    EXP_MATCH, each config's own depth and method (its scene's
+    integrator), ``iters`` iterations.  ms an iteration (the ground truth
+    apart), ms by phase (CUDA events), launches an iteration (each count
+    exact: a manifold pass launches 4 D + 1 closest and 3 D any hits, a
+    ground-truth pass D and D), the loss, theta and every theta gradient
+    finite and non-zero (each leaf's, with ``each_leaf``), theta moved,
+    peak device
+    memory, the BVH build's seconds and set_vertices' ms; then one
+    profiled iteration (with a 1-spp ground truth).  Returns the rows,
+    the launch totals and the summary."""
+    import importlib
+    import torch
+    from epsm_mitsuba3_torch.app import optim
+    from epsm_mitsuba3_torch.models import scene as scene_mod
+    from epsm_mitsuba3_torch.ops import bvh as bvh_mod
+    mod = importlib.import_module(f"epsm_mitsuba3_torch.app.exp.{name}")
+    build_s = []
+    orig_build = bvh_mod.build
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig_build(*a, **kw)
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    bvh_mod.build = timed_build
+    try:
+        t0 = time.perf_counter()
+        exp = mod.make(resolution=EXP_RES, spp=spp, it=iters,
+                       match_res=EXP_MATCH)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        bvh_mod.build = orig_build
+    exp["gt_spp"] = gt_spp
+    scene = exp["scene"]
+    method = dict(scene.static.integrator)["type"]
+    depth = exp["max_depth"]
+    n_tris = scene.faces.shape[0]
+    bvh = scene.bvh is not None
+    say(f"[epsm experiments] {name}: {n_tris} triangles ("
+        + (f"BVH of {scene.bvh_nodes.shape[0]} BVH4 records, built in "
+           f"{sum(build_s):.2f} s" if bvh else "brute force, K1")
+        + f"), loaded in {load_s:.2f} s; {method}, depth {depth}, "
+        f"{EXP_RES}^2 x {spp} spp, ground truth {gt_spp} spp, match_res "
+        f"{EXP_MATCH}, {iters} iterations")
+
+    timer = epsm_backward_timer()
+    timer.wrap(optim.Matcher, "match_Sinkhorn", "Sinkhorn match")
+    timer.wrap(scene_mod.Scene, "set_vertices", "set_vertices")
+    orig_render, orig_step = optim.render, optim.Adam.step
+    optim.render = _labelled_render(timer, orig_render)
+    grads = []
+
+    def step(self, g):
+        grads.append({k: v.detach().clone() for k, v in g.items()})
+        return orig_step(self, g)
+
+    optim.Adam.step = step
+    rows, total = [], {}
+    zero_counts()
+    torch.cuda.synchronize()
+    mark = [time.perf_counter()]
+
+    def log(it, loss, theta):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = read_counts()
+        zero_counts()
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        ms = split_phases(timer.read())
+        ms["backward, other"] = None   # run() calls autograd itself
+        rows.append(dict(it=it, wall=(now - mark[0]) * 1e3, loss=loss,
+                         theta={k: v.copy() for k, v in theta.items()},
+                         counts=counts, phases=ms))
+        mark[0] = now
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        optim.run(method, exp, iters=iters, log=log)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = None
+        if do_profile:
+            exp["gt_spp"] = 1
+            prof = profile_pass(
+                f"epsm {name}, one {method} iteration (and a 1-spp ground "
+                "truth)", lambda: optim.run(method, exp, iters=1),
+                ("bvh4_closest", "bvh4_any") if bvh
+                else ("mt_closest", "mt_any"), cpu=False)
+            timer.read()
+    finally:
+        optim.render, optim.Adam.step = orig_render, orig_step
+        timer.close()
+
+    n_pass, _ = _pass_count(spp, EXP_RES)
+    n_gt, _ = _pass_count(gt_spp, EXP_RES)
+    closest, anyhit = (("bvh4_closest_hit", "bvh4_any_hit") if bvh
+                       else ("mt_closest_hit", "mt_any_hit"))
+    walls = []
+    for r, g in zip(rows, grads):
+        gt = n_gt * depth if r["it"] == 0 else 0
+        expect = {closest: n_pass * (4 * depth + 1) + gt,
+                  anyhit: n_pass * 3 * depth + gt}
+        for k in ("mt_closest_hit", "mt_any_hit", "bvh4_closest_hit",
+                  "bvh4_any_hit", "bvh4_closest_hit_mp"):
+            expect.setdefault(k, 0)
+        ph = r["phases"]
+        wall = r["wall"] - ph.get("ground truth", 0.0)
+        walls.append(wall)
+        gsum = {k: (float(v.abs().max()), bool(torch.isfinite(v).all()
+                                               and v.abs().max() < 1e30))
+                for k, v in g.items()}
+        say(f"[epsm experiments] {name} iteration {r['it']}"
+            + (" (with the ground truth)" if r["it"] == 0 else "")
+            + f": {r['wall']:.1f} ms, {wall:.1f} without the ground truth; "
+            f"loss {r['loss']:.6g}; theta "
+            + "; ".join(f"{k} {[round(float(x), 6) for x in v.ravel()[:6]]}"
+                        for k, v in r["theta"].items())
+            + "; max |dL/dtheta| "
+            + ", ".join(f"{k} {m:.4g}" for k, (m, _) in gsum.items())
+            + "; ms by phase "
+            + ", ".join(f"{k} {v:.1f}" for k, v in ph.items()
+                        if v is not None)
+            + f"; launches {r['counts']}")
+        for k, n in expect.items():
+            check(r["counts"][k] == n, f"{name}: {k} launched "
+                  f"{r['counts'][k]} times in iteration {r['it']}, "
+                  f"expected {n}")
+        check(math.isfinite(r["loss"]), f"{name}: loss not finite")
+        for k, (m, finite) in gsum.items():
+            check(finite and (m > 0 or not each_leaf), f"{name}: dL/d{k} "
+                  f"not finite and non-zero ({m})")
+        check(max(m for m, _ in gsum.values()) > 0, f"{name}: zero "
+              "gradient")
+        for k, v in r["theta"].items():
+            check(bool((abs(v) < 1e30).all()), f"{name}: theta {k} not "
+                  "finite")
+    init = exp["init_theta"]
+    moved = max(float((torch.as_tensor(rows[-1]["theta"][k])
+                       - init[k].cpu()).abs().max()) for k in init)
+    check(moved > 0, f"{name}: theta did not move")
+    mean = {k: sum(r["phases"].get(k) or 0.0 for r in rows) / len(rows)
+            for k in rows[0]["phases"] if k != "backward, other"}
+    ws = sorted(walls)
+    say(f"[epsm experiments] {name} summary: ms an iteration without the "
+        f"ground truth median {ws[len(ws) // 2]:.1f} (range {ws[0]:.1f}-"
+        f"{ws[-1]:.1f}); {n_pass} passes of a manifold backward each; mean "
+        "ms by phase (CUDA events) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in mean.items())
+        + f"; peak device memory {peak:.2f} GiB; device busy "
+        + (f"{prof['busy']:.1f} of {prof['wall']:.1f} ms "
+           f"({100 * prof['busy'] / prof['wall']:.1f} %)" if prof
+           else "not measured")
+        + f"; launches in all {total}"
+        + (f"; BVH build {sum(build_s):.2f} s, set_vertices (refit + "
+           f"pack_bvh4) {mean.get('set_vertices', 0.0):.1f} ms an "
+           "iteration" if bvh else ""))
+    return dict(rows=rows, grads=grads[:len(rows)], total=total,
+                walls=walls,
+                phases=mean, peak_gib=peak, profile=prof, exp=exp,
+                build_s=sum(build_s), load_s=load_s, method=method)
+
+
+def _record_rays(module, names, fn):
+    """Run ``fn`` with ``module``'s functions ``names`` wrapped to keep
+    copies of their arguments; returns {name: [args, ...]}."""
+    rec = {nm: [] for nm in names}
+    orig = {nm: getattr(module, nm) for nm in names}
+
+    def keep(nm):
+        def call(*a, **kw):
+            rec[nm].append(([x.clone() if hasattr(x, "clone") else x
+                             for x in a], dict(kw)))
+            return orig[nm](*a, **kw)
+        return call
+
+    for nm in names:
+        setattr(module, nm, keep(nm))
+    try:
+        fn()
+    finally:
+        for nm in names:
+            setattr(module, nm, orig[nm])
+    return rec
+
+
+def exp_rays_k1(exp, subset=2 ** 18):
+    """K1 at egg's 3,972 triangles on the rays one EXP_RES^2 forward pass
+    of its manifold render hands to ``closest_hit`` / ``any_hit``: each
+    depth's launches held bit for bit against the plain versions on the
+    first ``subset`` rays, timed on the device alone beside the bound
+    (closest hit: every live ray tests every triangle; any hit: each live
+    ray's tests up to its first hit) and the plain versions on the
+    subset."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import intersect as I
+    scene = exp["apply"](exp["scene"], exp["init_theta"])
+    _, chunk = _pass_count(exp["spp"], EXP_RES)
+    with torch.no_grad():
+        rec = _record_rays(CI, ("closest_hit", "any_hit"), lambda: mt.render(
+            scene, spp=chunk, seed=5, sensor=1))
+    torch.cuda.synchronize()
+    depth = exp["max_depth"]
+    check(len(rec["closest_hit"]) == depth and len(rec["any_hit"]) == depth,
+          f"an egg pass made {len(rec['closest_hit'])} closest-hit and "
+          f"{len(rec['any_hit'])} any-hit calls, expected {depth} each")
+    out = []
+    for d, (c, a) in enumerate(zip(rec["closest_hit"], rec["any_hit"])):
+        (tri, o, dd, maxt), (tri_a, oa, da, ma) = c[0], a[0]
+        f, n = tri.shape[0], o.shape[0]
+        got = (*CI.closest_hit(tri, o, dd, maxt),
+               CI.any_hit(tri_a, oa, da, ma))
+        k = slice(0, subset)
+        ref_c, plain_c_ms = timed(lambda: I.ray_intersect_brute(
+            tri, o[k], dd[k], maxt[k]))
+        ref_a, plain_a_ms = timed(lambda: I.ray_test_brute(
+            tri_a, oa[k], da[k], ma[k]))
+        ref = (*ref_c, ref_a)
+        diff = {nm: int((x[k] != y).sum()) for nm, x, y in
+                zip(K1_FIELDS, got, ref)}
+        check(sum(diff.values()) == 0, f"egg depth {d}: K1 differs from "
+              f"the plain versions on {diff}")
+        ms_c = device_ms(lambda: CI.closest_hit(tri, o, dd, maxt), 10)
+        ms_a = device_ms(lambda: CI.any_hit(tri_a, oa, da, ma), 10)
+        live_c = int((maxt > 1e-6).sum())
+        live_a = int((ma > 1e-6).sum())
+        b_c, by_c = bound_ms(36 * f + 28 * n + 16 * n,
+                             live_c * f * FLOP_PER_TEST)
+        b_a, by_a = bound_ms(36 * f + 28 * n + n, anyhit_tests(
+            tri_a, oa, da, ma) * FLOP_PER_TEST)
+        row = dict(depth=d, rays=n, live_closest=live_c, live_any=live_a,
+                   closest_ms=ms_c, any_ms=ms_a, closest_bound_ms=b_c,
+                   closest_bound_by=by_c, any_bound_ms=b_a,
+                   any_bound_by=by_a, plain_rays=min(n, subset),
+                   closest_plain_ms=plain_c_ms, any_plain_ms=plain_a_ms)
+        out.append(row)
+        say(f"[egg rays K1] depth {d}: {f} tris x {n} rays ({live_c} live; "
+            f"{int((got[1] >= 0).sum())} hits): closest {ms_c:.4f} ms "
+            f"(bound {b_c:.4f} by {by_c}, {b_c / ms_c:.1%}); {live_a} live "
+            f"shadow rays ({int(got[4].sum())} occluded): any {ms_a:.4f} ms "
+            f"(bound {b_a:.4f} by {by_a}, {b_a / ms_a:.1%}); plain versions "
+            f"on {min(n, subset)} of them {plain_c_ms:.1f} / "
+            f"{plain_a_ms:.1f} ms; bit for bit equal there (0 lanes differ "
+            f"in {', '.join(K1_FIELDS)})")
+    return out
+
+
+def exp_rays_k23(exp, subset=2 ** 18):
+    """K2/K3 on shadow's tree (1,587,204 triangles at 400 spheres) on the
+    rays one EXP_RES^2 forward pass hands to ``closest_hit`` /
+    ``any_hit``: each depth's launches held bit for bit against the plain
+    versions on the first ``subset`` rays, timed on the device alone
+    beside the bound from the plain versions' work counts on all of the
+    rays (their pops and triangle tests)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import traverse as TR
+    scene = exp["apply"](exp["scene"], exp["init_theta"])
+    _, chunk = _pass_count(exp["spp"], EXP_RES)
+    with torch.no_grad():
+        rec = _record_rays(CT, ("closest_hit", "any_hit"), lambda: mt.render(
+            scene, spp=chunk, seed=5, sensor=1))
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(scene.device)
+    depth = exp["max_depth"]
+    check(len(rec["closest_hit"]) == depth and len(rec["any_hit"]) == depth,
+          f"a shadow pass made {len(rec['closest_hit'])} closest-hit and "
+          f"{len(rec['any_hit'])} any-hit calls, expected {depth} each")
+    nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
+    tree = 4 * (nodes.numel() + tri.numel())
+    out = []
+    for d, (c, a) in enumerate(zip(rec["closest_hit"], rec["any_hit"])):
+        (o, dd, maxt), kw_c = c[0][2:5], c[1]
+        (oa, da, ma), kw_a = a[0][2:5], a[1]
+        n = o.shape[0]
+        got = (*CT.closest_hit(nodes, tri, o, dd, maxt, **kw_c),
+               CT.any_hit(nodes, tri, oa, da, ma, **kw_a))
+        CT.raise_on_overflow(scene.device)
+        k = slice(0, subset)
+        (t_p, s_p, u_p, v_p), plain_c_ms = timed(
+            lambda: TR.bvh_ray_intersect_plain(nodes, tri, o[k], dd[k],
+                                               maxt[k]))
+        occ_p, plain_a_ms = timed(lambda: TR.bvh_ray_test_plain(
+            nodes, tri, oa[k], da[k], ma[k]))
+        diff = {nm: int((x[k] != y).sum()) for nm, x, y in zip(
+            ("t", "slot", "u", "v", "occ"), got, (t_p, s_p, u_p, v_p,
+                                                  occ_p))}
+        check(sum(diff.values()) == 0, f"shadow depth {d}: K2/K3 differ "
+              f"from the plain versions on {diff}")
+        _, _, _, _, pops, tests = TR.bvh_ray_intersect_plain(
+            nodes, tri, o, dd, maxt, counts=True)
+        _, pops_a, tests_a = TR.bvh_ray_test_plain(nodes, tri, oa, da, ma,
+                                                   counts=True)
+        pops, tests = int(pops.sum()), int(tests.sum())
+        pops_a, tests_a = int(pops_a.sum()), int(tests_a.sum())
+        ms_c = device_ms(lambda: CT.closest_hit(nodes, tri, o, dd, maxt,
+                                                **kw_c), 10)
+        ms_a = device_ms(lambda: CT.any_hit(nodes, tri, oa, da, ma, **kw_a),
+                         10)
+        b_c, by_c = bound_ms(tree + 28 * n + 16 * n, pops * (
+            4 * OPS_PER_SLAB + OPS_PER_ORDER) + tests * FLOP_PER_TEST)
+        b_a, by_a = bound_ms(tree + 28 * n + n, pops_a * 4 * OPS_PER_SLAB
+                             + tests_a * FLOP_PER_TEST)
+        live_c = int((maxt > 1e-6).sum())
+        live_a = int((ma > 1e-6).sum())
+        row = dict(depth=d, rays=n, live_closest=live_c, live_any=live_a,
+                   closest_ms=ms_c, any_ms=ms_a, closest_bound_ms=b_c,
+                   closest_bound_by=by_c, any_bound_ms=b_a,
+                   any_bound_by=by_a, pops=pops, tests=tests,
+                   pops_any=pops_a, tests_any=tests_a,
+                   plain_rays=min(n, subset), closest_plain_ms=plain_c_ms,
+                   any_plain_ms=plain_a_ms, tree_mb=tree / 1e6,
+                   rows_mb=tri_k.numel() * 4 / 1e6)
+        out.append(row)
+        say(f"[shadow rays K2/K3] depth {d}: {tri.shape[0]} tris "
+            f"({row['rows_mb']:.1f} MB of 48-byte rows), {n} rays ({live_c} "
+            f"live, {int((got[1] >= 0).sum())} hits; "
+            f"{pops / max(live_c, 1):.2f} pops, "
+            f"{tests / max(live_c, 1):.2f} tests a live ray): K2 "
+            f"{ms_c:.4f} ms (bound {b_c:.4f} by {by_c}, {b_c / ms_c:.1%}); "
+            f"{live_a} live shadow rays ({int(got[4].sum())} occluded): K3 "
+            f"{ms_a:.4f} ms (bound {b_a:.4f} by {by_a}, {b_a / ms_a:.1%}); "
+            f"plain versions on {min(n, subset)} of them {plain_c_ms:.1f} / "
+            f"{plain_a_ms:.1f} ms; bit for bit equal there (0 lanes differ "
+            "in t, slot, u, v, occ)")
+    return out
+
+
+def exp_card_vs_cpu():
+    """[epsm experiments, card vs cpu]: at 64^2 x 4 spp, match_res 32,
+    each gradient of sum(img * g5) for one fixed OT gradient g5 (seeded),
+    on the card and on the CPU: glossyball's translation and roughness
+    (manifold_caustic, depth 2) and egg's glass-vertex gradients
+    (manifold_caustic, depth 4 of the published 6, for the CPU's time):
+    relative L2 <= 1e-3 each."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.app.exp import egg, glossyball
+    g5 = (torch.randn((64, 64, 5), generator=torch.Generator().manual_seed(
+        13)) * 0.05)
+    out = {}
+    for name, mod, depth in (("glossyball", glossyball, 2),
+                             ("egg", egg, 4)):
+        grads, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            exp = mod.make(resolution=64, spp=4, match_res=32,
+                           max_depth=depth, device=dev)
+            integ = {"type": "manifold_caustic", "max_depth": depth}
+            theta = {k: v.clone().requires_grad_(True)
+                     for k, v in exp["init_theta"].items()}
+            sc = exp["apply"](exp["scene"], theta)
+            if name == "egg":
+                v = sc.vertices.detach().clone().requires_grad_(True)
+                sc = sc.with_leaves({"vertices": v})
+                leaves = {"glass vertices": v}
+            else:
+                leaves = theta
+            img = mt.render(sc, spp=4, seed=0, sensor=1, integrator=integ,
+                            device=dev)
+            gs = torch.autograd.grad(torch.sum(img * g5.to(dev)),
+                                     list(leaves.values()))
+            if name == "egg":
+                s, c = exp["scene"].static.vertex_ranges[
+                    list(exp["scene"].static.shape_names).index("egg")]
+                gs = (gs[0][s:s + c],)
+            grads[dev] = {k: g.detach().cpu() for k, g in zip(leaves, gs)}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t0
+        for k in grads["cpu"]:
+            a, b = grads["cuda"][k], grads["cpu"][k]
+            err = rel_l2(a, b)
+            out[f"{name} {k}"] = err
+            say(f"[epsm experiments, card vs cpu] {name} dL/d{k} at 64^2 x "
+                f"4 spp, depth {depth}: |g| {float(b.norm()):.6g}, first "
+                f"entries card {[round(float(x), 7) for x in a.ravel()[:3]]}"
+                f" cpu {[round(float(x), 7) for x in b.ravel()[:3]]}; |g_gpu"
+                f" - g_cpu| / |g_cpu| {err:.3g}  [limit 1e-3]; card "
+                f"{secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s")
+            check(float(b.abs().max()) > 0, f"{name}: zero dL/d{k}")
+            check(err <= 1e-3, f"{name}: card and CPU dL/d{k} differ by "
+                  f"{err}")
+    return out
+
+
+def epsm_experiments_phase():
+    """[epsm experiments]: egg, glossyball, highlight and shadow through
+    ``run`` at EXP_RES^2 (EXP_CELLS: spp and ground truth cut), EXP_ITERS
+    iterations each; bunny, bathroom and bedroom one iteration each at
+    EXP_ONE_SPP; K1 at egg's 3,972 triangles and K2/K3 on shadow's tree on
+    their own rays; the card against the CPU.  Returns the runs, the
+    kernel rows and the launch totals."""
+    runs, total, secs = {}, {}, {}
+    k1_rows = k23_rows = None
+
+    def clock(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    for name, spp, gt_spp in EXP_CELLS:
+        runs[name] = clock(name, lambda: experiment_run(name, spp, gt_spp,
+                                                        EXP_ITERS))
+        if name == "egg":
+            k1_rows = clock("K1 on egg's rays",
+                            lambda: exp_rays_k1(runs[name]["exp"]))
+        if name == "shadow":
+            k23_rows = clock("K2/K3 on shadow's rays",
+                             lambda: exp_rays_k23(runs[name]["exp"]))
+        runs[name].pop("exp")
+    for name in EXP_ONE:
+        runs[name] = clock(name, lambda: experiment_run(
+            name, EXP_ONE_SPP, EXP_ONE_SPP, 1, do_profile=False,
+            each_leaf=False))
+        runs[name].pop("exp")
+    for r in runs.values():
+        for k, n in r["total"].items():
+            total[k] = total.get(k, 0) + n
+    g = runs["glossyball"]["grads"]
+    say("[epsm experiments] glossyball dL/dalpha an iteration: "
+        + ", ".join(f"{float(x['alpha']):.6g}" for x in g)
+        + "; dL/dtrans " + "; ".join(
+            str([round(float(v), 6) for v in x["trans"]]) for x in g))
+    cpu = clock("card vs cpu", exp_card_vs_cpu)
+    say("[epsm experiments] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} s in all")
+    return dict(runs=runs, total=total, k1=k1_rows, k23=k23_rows, cpu=cpu,
+                secs=secs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
               "the GPU", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     import epsm_mitsuba3_torch as mt
     from epsm_mitsuba3_torch.ops import _native
     from epsm_mitsuba3_torch.ops import bvh as BT
@@ -1841,6 +2333,10 @@ def main() -> int:
     epsm_launches = {"launches_epsm_mesh_iteration": epsm_mesh["counts"],
                      "launches_epsm_cornellbox_run": epsm_cb["total"]}
 
+    # -- 14. [epsm experiments]: glass, rough metal and many objects --------
+    epsm_exp = epsm_experiments_phase()
+    epsm_launches["launches_epsm_experiments_runs"] = epsm_exp["total"]
+
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []
     for i, k in enumerate(("mt_closest_hit", "mt_any_hit")):
@@ -1925,6 +2421,22 @@ def main() -> int:
     for entry in kernels:
         for key, counts in epsm_launches.items():
             entry[key] = counts.get(entry["name"], 0)
+    # each kernel on the experiments' own rays: K1 at egg's 3,972
+    # triangles, K2/K3 on shadow's 1,587,204
+    for entry, rows, kind in ((kernels[0], epsm_exp["k1"], "closest"),
+                              (kernels[1], epsm_exp["k1"], "any"),
+                              (kernels[2], epsm_exp["k23"], "closest"),
+                              (kernels[3], epsm_exp["k23"], "any")):
+        scene = "egg" if entry["name"].startswith("mt_") else "shadow"
+        entry[f"{scene}_rays"] = [
+            {"depth": r["depth"], "rays": r["rays"],
+             "live": r[f"live_{kind}"], "ms": r[f"{kind}_ms"],
+             "bound_ms": r[f"{kind}_bound_ms"],
+             "bound_by": r[f"{kind}_bound_by"],
+             "plain_ms": r[f"{kind}_plain_ms"],
+             "plain_rays": r["plain_rays"]} for r in rows]
+    say(f"[time] chip_smoke.py ran {time.perf_counter() - start:.1f} s, "
+        f"the kernels' build included")
     say(json.dumps({"kernels": kernels}))
     say(f"[device] {gpu}")
     say(json.dumps({"ok": True, "device": {

@@ -63,6 +63,21 @@ def translate_shape(scene, name, offset):
     return scene.set_vertices(v)
 
 
+def translate_shapes(scene, names, offsets):
+    """The scene with each shape ``names[i]`` translated by ``offsets[i]``
+    (n, 3): one add of the per-shape offsets repeated over each shape's
+    vertices (zero for the other shapes), and one ``set_vertices``, so a
+    BVH is refit and re-packed once, however many shapes move."""
+    index = {nm: i for i, nm in enumerate(scene.static.shape_names)}
+    v = scene.vertices
+    per_shape = torch.zeros((len(index), 3), dtype=v.dtype, device=v.device)
+    rows = torch.tensor([index[nm] for nm in names], device=v.device)
+    per_shape = per_shape.index_copy(0, rows, offsets.to(v.dtype))
+    counts = torch.tensor([c for _, c in scene.static.vertex_ranges],
+                          device=v.device)
+    return scene.set_vertices(v + per_shape.repeat_interleave(counts, dim=0))
+
+
 def transform_shape(scene, name, mat4, base_vertices):
     """The scene with the shape ``name``'s vertices replaced by
     ``base_vertices`` transformed by the (4, 4) ``mat4``."""

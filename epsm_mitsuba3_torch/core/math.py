@@ -211,6 +211,49 @@ def reflect(wi: torch.Tensor) -> torch.Tensor:
     return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
 
 
+def reflect_m(wi: torch.Tensor, mvec: torch.Tensor) -> torch.Tensor:
+    """``wi`` reflected about the (micro)normal ``mvec``: 2 <wi, m> m -
+    wi."""
+    return 2.0 * dot(wi, mvec, keepdim=True) * mvec - wi
+
+
+def refract(wi: torch.Tensor, mvec: torch.Tensor, cos_theta_t: torch.Tensor,
+            eta_ti: torch.Tensor) -> torch.Tensor:
+    """``wi`` refracted about ``mvec`` (fresnel.h ``refract``): the signed
+    cosine ``cos_theta_t`` on the transmitted side and the relative
+    inverse index ``eta_ti``, both (...,)."""
+    eta_ti = eta_ti[..., None]
+    return (mvec * (dot(wi, mvec, keepdim=True) * eta_ti
+                    + cos_theta_t[..., None]) - wi * eta_ti)
+
+
+def fresnel(cos_theta_i: torch.Tensor, eta: torch.Tensor):
+    """Unpolarized dielectric Fresnel term (fresnel.h ``fresnel``;
+    ``fresnel``, :288-320).  Returns (F, cos_theta_t, eta_it, eta_ti),
+    ``cos_theta_t`` signed opposite to ``cos_theta_i``; F is 1 under
+    total internal reflection."""
+    outside = cos_theta_i >= 0.0
+    rcp_eta = 1.0 / eta
+    eta_it = torch.where(outside, eta, rcp_eta)
+    eta_ti = torch.where(outside, rcp_eta, eta)
+    cos_theta_t_sqr = (-(-cos_theta_i * cos_theta_i + 1.0)
+                       * (eta_ti * eta_ti) + 1.0)
+    cos_i_abs = torch.abs(cos_theta_i)
+    cos_t_abs = safe_sqrt(cos_theta_t_sqr)
+    index_matched = eta == 1.0
+    special_case = index_matched | (cos_i_abs == 0.0)
+    r_sc = torch.where(index_matched, 0.0, 1.0)
+    a_s = ((-eta_it * cos_t_abs + cos_i_abs)
+           / (eta_it * cos_t_abs + cos_i_abs + 1e-37))
+    a_p = ((-eta_it * cos_i_abs + cos_t_abs)
+           / (eta_it * cos_i_abs + cos_t_abs + 1e-37))
+    r = 0.5 * (a_s * a_s + a_p * a_p)
+    r = torch.where(special_case, r_sc, r)
+    r = torch.where(cos_theta_t_sqr <= 0.0, 1.0, r)
+    cos_theta_t = mulsign(cos_t_abs, -cos_theta_i)
+    return r, cos_theta_t, eta_it, eta_ti
+
+
 def fresnel_conductor(cos_theta_i: torch.Tensor, eta: torch.Tensor,
                       k: torch.Tensor) -> torch.Tensor:
     """Unpolarized conductor Fresnel term (fresnel.h

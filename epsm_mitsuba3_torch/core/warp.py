@@ -1,5 +1,7 @@
 """Sampling warps used by the primal path tracer (counterpart of
-``core/warp.py``)."""
+``core/warp.py``): the hemisphere and triangle warps, and GGX's
+visible-normal sampling with its NDF, Smith G1 and pdf.  The Beckmann
+distribution is not ported (``models/bsdf.py`` raises for it)."""
 from __future__ import annotations
 
 import math
@@ -40,3 +42,78 @@ def square_to_uniform_triangle(sample: torch.Tensor) -> torch.Tensor:
     """Uniform barycentrics on the standard triangle (warp.h:280-292)."""
     t = m.safe_sqrt(1.0 - sample[..., 0])
     return torch.stack([1.0 - t, t * sample[..., 1]], dim=-1)
+
+
+def _alpha(alpha, like: torch.Tensor) -> torch.Tensor:
+    """A roughness (a number, or a tensor of the lanes' shape) broadcast
+    to the lanes of ``like`` (..., 3)."""
+    a = torch.as_tensor(alpha, dtype=like.dtype, device=like.device)
+    return torch.broadcast_to(a, like.shape[:-1])
+
+
+def ggx_visible_normal_sample(wi: torch.Tensor, sample: torch.Tensor,
+                              alpha_u, alpha_v) -> torch.Tensor:
+    """GGX visible-normal sampling (Heitz 2018, microfacet.h:331-375):
+    the micro-normal m for ``wi`` in the local shading frame; ``wi`` from
+    below the surface is sampled as -wi."""
+    alpha = torch.stack([_alpha(alpha_u, wi), _alpha(alpha_v, wi)], dim=-1)
+    # 1. stretch wi
+    wi_p = m.normalize(torch.cat([wi[..., :2] * alpha, wi[..., 2:3]],
+                                 dim=-1))
+    flip = wi_p[..., 2] < 0.0
+    wi_p = torch.where(flip[..., None], -wi_p, wi_p)
+    # 2. an orthonormal basis around wi_p
+    lensq = wi_p[..., 0] ** 2 + wi_p[..., 1] ** 2
+    t1_rot = (torch.stack([-wi_p[..., 1], wi_p[..., 0],
+                           torch.zeros_like(lensq)], dim=-1)
+              * m.safe_rsqrt(lensq)[..., None])
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=wi.dtype, device=wi.device)
+    t1 = torch.where((lensq > 1e-7)[..., None], t1_rot,
+                     torch.broadcast_to(ex, wi_p.shape))
+    t2 = m.cross(wi_p, t1)
+    # 3. a point on the projected disk
+    p = square_to_uniform_disk_concentric(sample)
+    s = 0.5 * (1.0 + wi_p[..., 2])
+    p1 = p[..., 0]
+    p2 = (1.0 - s) * m.safe_sqrt(1.0 - p[..., 0] ** 2) + s * p[..., 1]
+    # 4. reproject onto the hemisphere
+    p3 = m.safe_sqrt(1.0 - p1 ** 2 - p2 ** 2)
+    n_h = p1[..., None] * t1 + p2[..., None] * t2 + p3[..., None] * wi_p
+    # 5. unstretch
+    return m.normalize(torch.cat(
+        [alpha * n_h[..., :2], torch.clamp(n_h[..., 2:3], min=1e-6)],
+        dim=-1))
+
+
+def ggx_ndf(mvec: torch.Tensor, alpha_u, alpha_v) -> torch.Tensor:
+    """The GGX normal distribution D(m) (microfacet.h ``eval``)."""
+    alpha_u, alpha_v = _alpha(alpha_u, mvec), _alpha(alpha_v, mvec)
+    alpha_uv = alpha_u * alpha_v
+    beta = ((mvec[..., 0] / alpha_u) ** 2 + (mvec[..., 1] / alpha_v) ** 2
+            + mvec[..., 2] ** 2)
+    # safe_div: beta is 0 for the zero half vector of antipodal wi, wo
+    result = m.safe_div(torch.ones_like(beta),
+                        math.pi * alpha_uv * beta * beta)
+    return torch.where(mvec[..., 2] > 0.0, result, 0.0)
+
+
+def ggx_smith_g1(v: torch.Tensor, mvec: torch.Tensor, alpha_u,
+                 alpha_v) -> torch.Tensor:
+    """Smith's masking G1 for GGX (microfacet.h ``smith_g1``)."""
+    alpha_u, alpha_v = _alpha(alpha_u, v), _alpha(alpha_v, v)
+    xy_alpha_2 = (alpha_u * v[..., 0]) ** 2 + (alpha_v * v[..., 1]) ** 2
+    tan_theta_alpha_2 = m.safe_div(xy_alpha_2, v[..., 2] ** 2)
+    result = 2.0 / (1.0 + torch.sqrt(1.0 + tan_theta_alpha_2))
+    result = torch.where(xy_alpha_2 == 0.0, 1.0, result)
+    # perpendicular incidence with respect to m
+    return torch.where(m.dot(v, mvec) * v[..., 2] <= 0.0, 0.0, result)
+
+
+def ggx_pdf_visible(wi: torch.Tensor, mvec: torch.Tensor, alpha_u,
+                    alpha_v) -> torch.Tensor:
+    """The pdf of visible-normal sampling, G1(wi) |wi.m| D(m) / |cos
+    theta_i|."""
+    d = ggx_ndf(mvec, alpha_u, alpha_v)
+    g1 = ggx_smith_g1(wi, mvec, alpha_u, alpha_v)
+    return m.safe_div(d * g1 * torch.abs(m.dot(wi, mvec)),
+                      torch.abs(wi[..., 2]))

@@ -13,16 +13,13 @@
   ``ops/linalg.py`` ``inv_small``.
 - ``render_backward``: image-position gradients -> ray-direction
   gradients by ray differentials, their derivative through the first
-  hit, ``calc_grad``, then injection into vertex positions and normals
-  and the emitter geometry by scatter over the logged hit topology; the
-  colour channels' adjoint goes through the PRB replay
-  (``ad/prb.py`` ``prb_backward``).
+  hit, ``calc_grad``, then injection into vertex positions and normals,
+  the emitter geometry and the GGX roughness ``alpha`` by scatter over
+  the logged hit topology; the colour channels' adjoint goes through the
+  PRB replay (``ad/prb.py`` ``prb_backward``).
 
 Lanes are independent: the Jacobian of a per-lane function is the
 gradient of its sum across lanes, one reverse pass an output component.
-The roughness (``alpha``) branch of the injection applies only to rough
-BSDF kinds, which the port does not load: no logged bounce of a port
-scene carries the Glossy flag.
 """
 from __future__ import annotations
 
@@ -31,6 +28,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from ..core import math as m
+from ..core import warp
 from ..integrators import common, path as P
 from ..models import bsdf as B
 from ..models import samplers as smp
@@ -510,6 +508,31 @@ def _calc_grad(logs, dlduv1, dldp1, cam, caustic):
 # Gradient injection (the pass-2 analog, epsm.py:282-297, 555-645)
 # ---------------------------------------------------------------------------
 
+def _inject_alpha(scene, logs: PathLog, k: int, gm, g_alpha):
+    """Bounce k's half-vector grad ``gm`` (N, 3, constraint frame) onto
+    ``g_alpha`` (B,) through the reverse pass of the attached GGX
+    re-sample of the logged ``wi`` and randoms (``inject_gradients``,
+    :681-704), on the glossy bounces' BSDF slots."""
+    act = logs.active[k]
+    gm = torch.where(act[:, None], gm, 0.0)
+    # constraint frame -> world -> the logged hit's shading frame
+    t, b_, nn = _constraint_frame(logs.normal[k])
+    gm_world = t * gm[:, 0:1] + b_ * gm[:, 1:2] + nn * gm[:, 2:3]
+    sh_s, sh_t = m.coordinate_system(logs.normal[k])
+    gm_local = torch.stack([m.dot(gm_world, sh_s), m.dot(gm_world, sh_t),
+                            m.dot(gm_world, logs.normal[k])], -1)
+    slot = torch.clamp(logs.bsdf_index[k], min=0).long()
+    with torch.enable_grad():
+        alpha_n = scene.bsdfs["alpha"].detach()[slot].requires_grad_(True)
+        hf = warp.ggx_visible_normal_sample(logs.wi_local[k],
+                                            logs.s2_bsdf[k], alpha_n,
+                                            alpha_n)
+        (galpha,) = torch.autograd.grad(hf, alpha_n, gm_local)
+    is_rough = B.has_flag(logs.bsdf_flags[k], B.BSDFFlags.Glossy)
+    g_alpha.index_add_(0, slot, torch.where(act & is_rough,
+                                            torch.nan_to_num(galpha), 0.0))
+
+
 def inject_gradients(scene, logs: PathLog, path_grad, light_grad,
                      diffuse_grad, grads: Dict[str, torch.Tensor]):
     """Accumulate the manifold gradients into the scene's vertex and
@@ -519,17 +542,23 @@ def inject_gradients(scene, logs: PathLog, path_grad, light_grad,
     - the diffuse receiver point (detached barycentrics) b_k * g;
     - the shading-normal grad onto the vertex normals, through the VJP of
       normalize(interp);
+    - the half-vector grad onto the roughness ``alpha`` of glossy bounces'
+      BSDF slots, through the reverse pass of the attached GGX re-sample
+      (epsm.py:644, roughconductor.cpp:255);
     - the light grads, weighted by |Lr_dir|, onto the NEE shadow ray's hit
       face (the emitter geometry), and at the first bounce the receiver
       grad scaled by the distance ratio.
 
-    The roughness (``alpha``) branch is left out: it reaches rough kinds
-    only, which the port does not load.  ``grads``: 'vertices' (V, 3) and
-    'normals' (V, 3) accumulators; returns them updated."""
+    ``grads``: 'vertices' (V, 3), 'normals' (V, 3) and 'alpha' (B,)
+    accumulators; returns them updated."""
     K, N = logs.b0.shape
     faces = scene.faces
     g_v = grads["vertices"].clone()
     g_n = grads["normals"].clone()
+    g_alpha = grads["alpha"].clone()
+    # the alpha branch has work only where a kind of the scene is glossy
+    glossy = any(B.KIND_FLAGS[kind] & B.BSDFFlags.Glossy
+                 for kind in scene.static.bsdf_kinds)
 
     def scatter(acc, idx, val):
         acc.index_add_(0, idx, val)
@@ -561,6 +590,9 @@ def inject_gradients(scene, logs: PathLog, path_grad, light_grad,
         for v in range(3):
             scatter(g_n, f[:, v], gn012[:, v])
 
+        if glossy:
+            _inject_alpha(scene, logs, k, path_grad[k, 4], g_alpha)
+
         # light grads onto the NEE shadow ray's hit face, weighted by
         # |Lr_dir| (epsm.py:626-627)
         lw = torch.sum(logs.lr_dir[k], dim=-1, keepdim=True)
@@ -582,7 +614,7 @@ def inject_gradients(scene, logs: PathLog, path_grad, light_grad,
             scatter(g_v, fe[:, 1], eb1 * gd0)
             scatter(g_v, fe[:, 2], eb2 * gd0)
 
-    return {"vertices": g_v, "normals": g_n}
+    return {"vertices": g_v, "normals": g_n, "alpha": g_alpha}
 
 
 # ---------------------------------------------------------------------------
@@ -727,8 +759,11 @@ def backward_core(scene, names: Sequence[str], grad_in, ray: Ray, sampler,
         acc = inject_gradients(scene_d, logs, path_grad, light_grad,
                                diffuse_grad,
                                {"vertices": torch.zeros_like(scene.vertices),
-                                "normals": torch.zeros_like(scene.normals)})
-        out = {"vertices": acc["vertices"], "normals": acc["normals"]}
+                                "normals": torch.zeros_like(scene.normals),
+                                "alpha": torch.zeros_like(
+                                    scene.bsdfs["alpha"])})
+        out = {"vertices": acc["vertices"], "normals": acc["normals"],
+               "bsdfs.alpha": acc["alpha"]}
         # the camera-origin gradient (epsm.py:260-261:
         # dr.backward(ray.o * -grad_d))
         tw = torch.zeros_like(sensor.to_world)

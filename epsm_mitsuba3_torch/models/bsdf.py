@@ -1,5 +1,6 @@
-"""BSDF models (counterpart of ``models/bsdf.py``): the diffuse BSDF and
-the smooth conductor, with the two-sided wrapper.
+"""BSDF models (counterpart of ``models/bsdf.py``): the diffuse BSDF, the
+smooth conductor, the GGX rough conductor and the smooth dielectric, with
+the two-sided wrapper.
 
 All BSDFs of a scene live in one table of per-slot parameters.  ``sample``
 and ``eval_pdf`` check the kinds present in the scene, evaluate each of
@@ -53,19 +54,33 @@ def has_flag(flags: torch.Tensor, flag: int) -> torch.Tensor:
     return (flags & flag) != 0
 
 
-#: kind ids in the reference's numbering (``KIND_*``, :56-57)
+#: kind ids in the reference's numbering (``KIND_*``, :56-59)
 KIND_DIFFUSE = 0
 KIND_CONDUCTOR = 1
-KIND_NAMES = {"diffuse": KIND_DIFFUSE, "conductor": KIND_CONDUCTOR}
+KIND_ROUGHCONDUCTOR = 2
+KIND_DIELECTRIC = 3
+KIND_NAMES = {"diffuse": KIND_DIFFUSE, "conductor": KIND_CONDUCTOR,
+              "roughconductor": KIND_ROUGHCONDUCTOR,
+              "dielectric": KIND_DIELECTRIC}
 KIND_FLAGS = {
     KIND_DIFFUSE: BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide,
     KIND_CONDUCTOR: BSDFFlags.DeltaReflection | BSDFFlags.FrontSide,
+    KIND_ROUGHCONDUCTOR: BSDFFlags.GlossyReflection | BSDFFlags.FrontSide,
+    KIND_DIELECTRIC: (BSDFFlags.DeltaReflection | BSDFFlags.DeltaTransmission
+                      | BSDFFlags.FrontSide | BSDFFlags.BackSide
+                      | BSDFFlags.NonSymmetric),
 }
 #: the table columns each kind reads, beside ``kind`` and ``twosided``
 KIND_FIELDS = {
     KIND_DIFFUSE: ("reflectance",),
     KIND_CONDUCTOR: ("eta_c", "k_c", "specular_reflectance"),
+    KIND_ROUGHCONDUCTOR: ("alpha", "eta_c", "k_c", "specular_reflectance"),
+    KIND_DIELECTRIC: ("eta", "specular_reflectance",
+                      "specular_transmittance"),
 }
+#: the roughness and relative IOR columns' defaults (``empty_table``,
+#: :144-160)
+DEFAULT_ALPHA, DEFAULT_ETA = 0.1, 1.5046
 
 
 def check_kinds(kinds_present: Tuple[int, ...]) -> None:
@@ -73,8 +88,9 @@ def check_kinds(kinds_present: Tuple[int, ...]) -> None:
     missing = [k for k in kinds_present if k not in KIND_FLAGS]
     if missing:
         raise NotImplementedError(
-            f"BSDF kinds {missing}: the port has the diffuse and the "
-            "smooth conductor BSDFs only")
+            f"BSDF kinds {missing}: the port has the diffuse, smooth "
+            "conductor, rough conductor (GGX) and smooth dielectric BSDFs "
+            "only")
 
 
 def gather_params(table: Dict[str, torch.Tensor], idx: torch.Tensor,
@@ -133,16 +149,87 @@ def _conductor_sample(p, wi, s1, s2):
     return bs, torch.where(ok[..., None], weight, 0.0), ok
 
 
-def _conductor_eval_pdf(p, wi, wo):
+def _zero_eval_pdf(p, wi, wo):
+    """eval_pdf of a delta lobe: no value, no density."""
     return (torch.zeros(wi.shape[:-1] + (3,), dtype=wi.dtype,
                         device=wi.device),
             torch.zeros(wi.shape[:-1], dtype=wi.dtype, device=wi.device))
 
 
+def _roughconductor_sample(p, wi, s1, s2):
+    """GGX visible-normal sampling (roughconductor.cpp:231-270): the
+    weight F G1(wo, m); the half vector ``hf`` is the sampled m
+    (roughconductor.cpp:255)."""
+    cos_i = wi[..., 2]
+    alpha = p["alpha"]
+    mvec = warp.ggx_visible_normal_sample(wi, s2, alpha, alpha)
+    wo = m.reflect_m(wi, mvec)
+    pdf_m = warp.ggx_pdf_visible(wi, mvec, alpha, alpha)
+    pdf = m.safe_div(pdf_m, 4.0 * torch.abs(m.dot(wo, mvec)))
+    f = m.fresnel_conductor(m.dot(wi, mvec)[..., None], p["eta_c"], p["k_c"])
+    g1_o = warp.ggx_smith_g1(wo, mvec, alpha, alpha)
+    weight = p["specular_reflectance"] * f * g1_o[..., None]
+    bs = BSDFSample(
+        wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
+        sampled_type=torch.full(pdf.shape, BSDFFlags.GlossyReflection,
+                                dtype=torch.int32, device=pdf.device),
+        hf=mvec)
+    ok = (cos_i > 0.0) & (wo[..., 2] > 0.0) & (pdf > 0.0)
+    return bs, torch.where(ok[..., None], weight, 0.0), ok
+
+
+def _roughconductor_eval_pdf(p, wi, wo):
+    cos_i = wi[..., 2]
+    cos_o = wo[..., 2]
+    alpha = p["alpha"]
+    ok = (cos_i > 0.0) & (cos_o > 0.0)
+    h = m.normalize(wi + wo)
+    d = warp.ggx_ndf(h, alpha, alpha)
+    g = warp.ggx_smith_g1(wi, h, alpha, alpha) * warp.ggx_smith_g1(
+        wo, h, alpha, alpha)
+    f = m.fresnel_conductor(m.dot(wi, h)[..., None], p["eta_c"], p["k_c"])
+    value = (p["specular_reflectance"] * f
+             * m.safe_div(d * g, 4.0 * cos_i)[..., None])
+    pdf_m = warp.ggx_pdf_visible(wi, h, alpha, alpha)
+    pdf = m.safe_div(pdf_m, 4.0 * torch.abs(m.dot(wo, h)))
+    return torch.where(ok[..., None], value, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def _dielectric_sample(p, wi, s1, s2):
+    """Smooth dielectric (dielectric.cpp): reflect with probability F,
+    else refract; ``wi`` may come from below (the interior).  Radiance
+    through the interface scales by eta_ti^2 (dielectric.cpp:391); the
+    half vector is the normal."""
+    cos_i = wi[..., 2]
+    F, cos_t, eta_it, eta_ti = m.fresnel(cos_i, p["eta"])
+    sel_r = s1 <= F
+    normal = torch.cat([torch.zeros_like(wi[..., :2]),
+                        torch.ones_like(wi[..., 2:3])], dim=-1)
+    wo_t = m.refract(wi, normal, cos_t, eta_ti)
+    wo = torch.where(sel_r[..., None], m.reflect(wi), wo_t)
+    pdf = torch.where(sel_r, F, 1.0 - F)
+    eta = torch.where(sel_r, 1.0, eta_it)
+    w_t = p["specular_transmittance"] * (eta_ti ** 2)[..., None]
+    weight = torch.where(sel_r[..., None], p["specular_reflectance"], w_t)
+    sampled = torch.where(
+        sel_r, torch.tensor(BSDFFlags.DeltaReflection, dtype=torch.int32,
+                            device=wi.device),
+        torch.tensor(BSDFFlags.DeltaTransmission, dtype=torch.int32,
+                     device=wi.device))
+    bs = BSDFSample(wo=wo, pdf=pdf, eta=eta, sampled_type=sampled,
+                    hf=normal)
+    ok = cos_i != 0.0
+    return bs, torch.where(ok[..., None], weight, 0.0), ok
+
+
 _SAMPLE_FNS = {KIND_DIFFUSE: _diffuse_sample,
-               KIND_CONDUCTOR: _conductor_sample}
+               KIND_CONDUCTOR: _conductor_sample,
+               KIND_ROUGHCONDUCTOR: _roughconductor_sample,
+               KIND_DIELECTRIC: _dielectric_sample}
 _EVAL_PDF_FNS = {KIND_DIFFUSE: _diffuse_eval_pdf,
-                 KIND_CONDUCTOR: _conductor_eval_pdf}
+                 KIND_CONDUCTOR: _zero_eval_pdf,
+                 KIND_ROUGHCONDUCTOR: _roughconductor_eval_pdf,
+                 KIND_DIELECTRIC: _zero_eval_pdf}
 
 
 def _select_bs(mask, a: BSDFSample, b: BSDFSample) -> BSDFSample:

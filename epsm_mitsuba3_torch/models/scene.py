@@ -4,8 +4,10 @@
 Geometry is one flat set of arrays (all meshes concatenated); structure
 (kinds present, integrator settings, film sizes) is static metadata.
 ``load_dict`` takes the subset of the reference schema that the port's
-scenes use: ``rectangle``/``cube`` shapes and in-memory ``mesh`` shapes,
-``diffuse`` and the smooth ``conductor`` (optionally ``twosided``),
+scenes use: ``rectangle``/``cube``/``sphere`` shapes (the sphere
+tessellated) and in-memory ``mesh`` shapes, ``diffuse``, the smooth
+``conductor``, the GGX ``roughconductor`` and the smooth ``dielectric``
+(optionally ``twosided``),
 ``area``, ``perspective``, ``independent``, ``hdrfilm`` with a ``box``
 filter, and the ``path``, ``prb``, ``manifold`` and ``manifold_caustic``
 integrators.  Shapes keep their names and vertex ranges, by which the
@@ -147,7 +149,7 @@ class Scene:
 # Dict loader (mi.load_dict subset)
 # ===========================================================================
 
-_SHAPE_FNS = {"rectangle": shapes_mod.rectangle, "cube": shapes_mod.cube}
+_SHAPE_TYPES = ("rectangle", "cube", "sphere", "mesh")
 _SENSOR_TYPES = ("perspective",)
 _INTEGRATOR_TYPES = ("path", "prb", "manifold", "manifold_caustic")
 
@@ -165,6 +167,24 @@ def _rgb(value, default=(1.0, 1.0, 1.0)):
     if arr.ndim == 0:
         arr = np.full((3,), float(arr), np.float32)
     return arr.reshape(3)
+
+
+#: named indices of refraction (``_IOR_NAMES``, :253-254)
+_IOR_NAMES = {"bk7": 1.5046, "air": 1.000277, "water": 1.3330,
+              "diamond": 2.419, "glass": 1.5046, "acrylic": 1.49}
+
+
+def _ior(value, default: float) -> float:
+    """An index of refraction: a number or a name of ``_IOR_NAMES``."""
+    if value is None:
+        return default
+    if isinstance(value, str):
+        if value not in _IOR_NAMES:
+            raise NotImplementedError(
+                f"index of refraction '{value}': not a named IOR of the "
+                "port")
+        return _IOR_NAMES[value]
+    return float(value)
 
 
 def _transform(value) -> np.ndarray:
@@ -202,11 +222,29 @@ class _Builder:
         if kind_name not in bsdf_mod.KIND_NAMES:
             raise NotImplementedError(f"bsdf type '{kind_name}' is not ported")
         kind = bsdf_mod.KIND_NAMES[kind_name]
-        if kind == bsdf_mod.KIND_CONDUCTOR and isinstance(
-                p.get("material"), str):
+        conductor = kind in (bsdf_mod.KIND_CONDUCTOR,
+                             bsdf_mod.KIND_ROUGHCONDUCTOR)
+        if conductor and isinstance(p.get("material"), str):
             raise NotImplementedError(
                 f"conductor material '{p['material']}': the spectral "
                 "tables of named materials are not ported; give eta and k")
+        if str(p.get("distribution", "ggx")) != "ggx":
+            raise NotImplementedError(
+                f"microfacet distribution '{p['distribution']}': the port "
+                "has GGX only")
+        alpha = p.get("alpha", p.get("roughness", bsdf_mod.DEFAULT_ALPHA))
+        if isinstance(alpha, (dict, list)):
+            raise NotImplementedError(
+                "a textured roughness is not ported; give alpha as a number")
+        # the relative IOR column: the dielectric's int_ior / ext_ior, any
+        # other kind's scalar eta (an rgb eta is the conductor's eta_c)
+        if kind == bsdf_mod.KIND_DIELECTRIC:
+            eta = (_ior(p.get("int_ior"), 1.5046)
+                   / _ior(p.get("ext_ior"), 1.000277))
+        elif isinstance(p.get("eta"), (dict, list)):
+            eta = bsdf_mod.DEFAULT_ETA
+        else:
+            eta = float(p.get("eta", bsdf_mod.DEFAULT_ETA))
         self.bsdf_rows.append({
             "kind": kind,
             "flags": bsdf_mod.KIND_FLAGS[kind]
@@ -214,10 +252,13 @@ class _Builder:
             "twosided": twosided,
             "reflectance": _rgb(p.get("reflectance"), (0.5, 0.5, 0.5)),
             "specular_reflectance": _rgb(p.get("specular_reflectance")),
-            "eta_c": _rgb(p.get("eta"), (0.0, 0.0, 0.0))
-            if kind == bsdf_mod.KIND_CONDUCTOR
+            "specular_transmittance": _rgb(p.get("specular_transmittance",
+                                                 p.get("transmittance"))),
+            "alpha": float(alpha),
+            "eta_c": _rgb(p.get("eta"), (0.0, 0.0, 0.0)) if conductor
             else np.zeros(3, np.float32),
             "k_c": _rgb(p.get("k"), (1.0, 1.0, 1.0)),
+            "eta": eta,
         })
         return len(self.bsdf_rows) - 1
 
@@ -243,8 +284,17 @@ class _Builder:
             for k in ("normals", "uvs"):
                 if k in d:
                     mesh[k] = np.asarray(d[k], np.float32)
+        elif t == "sphere":
+            if bool(d.get("analytic", False)):
+                raise NotImplementedError(
+                    "the analytic sphere (ops/quadric.py) is not ported; "
+                    "the tessellated sphere is the default")
+            mesh = shapes_mod.sphere(
+                radius=float(d.get("radius", 1.0)),
+                center=tuple(d.get("center", (0.0, 0.0, 0.0))),
+                subdiv=int(d.get("subdiv", 32)))
         else:
-            mesh = _SHAPE_FNS[t]()
+            mesh = getattr(shapes_mod, t)()
         to_world = _transform(d.get("to_world"))
         v = mesh["vertices"]
         vh = np.concatenate([v, np.ones((len(v), 1), np.float32)], -1)
@@ -361,7 +411,7 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
             b.add_sensor(val)
         elif t in _INTEGRATOR_TYPES:
             b.integrator = dict(val)
-        elif t in _SHAPE_FNS or t == "mesh":
+        elif t in _SHAPE_TYPES:
             b.add_shape(val, key)
         else:
             raise NotImplementedError(
@@ -414,12 +464,15 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
                    torch.int32),
         "twosided": t(arrays["bsdfs.twosided"], torch.bool),
         "reflectance": t(arrays["bsdfs.reflectance"], torch.float32),
-        # the smooth conductor's columns (``models/scene.py:501, 522-525``)
-        "specular_reflectance": t(arrays["bsdfs.specular_reflectance"],
-                                  torch.float32),
-        "eta_c": t(arrays["bsdfs.eta_c"], torch.float32),
-        "k_c": t(arrays["bsdfs.k_c"], torch.float32),
     }
+    # the conductors' and the dielectric's columns (``models/scene.py``
+    # :501-531)
+    bsdfs.update({k: t(arrays[f"bsdfs.{k}"], torch.float32) for k in (
+        "specular_reflectance", "specular_transmittance", "alpha", "eta_c",
+        "k_c", "eta")})
+    if np.any(np.asarray(arrays.get("bsdfs.beckmann", False))):
+        raise NotImplementedError(
+            "the Beckmann microfacet distribution is not ported")
     emitters = {
         "kind": t(arrays["emitters.kind"], torch.int32),
         "radiance": t(arrays["emitters.radiance"], torch.float32),

@@ -1,5 +1,6 @@
 """Procedural shapes as triangle meshes (counterpart of
-``models/shapes.py``): the rectangle and the cube."""
+``models/shapes.py``): the rectangle, the cube and the tessellated UV
+sphere."""
 from __future__ import annotations
 
 import numpy as np
@@ -41,3 +42,30 @@ def cube():
         "faces": np.asarray(faces, np.int32),
         "normals": np.asarray(normals, np.float32),
     }
+
+
+def sphere(radius: float = 1.0, center=(0.0, 0.0, 0.0), subdiv: int = 32):
+    """UV sphere (sphere.cpp's analytic shape as a mesh): ``subdiv``
+    rings of latitude, 2 ``subdiv`` segments of longitude, each pole a
+    row of coincident vertices; 3,968 faces and 2,112 vertices at
+    ``subdiv`` 32.  Built in float64 and cast to float32, as the
+    reference builds it."""
+    lat, lon = subdiv, subdiv * 2
+    theta = np.linspace(0.0, np.pi, lat + 1)
+    phi = np.linspace(0.0, 2.0 * np.pi, lon, endpoint=False)
+    t, p = np.meshgrid(theta, phi, indexing="ij")
+    pts = np.stack([np.sin(t) * np.cos(p), np.sin(t) * np.sin(p),
+                    np.cos(t)], -1).reshape(-1, 3)
+    v = (pts * radius + np.asarray(center, np.float32)).astype(np.float32)
+    i, j = np.meshgrid(np.arange(lat), np.arange(lon), indexing="ij")
+    a, b = i * lon + j, i * lon + (j + 1) % lon
+    c, d = (i + 1) * lon + (j + 1) % lon, (i + 1) * lon + j
+    # per quad [a, b, c] (not on the top ring), then [a, c, d] (not on
+    # the bottom ring), quads in row-major order
+    upper = np.stack([a, b, c], -1)
+    lower = np.stack([a, c, d], -1)
+    quads = np.stack([upper, lower], 2)                  # (lat, lon, 2, 3)
+    keep = np.stack([np.broadcast_to(i > 0, i.shape),
+                     np.broadcast_to(i < lat - 1, i.shape)], -1)
+    faces = quads[keep].astype(np.int32)
+    return {"vertices": v, "faces": faces, "normals": pts.astype(np.float32)}

@@ -238,17 +238,20 @@ def test_inject_gradients_matches_jax(box, calc_grad_j, caustic):
     got = ET.inject_gradients(
         st, box["logs_t"], *(_t(x) for x in out_j),
         {"vertices": torch.zeros_like(st.vertices),
-         "normals": torch.zeros_like(st.normals)})
+         "normals": torch.zeros_like(st.normals),
+         "alpha": torch.zeros_like(st.bsdfs["alpha"])})
     for k in ("vertices", "normals"):
         assert np.abs(np.asarray(ref[k])).max() > 0, k
         _close_to_max(got[k].numpy(), ref[k], 1e-3, k)
-    # the roughness branch, which the port leaves out, has no work on the
-    # port's scenes: no logged bounce is glossy, and JAX's alpha grads are 0
+    # the roughness branch has no work on this box: no logged bounce is
+    # glossy, and both packages' alpha grads are 0 (tests/
+    # test_torch_epsm_glossy.py holds it on a glossy scene)
     glossy = BJ.has_flag(box["logs_j"].bsdf_flags, BJ.BSDFFlags.Glossy)
     assert not bool(jnp.any(glossy))
     assert not BT.has_flag(box["logs_t"].bsdf_flags,
                            BT.BSDFFlags.Glossy).any()
     assert float(jnp.abs(ref["alpha"]).max()) == 0.0
+    assert float(got["alpha"].abs().max()) == 0.0
 
 
 def test_constraint_frame_matches_jax():

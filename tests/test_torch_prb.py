@@ -250,9 +250,10 @@ def test_leaves_are_leaf_tensors():
     st = mt.load_dict(cornell_box(res=8, spp=1), device="cpu")
     leaves = st.leaves()
     assert set(leaves) == {"vertices", "normals", "uvs", "bsdfs.reflectance",
-                           "bsdfs.specular_reflectance", "bsdfs.eta_c",
-                           "bsdfs.k_c", "emitters.radiance",
-                           "sensors.0.to_world"}
+                           "bsdfs.specular_reflectance",
+                           "bsdfs.specular_transmittance", "bsdfs.alpha",
+                           "bsdfs.eta_c", "bsdfs.k_c", "bsdfs.eta",
+                           "emitters.radiance", "sensors.0.to_world"}
     for k, v in leaves.items():
         assert v.is_leaf and not v.requires_grad, k
     new = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
