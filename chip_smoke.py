@@ -318,11 +318,13 @@ def soup_rays(n_tris, n_rays, gen, device):
 
 def anyhit_tests(tri, o, d, maxt, chunk=512, ray_chunk=2 ** 17):
     """Ray-triangle tests the any-hit entry needs on these rays: up to
-    and including each ray's first hit; none for a ray of no extent."""
+    and including each ray's first hit; none for a ray of no extent.
+    Returns their total and the most one ray needs (how far into the
+    table the launch must read)."""
     import torch
     from epsm_mitsuba3_torch.ops import intersect as I
     f = tri.shape[0]
-    total = 0
+    total = most = 0
     for s in range(0, o.shape[0], ray_chunk):
         k = slice(s, s + ray_chunk)
         first = torch.full((o[k].shape[0],), f, dtype=torch.int64,
@@ -331,9 +333,63 @@ def anyhit_tests(tri, o, d, maxt, chunk=512, ray_chunk=2 ** 17):
             idx = torch.arange(base, base + hit.shape[1], device=o.device)
             first = torch.minimum(first,
                                   torch.where(hit, idx, f).amin(dim=1))
-        tests = torch.where(first < f, first + 1, f)
-        total += int(torch.where(maxt[k] > 1e-6, tests, 0).sum())
-    return total
+        tests = torch.where(maxt[k] > 1e-6,
+                            torch.where(first < f, first + 1, f), 0)
+        total += int(tests.sum())
+        most = max(most, int(tests.max()) if tests.numel() else 0)
+    return total, most
+
+
+def ray_bytes(maxt, out_bytes):
+    """Bytes of the rays a launch must read and of what it writes: the
+    origin, direction and maxt (28 B) of a live ray, only the maxt of a
+    dead one (maxt <= 1e-6: its miss needs no test), and ``out_bytes``
+    written a ray."""
+    n = maxt.shape[0]
+    live = int((maxt > 1e-6).sum())
+    return 28 * live + 4 * (n - live) + out_bytes * n
+
+
+def k1_bound(tri, o, d, maxt, any_hit):
+    """K1's bound on these rays: a live ray tests every triangle (closest
+    hit) or those up to its first hit (any hit), a dead ray none; the
+    table is read once, as far as the most tests one ray needs."""
+    f = tri.shape[0]
+    if any_hit:
+        tests, reach = anyhit_tests(tri, o, d, maxt)
+    else:
+        live = int((maxt > 1e-6).sum())
+        tests, reach = live * f, f if live else 0
+    return bound_ms(36 * reach + ray_bytes(maxt, 1 if any_hit else 16),
+                    tests * FLOP_PER_TEST)
+
+
+#: bytes of one BVH4 record (32 floats) and of one triangle row of
+#: ``tri_k`` (48 B), as K2/K3 read them
+NODE_BYTES, ROW_BYTES = 128, 48
+
+
+def bvh_work(maxt, work, any_hit):
+    """(bytes, operations) of K2's (or K3's) function on these rays, from
+    the plain version's ``work`` on them, (pops, tests, records read,
+    rows read): each record and row some ray needs read once, and the
+    rays' bytes (``ray_bytes``); 4 slab tests a pop (+ the ordering of
+    K2's pushes) and a triangle test's operations."""
+    pops, tests, n_nodes, n_rows = work
+    ops = (pops * (4 * OPS_PER_SLAB + (0 if any_hit else OPS_PER_ORDER))
+           + tests * FLOP_PER_TEST)
+    return (n_nodes * NODE_BYTES + n_rows * ROW_BYTES
+            + ray_bytes(maxt, 1 if any_hit else 16)), ops
+
+
+def bvh_plain_work(nodes, tri, o, d, maxt, any_hit):
+    """The plain closest hit's (or any hit's) work on these rays: (pops,
+    tests, records read, rows read)."""
+    from epsm_mitsuba3_torch.ops import traverse as TR
+    plain = (TR.bvh_ray_test_plain if any_hit
+             else TR.bvh_ray_intersect_plain)
+    out = plain(nodes, tri, o, d, maxt, counts=True, reads=True)
+    return tuple(int(x.sum()) for x in out[-4:])
 
 
 def bound_ms(n_bytes, n_flop):
@@ -472,14 +528,11 @@ def time_k1(tri, o, d, maxt, iters, plain=True):
             fn = calls[k][name]
             runs[(k, name)].append(device_ms(lambda: fn(o, d, maxt), iters))
     out = {}
-    ray_in = n * (12 + 12 + 4)
-    for name, plain_fn, out_bytes, flop in (
-            ("mt_closest_hit", I.ray_intersect_brute, 16 * n,
-             n * f * FLOP_PER_TEST),
-            ("mt_any_hit", I.ray_test_brute, n,
-             anyhit_tests(*args) * FLOP_PER_TEST)):
+    for name, plain_fn, any_hit in (
+            ("mt_closest_hit", I.ray_intersect_brute, False),
+            ("mt_any_hit", I.ray_test_brute, True)):
         plain_ms = cuda_ms(lambda: plain_fn(*args), 5) if plain else None
-        b_ms, by = bound_ms(36 * f + ray_in + out_bytes, flop)
+        b_ms, by = k1_bound(*args, any_hit)
         steps = {s: sum(runs[(name, s)]) / 2 for s in calls[name]}
         out[name] = dict(ms=steps.pop("main"), plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=by, steps_ms=steps)
@@ -678,8 +731,8 @@ def compare_bvh(scene, o, d, maxt, n_brute=65536):
         f"any hit {float(pops_a[live].float().mean()):.2f} pops, "
         f"{float(tests_a[live].float().mean()):.2f} tests")
     return dict(err=err, err_brute=err_b, plain_ms=(plain_ms_c, plain_ms_a),
-                work=(int(pops.sum()), int(tests.sum()), int(pops_a.sum()),
-                      int(tests_a.sum())))
+                work=(bvh_plain_work(nodes, tri, o, d, maxt, False),
+                      bvh_plain_work(nodes, tri, o, d, maxt, True)))
 
 
 def _ref_sorting(nodes, tri):
@@ -711,11 +764,9 @@ def time_bvh(scene, o, d, maxt, plain_ms, work, k4):
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
     n = o.shape[0]
-    tree = 4 * (nodes.numel() + tri.numel())
-    pops, tests, pops_a, tests_a = work
-    ops_c = (pops * (4 * OPS_PER_SLAB + OPS_PER_ORDER)
-             + tests * FLOP_PER_TEST)
-    ops_a = pops_a * 4 * OPS_PER_SLAB + tests_a * FLOP_PER_TEST
+    pops, tests = work[0][:2]
+    work_c = bvh_work(maxt, work[0], False)
+    work_a = bvh_work(maxt, work[1], True)
     perm = CT._morton_order(nodes, o, d, maxt)
     pre = (o[perm].contiguous(), d[perm].contiguous(),
            maxt[perm].contiguous())
@@ -726,17 +777,15 @@ def time_bvh(scene, o, d, maxt, plain_ms, work, k4):
 
     entries = {
         "bvh4_closest_hit": (lambda o_, d_, m_, s_: CT.closest_hit(
-            nodes, tri, o_, d_, m_, sort=s_, tri_k=tri_k), 16 * n, ops_c,
+            nodes, tri, o_, d_, m_, sort=s_, tri_k=tri_k), work_c,
             plain_ms[0]),
-        "bvh4_closest_hit_ref": (_ref_sorting(nodes, tri), 16 * n, ops_c,
+        "bvh4_closest_hit_ref": (_ref_sorting(nodes, tri), work_c,
                                  plain_ms[0]),
         "bvh4_any_hit": (lambda o_, d_, m_, s_: CT.any_hit(
-            nodes, tri, o_, d_, m_, sort=s_, tri_k=tri_k), n, ops_a,
+            nodes, tri, o_, d_, m_, sort=s_, tri_k=tri_k), work_a,
             plain_ms[1]),
-        "bvh4_closest_hit_mp P=2": (k4_of(2), 16 * n, ops_c,
-                                    k4[2]["plain_ms"]),
-        "bvh4_closest_hit_mp P=4": (k4_of(4), 16 * n, ops_c,
-                                    k4[4]["plain_ms"]),
+        "bvh4_closest_hit_mp P=2": (k4_of(2), work_c, k4[2]["plain_ms"]),
+        "bvh4_closest_hit_mp P=4": (k4_of(4), work_c, k4[4]["plain_ms"]),
     }
     cases = [(name, kind) for name in entries for kind in ORDERS]
     runs = {c: [] for c in cases}
@@ -747,9 +796,8 @@ def time_bvh(scene, o, d, maxt, plain_ms, work, k4):
                 o, d, maxt, kind == "sorted")
             runs[(name, kind)].append(cuda_ms(lambda: fn(*args), 20))
     out = {}
-    for name, (_, out_bytes, ops, p_ms) in entries.items():
+    for name, (_, (n_bytes, ops), p_ms) in entries.items():
         ms = {kind: sum(runs[(name, kind)]) / 2 for kind in ORDERS}
-        n_bytes = tree + 28 * n + out_bytes
         b_ms, by = bound_ms(n_bytes, ops)
         out[name] = dict(
             ms=ms["sorted" if CT.SORT_RAYS else "unsorted"],
@@ -1954,10 +2002,8 @@ def exp_rays_k1(exp, subset=2 ** 18):
         ms_a = device_ms(lambda: CI.any_hit(tri_a, oa, da, ma), 10)
         live_c = int((maxt > 1e-6).sum())
         live_a = int((ma > 1e-6).sum())
-        b_c, by_c = bound_ms(36 * f + 28 * n + 16 * n,
-                             live_c * f * FLOP_PER_TEST)
-        b_a, by_a = bound_ms(36 * f + 28 * n + n, anyhit_tests(
-            tri_a, oa, da, ma) * FLOP_PER_TEST)
+        b_c, by_c = k1_bound(tri, o, dd, maxt, False)
+        b_a, by_a = k1_bound(tri_a, oa, da, ma, True)
         row = dict(depth=d, rays=n, live_closest=live_c, live_any=live_a,
                    closest_ms=ms_c, any_ms=ms_a, closest_bound_ms=b_c,
                    closest_bound_by=by_c, any_bound_ms=b_a,
@@ -1980,8 +2026,8 @@ def exp_rays_k23(exp, subset=2 ** 18):
     rays one EXP_RES^2 forward pass hands to ``closest_hit`` /
     ``any_hit``: each depth's launches held bit for bit against the plain
     versions on the first ``subset`` rays, timed on the device alone
-    beside the bound from the plain versions' work counts on all of the
-    rays (their pops and triangle tests)."""
+    beside the bound from the plain versions' work on all of the rays
+    (their pops and triangle tests, and the records and rows read)."""
     import torch
     import epsm_mitsuba3_torch as mt
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
@@ -1998,7 +2044,6 @@ def exp_rays_k23(exp, subset=2 ** 18):
           f"a shadow pass made {len(rec['closest_hit'])} closest-hit and "
           f"{len(rec['any_hit'])} any-hit calls, expected {depth} each")
     nodes, tri, tri_k = scene.bvh_nodes, scene.bvh_tris, scene.bvh_tris_k
-    tree = 4 * (nodes.numel() + tri.numel())
     out = []
     for d, (c, a) in enumerate(zip(rec["closest_hit"], rec["any_hit"])):
         (o, dd, maxt), kw_c = c[0][2:5], c[1]
@@ -2018,39 +2063,43 @@ def exp_rays_k23(exp, subset=2 ** 18):
                                                   occ_p))}
         check(sum(diff.values()) == 0, f"shadow depth {d}: K2/K3 differ "
               f"from the plain versions on {diff}")
-        _, _, _, _, pops, tests = TR.bvh_ray_intersect_plain(
-            nodes, tri, o, dd, maxt, counts=True)
-        _, pops_a, tests_a = TR.bvh_ray_test_plain(nodes, tri, oa, da, ma,
-                                                   counts=True)
-        pops, tests = int(pops.sum()), int(tests.sum())
-        pops_a, tests_a = int(pops_a.sum()), int(tests_a.sum())
+        work_c = bvh_plain_work(nodes, tri, o, dd, maxt, False)
+        work_a = bvh_plain_work(nodes, tri, oa, da, ma, True)
+        pops, tests, _, rows_c = work_c
+        pops_a, tests_a, _, rows_a = work_a
         ms_c = device_ms(lambda: CT.closest_hit(nodes, tri, o, dd, maxt,
                                                 **kw_c), 10)
         ms_a = device_ms(lambda: CT.any_hit(nodes, tri, oa, da, ma, **kw_a),
                          10)
-        b_c, by_c = bound_ms(tree + 28 * n + 16 * n, pops * (
-            4 * OPS_PER_SLAB + OPS_PER_ORDER) + tests * FLOP_PER_TEST)
-        b_a, by_a = bound_ms(tree + 28 * n + n, pops_a * 4 * OPS_PER_SLAB
-                             + tests_a * FLOP_PER_TEST)
+        bytes_c, ops_c = bvh_work(maxt, work_c, False)
+        bytes_a, ops_a = bvh_work(ma, work_a, True)
+        b_c, by_c = bound_ms(bytes_c, ops_c)
+        b_a, by_a = bound_ms(bytes_a, ops_a)
         live_c = int((maxt > 1e-6).sum())
         live_a = int((ma > 1e-6).sum())
         row = dict(depth=d, rays=n, live_closest=live_c, live_any=live_a,
                    closest_ms=ms_c, any_ms=ms_a, closest_bound_ms=b_c,
                    closest_bound_by=by_c, any_bound_ms=b_a,
                    any_bound_by=by_a, pops=pops, tests=tests,
-                   pops_any=pops_a, tests_any=tests_a,
+                   pops_any=pops_a, tests_any=tests_a, rows_read=rows_c,
+                   rows_read_any=rows_a,
                    plain_rays=min(n, subset), closest_plain_ms=plain_c_ms,
-                   any_plain_ms=plain_a_ms, tree_mb=tree / 1e6,
-                   rows_mb=tri_k.numel() * 4 / 1e6)
+                   any_plain_ms=plain_a_ms, closest_mb=bytes_c / 1e6,
+                   any_mb=bytes_a / 1e6, rows_mb=tri_k.numel() * 4 / 1e6)
         out.append(row)
         say(f"[shadow rays K2/K3] depth {d}: {tri.shape[0]} tris "
             f"({row['rows_mb']:.1f} MB of 48-byte rows), {n} rays ({live_c} "
             f"live, {int((got[1] >= 0).sum())} hits; "
             f"{pops / max(live_c, 1):.2f} pops, "
-            f"{tests / max(live_c, 1):.2f} tests a live ray): K2 "
-            f"{ms_c:.4f} ms (bound {b_c:.4f} by {by_c}, {b_c / ms_c:.1%}); "
-            f"{live_a} live shadow rays ({int(got[4].sum())} occluded): K3 "
-            f"{ms_a:.4f} ms (bound {b_a:.4f} by {by_a}, {b_a / ms_a:.1%}); "
+            f"{tests / max(live_c, 1):.2f} tests a live ray, {rows_c} "
+            f"distinct rows): K2 "
+            f"{ms_c:.4f} ms (bound {b_c:.4f} by {by_c}: {ops_c / 1e6:.1f} M "
+            f"operations, {bytes_c / 1e6:.1f} MB; {b_c / ms_c:.1%}); "
+            f"{live_a} live shadow rays ({int(got[4].sum())} occluded; "
+            f"{pops_a} pops, {tests_a} tests, {rows_a} distinct rows): K3 "
+            f"{ms_a:.4f} ms (bound "
+            f"{b_a:.4f} by {by_a}: {ops_a / 1e6:.1f} M operations, "
+            f"{bytes_a / 1e6:.1f} MB; {b_a / ms_a:.1%}); "
             f"plain versions on {min(n, subset)} of them {plain_c_ms:.1f} / "
             f"{plain_a_ms:.1f} ms; bit for bit equal there (0 lanes differ "
             "in t, slot, u, v, occ)")

@@ -54,12 +54,9 @@ def make(resolution=512, spp=64, it=600, thres=500, max_depth=8,
     dev = scene.device
 
     def apply(scene, theta):
-        sc = scene
-        for i, nm in enumerate(names):
-            t = theta[f"t{i}"]
-            sc = C.translate_shape(
-                sc, nm, torch.stack([t[0], torch.zeros_like(t[0]), t[1]]))
-        return sc
+        t = torch.stack([theta[f"t{i}"] for i in range(len(names))])
+        return C.translate_shapes(scene, names, torch.stack(
+            [t[:, 0], torch.zeros_like(t[:, 0]), t[:, 1]], dim=1))
 
     rng = np.random.default_rng(11)
     return {

@@ -48,12 +48,9 @@ def make(resolution=512, spp=256, it=200, thres=10 ** 9, max_depth=8,
     names = ["bed", "table"]
 
     def apply(scene, theta):
-        sc = scene
-        for i, nm in enumerate(names):
-            t = theta[f"t{i}"]
-            sc = C.translate_shape(
-                sc, nm, torch.stack([t[0], torch.zeros_like(t[0]), t[1]]))
-        return sc
+        t = torch.stack([theta[f"t{i}"] for i in range(len(names))])
+        return C.translate_shapes(scene, names, torch.stack(
+            [t[:, 0], torch.zeros_like(t[:, 0]), t[:, 1]], dim=1))
 
     return {
         "scene": scene,

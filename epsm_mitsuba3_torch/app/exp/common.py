@@ -53,16 +53,6 @@ def shape_range(scene, name):
     return scene.static.vertex_ranges[i]
 
 
-def translate_shape(scene, name, offset):
-    """The scene with the shape ``name`` translated by ``offset``
-    (differentiable in it)."""
-    s, c = shape_range(scene, name)
-    v = scene.vertices.clone()
-    v[s:s + c] = v[s:s + c] + torch.as_tensor(
-        offset, dtype=v.dtype, device=v.device).reshape(1, 3)
-    return scene.set_vertices(v)
-
-
 def translate_shapes(scene, names, offsets):
     """The scene with each shape ``names[i]`` translated by ``offsets[i]``
     (n, 3): one add of the per-shape offsets repeated over each shape's
@@ -76,6 +66,13 @@ def translate_shapes(scene, names, offsets):
     counts = torch.tensor([c for _, c in scene.static.vertex_ranges],
                           device=v.device)
     return scene.set_vertices(v + per_shape.repeat_interleave(counts, dim=0))
+
+
+def translate_shape(scene, name, offset):
+    """The scene with the shape ``name`` translated by ``offset``
+    (differentiable in it)."""
+    return translate_shapes(scene, [name], torch.as_tensor(
+        offset, device=scene.vertices.device).reshape(1, 3))
 
 
 def transform_shape(scene, name, mat4, base_vertices):

@@ -45,13 +45,10 @@ def make(resolution=512, spp=64, it=500, thres=375, max_depth=2,
     dev = scene.device
 
     def apply(scene, theta):
-        sc = scene
-        for i in range(NUM):
-            t = theta[f"t{i}"]
-            sc = C.translate_shape(
-                sc, f"light{i}",
-                torch.stack([t[0], t[1], torch.zeros_like(t[0])]))
-        return sc
+        t = torch.stack([theta[f"t{i}"] for i in range(NUM)])
+        return C.translate_shapes(
+            scene, [f"light{i}" for i in range(NUM)],
+            torch.stack([t[:, 0], t[:, 1], torch.zeros_like(t[:, 0])], dim=1))
 
     return {
         "scene": scene,

@@ -83,11 +83,31 @@ def _push_check(sp, npush):
             "entries")
 
 
-def _visit(nodes, tri, node, lanes, o, d, inv, t_best, slot, u, v, tests):
+def _mark(read, start, count):
+    """Set ``read`` over the rows [start, start + count) of each lane."""
+    if read is None or start.numel() == 0:
+        return
+    j = torch.arange(int(count.max()), device=start.device)
+    rows = start[:, None] + j[None, :]
+    read[rows[j[None, :] < count[:, None]]] = True
+
+
+def _read_masks(nodes, tri, reads):
+    """The records and triangles read so far, all False; (None, None)
+    when they are not asked for."""
+    if not reads:
+        return None, None
+    return (torch.zeros(nodes.shape[0], dtype=torch.bool, device=nodes.device),
+            torch.zeros(tri.shape[0], dtype=torch.bool, device=tri.device))
+
+
+def _visit(nodes, tri, node, lanes, o, d, inv, t_best, slot, u, v, tests,
+           row_read=None):
     """K2's work at one popped node for each of ``lanes``: the leaf
-    children tested in child order (updating t_best, slot, u, v and
-    tests in place), then the inner children still entered.  Returns
-    (push (m, 4), rank (m, 4) far-first, near (m, 4), cid (m, 4))."""
+    children tested in child order (updating t_best, slot, u, v, tests
+    and ``row_read`` in place), then the inner children still entered.
+    Returns (push (m, 4), rank (m, 4) far-first, near (m, 4), cid
+    (m, 4))."""
     rec = nodes[node]
     oa, da = o[lanes], d[lanes]
     near, far = _slab4(rec, oa, inv[lanes])
@@ -103,6 +123,7 @@ def _visit(nodes, tri, node, lanes, o, d, inv, t_best, slot, u, v, tests):
         t, uu, vv, hit = _leaf_tests(tri, oa[sel], da[sel], start, c,
                                      tb[sel])
         tests[lanes[sel]] += c
+        _mark(row_read, start, c)
         tmin, jmin = torch.where(hit, t, _INF).min(dim=1)
         found = hit.any(dim=1)
         hits = lanes[sel][found]
@@ -124,7 +145,7 @@ def _visit(nodes, tri, node, lanes, o, d, inv, t_best, slot, u, v, tests):
 
 
 def bvh_ray_intersect_plain(nodes, tri, o, d, maxt, counts: bool = False,
-                            multi_pop: int = 0):
+                            multi_pop: int = 0, reads: bool = False):
     """Closest hit through the BVH4: K2's plain version, and with
     ``multi_pop`` P > 1 K4's.
 
@@ -137,7 +158,9 @@ def bvh_ray_intersect_plain(nodes, tri, o, d, maxt, counts: bool = False,
 
     Returns (t (N,) +inf on a miss, slot (N,) int32 index into ``tri``,
     -1 on a miss, u, v (N,) 0 on a miss); with ``counts``, also the
-    per-ray node pops and triangle tests, (N,) int64 each."""
+    per-ray node pops and triangle tests, (N,) int64 each; with
+    ``reads``, then the records popped and the triangles tested by some
+    ray, (n_nodes,) and (F,) bool: what the walk must read."""
     n, dev = o.shape[0], o.device
     batch = max(1, int(multi_pop))
     inv = _inv_dir(d)
@@ -150,6 +173,7 @@ def bvh_ray_intersect_plain(nodes, tri, o, d, maxt, counts: bool = False,
     sp = torch.ones(n, dtype=torch.int64, device=dev)
     pops = torch.zeros(n, dtype=torch.int64, device=dev)
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    node_read, row_read = _read_masks(nodes, tri, reads)
     while True:
         a = (sp > 0).nonzero().squeeze(1)
         if a.numel() == 0:
@@ -167,8 +191,11 @@ def bvh_ray_intersect_plain(nodes, tri, o, d, maxt, counts: bool = False,
             if lanes.numel() == 0:
                 continue
             pops[lanes] += 1
+            if reads:
+                node_read[node[live]] = True
             push, rank, near, cid = _visit(nodes, tri, node[live], lanes, o,
-                                           d, inv, t_best, slot, u, v, tests)
+                                           d, inv, t_best, slot, u, v, tests,
+                                           row_read)
             npush = push.sum(dim=1)
             base = sp0[live] + pos[live]
             _push_check(base, npush)
@@ -180,13 +207,16 @@ def bvh_ray_intersect_plain(nodes, tri, o, d, maxt, counts: bool = False,
         sp[a] = sp0 + pos
     valid = slot >= 0
     out = (torch.where(valid, t_best, _INF), slot.to(torch.int32), u, v)
-    return out + (pops, tests) if counts else out
+    return (out + ((pops, tests) if counts else ())
+            + ((node_read, row_read) if reads else ()))
 
 
-def bvh_ray_test_plain(nodes, tri, o, d, maxt, counts: bool = False):
+def bvh_ray_test_plain(nodes, tri, o, d, maxt, counts: bool = False,
+                       reads: bool = False):
     """Occlusion through the BVH4 (K3's plain version): (N,) bool, True
     where some triangle passes the closest hit's test; with ``counts``,
-    also the per-ray node pops and triangle tests."""
+    also the per-ray node pops and triangle tests; with ``reads``, the
+    records and triangles read, as ``bvh_ray_intersect_plain``'s."""
     n, dev = o.shape[0], o.device
     inv = _inv_dir(d)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -194,6 +224,7 @@ def bvh_ray_test_plain(nodes, tri, o, d, maxt, counts: bool = False):
     sp = (maxt > 1e-6).long()
     pops = torch.zeros(n, dtype=torch.int64, device=dev)
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    node_read, row_read = _read_masks(nodes, tri, reads)
     while True:
         a = ((sp > 0) & ~occ).nonzero().squeeze(1)
         if a.numel() == 0:
@@ -201,6 +232,8 @@ def bvh_ray_test_plain(nodes, tri, o, d, maxt, counts: bool = False):
         sp[a] -= 1
         node = stack[a, sp[a]]
         pops[a] += 1
+        if reads:
+            node_read[node] = True
         rec = nodes[node]
         oa, da, ma = o[a], d[a], maxt[a]
         near, far = _slab4(rec, oa, inv[a])
@@ -217,7 +250,9 @@ def bvh_ray_test_plain(nodes, tri, o, d, maxt, counts: bool = False):
                                        ma[sel])
             found = hit.any(dim=1)
             first = hit.int().argmax(dim=1)          # first hit's slot
-            tests[a[sel]] += torch.where(found, first + 1, c)
+            tested = torch.where(found, first + 1, c)
+            tests[a[sel]] += tested
+            _mark(row_read, start, tested)
             done[sel] = found
         occ[a] = done
         push = enter & (cnt == 0) & ~done[:, None]
@@ -229,4 +264,6 @@ def bvh_ray_test_plain(nodes, tri, o, d, maxt, counts: bool = False):
         rows = a[:, None].expand(-1, 4)[push]
         stack[rows, pos[push]] = cid[push]
         sp[a] += npush
-    return (occ, pops, tests) if counts else occ
+    extra = (((pops, tests) if counts else ())
+             + ((node_read, row_read) if reads else ()))
+    return (occ, *extra) if extra else occ

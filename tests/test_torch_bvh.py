@@ -328,6 +328,36 @@ def test_counts_are_the_work_done(mesh_scene):
     assert tests[~dead].float().mean() > 4
 
 
+@pytest.mark.parametrize("entry", ["closest", "any"])
+def test_reads_are_what_the_rays_walk(mesh_scene, entry):
+    """The plain versions' ``reads``: one ray reads each record it pops
+    and each row it tests once, so its masks count its pops and tests;
+    a batch's masks are the union of its rays' own, and a dead ray reads
+    nothing."""
+    sc, _ = mesh_scene
+    o, d, maxt = _random_rays(24, 13)
+    fn = (TT.bvh_ray_test_plain if entry == "any"
+          else TT.bvh_ray_intersect_plain)
+    *_, pops, tests, nodes_read, rows_read = fn(
+        sc.bvh_nodes, sc.bvh_tris, o, d, maxt, counts=True, reads=True)
+    union_nodes = torch.zeros_like(nodes_read)
+    union_rows = torch.zeros_like(rows_read)
+    for i in range(o.shape[0]):
+        k = slice(i, i + 1)
+        *_, p, t, nr, rr = fn(sc.bvh_nodes, sc.bvh_tris, o[k], d[k],
+                              maxt[k], counts=True, reads=True)
+        assert int(nr.sum()) == int(p[0]) == int(pops[i])
+        assert int(rr.sum()) == int(t[0]) == int(tests[i])
+        union_nodes |= nr
+        union_rows |= rr
+    assert torch.equal(nodes_read, union_nodes)
+    assert torch.equal(rows_read, union_rows)
+    assert rows_read.any() and not rows_read.all()
+    *_, nr, rr = fn(sc.bvh_nodes, sc.bvh_tris, o, d, torch.zeros_like(maxt),
+                    reads=True)
+    assert not nr.any() and not rr.any()
+
+
 # -- the slice as a whole -----------------------------------------------------------
 
 @pytest.fixture(scope="module")
