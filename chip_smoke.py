@@ -8,7 +8,8 @@ Phases (any failed check raises, and the script exits non-zero):
 
 1. build kernels K1 (``csrc/mt_intersect.cu``) and K2/K4/K3
    (``csrc/bvh_traverse.cu``) with nvcc for sm_90a and the BVH builder
-   (``native/bvh.cpp``) with g++, all at once, and print the card's name
+   (``native/bvh.cpp``) and the OBJ parser (``native/meshio.cpp``) with
+   g++, all at once, and print the card's name
    and power limit and each kernel's registers, stack and spills (K4's
    by instantiation);
 2. K1's closest-hit and any-hit entries against the plain versions on the
@@ -91,7 +92,24 @@ Phases (any failed check raises, and the script exits non-zero):
     on one egg pass's rays and K2/K3 on one shadow pass's rays, each held
     bit for bit against its plain version and timed beside its bound; the
     card against the CPU on glossyball's theta gradients and egg's
-    glass-vertex gradients at 64^2 x 4 spp.
+    glass-vertex gradients at 64^2 x 4 spp;
+15. [scene files]: ``cornell_box_mesh(512, 16, 6)`` written to a
+    temporary directory (the sphere a binary PLY with vertex normals, the
+    floor an OBJ, the back wall a .serialized file, the XML through
+    ``dict_to_xml`` with a ``$spp`` parameter) and loaded with
+    ``load_file``: arrays, BVH and K2/K3 records bit for bit
+    ``load_dict``'s, the 512^2 x 16 spp renders (passes of 8) bit for
+    bit, with exact K2/K3 counts; parse, mesh-load, BVH-build and render
+    times; ``cli.main`` to an EXR equal to ``render``'s image;
+    ``traverse().update()`` moving the sphere against ``set_vertices``,
+    then K2 on the re-packed tree against K1's brute force;
+16. [glassslab]: ``run("manifold_caustic", glassslab.make(...))`` at the
+    published widths (512^2, spp 64, depth 4, match_res 256, grid 16),
+    ground truth 64 spp, 2 iterations (of 1,000): ms an iteration and by
+    phase, K1 launches (each count exact), the normal field and its
+    gradient finite and non-zero, peak memory, the busy share of one
+    profiled iteration; the normal-field gradient on the card against the
+    CPU at 64^2 x 4 spp.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -158,6 +176,16 @@ EXP_CELLS = (("egg", 32, 32), ("glossyball", 32, 32), ("highlight", 32, 32),
 #: bunny, bathroom and bedroom (procedural stand-ins): one iteration each
 #: at 512^2 and this spp (ground truth too)
 EXP_ONE, EXP_ONE_SPP = ("bunny", "bathroom", "bedroom"), 4
+#: [scene files]: cornell_box_mesh(512, 16, 6) written out (the sphere as a
+#: binary PLY, the floor as an OBJ, the back wall as a .serialized file,
+#: the scene as XML) and loaded back; rendered at the mesh cell's size,
+#: 16 spp in passes of 8
+SF_SPP, SF_CHUNK = 16, 8
+#: [glassslab]: app/exp/glassslab.make at its published widths (512^2,
+#: spp 64, depth 4, match_res 256, a 16 x 16 grid), ground truth 64 spp
+#: (published 512), GS_ITERS iterations of run("manifold_caustic") of the
+#: published 1,000
+GS_SPP, GS_MATCH, GS_ITERS = 64, 256, 2
 
 
 class CheckFailed(AssertionError):
@@ -1082,12 +1110,27 @@ def render_phase(label, scene, spp, chunk, expect):
     return median, counts
 
 
-def profile_pass(label, fn, names, cpu=True):
+def _device_events(prof):
+    """(name, device ms, count) by kernel name, read from the profiler's
+    raw events: seconds for ~10^6 launches, where ``key_averages``
+    takes minutes."""
+    import torch
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(k, ms, n) for k, (ms, n) in by_name.items()]
+
+
+def profile_pass(label, fn, names, cpu=True, table=True):
     """Device time by kernel over one call of ``fn`` (torch.profiler),
     with the share of the kernels whose names contain one of ``names``;
     the full table goes to standard error.  ``cpu=False`` traces the
     device alone: no host operator events, whose collection takes tens
-    of seconds on a call of ~10^5 launches."""
+    of seconds on a call of ~10^5 launches.  ``table=False`` sums the
+    raw device events instead of ``key_averages`` (the same kernels, no
+    table), for a call of ~10^6 launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
@@ -1098,6 +1141,23 @@ def profile_pass(label, fn, names, cpu=True):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    if not table:
+        kernels = _device_events(prof)
+        if not kernels:
+            say(f"[profile] {label}: wall {wall:.1f} ms; the profiler saw "
+                "no device time (not measured)")
+            return None
+        busy = sum(ms for _, ms, _ in kernels)
+        ours = sum(ms for k, ms, _ in kernels
+                   if any(nm in k for nm in names))
+        n_launch = sum(n for _, _, n in kernels)
+        top = sorted(kernels, key=lambda e: -e[1])[:8]
+        say("[profile] %s: wall %.1f ms, device busy %.1f ms (%.1f %%), %s "
+            "%.2f ms (%.1f %% of busy), %d kernel launches; top: %s" % (
+                label, wall, busy, 100 * busy / wall, "/".join(names), ours,
+                100 * ours / busy, n_launch,
+                "; ".join(f"{k[:40]} {ms:.2f} ms x{n}" for k, ms, n in top)))
+        return dict(wall=wall, busy=busy, launches=n_launch)
     avgs = prof.key_averages()
     key = ("device_time_total" if hasattr(avgs[0], "device_time_total")
            else "cuda_time_total")
@@ -1771,9 +1831,9 @@ def _labelled_render(timer, render):
 
 
 def experiment_run(name, spp, gt_spp, iters, do_profile=True,
-                   each_leaf=True):
-    """``run(method, <name>.make(...))`` at EXP_RES^2 and match_res
-    EXP_MATCH, each config's own depth and method (its scene's
+                   each_leaf=True, match_res=EXP_MATCH, profile_table=True):
+    """``run(method, <name>.make(...))`` at EXP_RES^2 and ``match_res``
+    (EXP_MATCH unless given), each config's own depth and method (its scene's
     integrator), ``iters`` iterations.  ms an iteration (the ground truth
     apart), ms by phase (CUDA events), launches an iteration (each count
     exact: a manifold pass launches 4 D + 1 closest and 3 D any hits, a
@@ -1802,7 +1862,7 @@ def experiment_run(name, spp, gt_spp, iters, do_profile=True,
     try:
         t0 = time.perf_counter()
         exp = mod.make(resolution=EXP_RES, spp=spp, it=iters,
-                       match_res=EXP_MATCH)
+                       match_res=match_res)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
     finally:
@@ -1818,7 +1878,7 @@ def experiment_run(name, spp, gt_spp, iters, do_profile=True,
            f"{sum(build_s):.2f} s" if bvh else "brute force, K1")
         + f"), loaded in {load_s:.2f} s; {method}, depth {depth}, "
         f"{EXP_RES}^2 x {spp} spp, ground truth {gt_spp} spp, match_res "
-        f"{EXP_MATCH}, {iters} iterations")
+        f"{match_res}, {iters} iterations")
 
     timer = epsm_backward_timer()
     timer.wrap(optim.Matcher, "match_Sinkhorn", "Sinkhorn match")
@@ -1862,7 +1922,8 @@ def experiment_run(name, spp, gt_spp, iters, do_profile=True,
                 f"epsm {name}, one {method} iteration (and a 1-spp ground "
                 "truth)", lambda: optim.run(method, exp, iters=1),
                 ("bvh4_closest", "bvh4_any") if bvh
-                else ("mt_closest", "mt_any"), cpu=False)
+                else ("mt_closest", "mt_any"), cpu=False,
+                table=profile_table)
             timer.read()
     finally:
         optim.render, optim.Adam.step = orig_render, orig_step
@@ -2106,21 +2167,23 @@ def exp_rays_k23(exp, subset=2 ** 18):
     return out
 
 
-def exp_card_vs_cpu():
+def exp_card_vs_cpu(cases=(("glossyball", 2), ("egg", 4)),
+                    label="epsm experiments, card vs cpu"):
     """[epsm experiments, card vs cpu]: at 64^2 x 4 spp, match_res 32,
     each gradient of sum(img * g5) for one fixed OT gradient g5 (seeded),
-    on the card and on the CPU: glossyball's translation and roughness
-    (manifold_caustic, depth 2) and egg's glass-vertex gradients
-    (manifold_caustic, depth 4 of the published 6, for the CPU's time):
+    on the card and on the CPU, for ``cases`` (config, depth): by default
+    glossyball's translation and roughness (manifold_caustic, depth 2)
+    and egg's glass-vertex gradients (manifold_caustic, depth 4 of the
+    published 6, for the CPU's time); a config's theta otherwise:
     relative L2 <= 1e-3 each."""
+    import importlib
     import torch
     import epsm_mitsuba3_torch as mt
-    from epsm_mitsuba3_torch.app.exp import egg, glossyball
     g5 = (torch.randn((64, 64, 5), generator=torch.Generator().manual_seed(
         13)) * 0.05)
     out = {}
-    for name, mod, depth in (("glossyball", glossyball, 2),
-                             ("egg", egg, 4)):
+    for name, depth in cases:
+        mod = importlib.import_module(f"epsm_mitsuba3_torch.app.exp.{name}")
         grads, secs = {}, {}
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
@@ -2152,7 +2215,7 @@ def exp_card_vs_cpu():
             a, b = grads["cuda"][k], grads["cpu"][k]
             err = rel_l2(a, b)
             out[f"{name} {k}"] = err
-            say(f"[epsm experiments, card vs cpu] {name} dL/d{k} at 64^2 x "
+            say(f"[{label}] {name} dL/d{k} at 64^2 x "
                 f"4 spp, depth {depth}: |g| {float(b.norm()):.6g}, first "
                 f"entries card {[round(float(x), 7) for x in a.ravel()[:3]]}"
                 f" cpu {[round(float(x), 7) for x in b.ravel()[:3]]}; |g_gpu"
@@ -2211,6 +2274,334 @@ def epsm_experiments_phase():
                 secs=secs)
 
 
+# ---------------------------------------------------------------------------
+# [scene files]: the box with the mesh written to files, loaded with
+# load_file, against load_dict of the same meshes; the CLI; traverse
+# ---------------------------------------------------------------------------
+
+def _write_rectangle_obj(path):
+    """``shapes.rectangle()`` as an OBJ with its normals and texture
+    coordinates (v written flipped: the loader flips it back)."""
+    from epsm_mitsuba3_torch.models import shapes
+    r = shapes.rectangle()
+    with open(path, "w") as f:
+        f.writelines(f"v {x} {y} {z}\n" for x, y, z in r["vertices"])
+        f.writelines(f"vt {u} {1 - v}\n" for u, v in r["uvs"])
+        f.writelines(f"vn {x} {y} {z}\n" for x, y, z in r["normals"])
+        f.writelines(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}\n"
+                     for a, b, c in r["faces"] + 1)
+
+
+def _write_rectangle_serialized(path):
+    """``shapes.rectangle()`` in Mitsuba's serialized format (version 4,
+    float32 positions, normals and texture coordinates)."""
+    import struct
+    import zlib
+    from epsm_mitsuba3_torch.models import shapes
+    r = shapes.rectangle()
+    body = (struct.pack("<I", 0x0001 | 0x0002) + b"back\x00"
+            + struct.pack("<QQ", len(r["vertices"]), len(r["faces"]))
+            + r["vertices"].astype("<f4").tobytes()
+            + r["normals"].astype("<f4").tobytes()
+            + r["uvs"].astype("<f4").tobytes()
+            + r["faces"].astype("<u4").tobytes())
+    with open(path, "wb") as f:
+        f.write(struct.pack("<HH", 0x041C, 4) + zlib.compress(body)
+                + struct.pack("<Q", 0) + struct.pack("<I", 1))
+
+
+def _write_ply(path, V, F, N):
+    """A binary little-endian PLY of float32 positions and normals and
+    int triangles."""
+    import numpy as np
+    head = ["ply", "format binary_little_endian 1.0",
+            f"element vertex {len(V)}"]
+    head += [f"property float {c}" for c in ("x", "y", "z", "nx", "ny",
+                                              "nz")]
+    head += [f"element face {len(F)}",
+             "property list uchar int vertex_indices", "end_header"]
+    tris = np.zeros(len(F), np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+    tris["n"], tris["i"] = 3, F
+    with open(path, "wb") as f:
+        f.write(("\n".join(head) + "\n").encode())
+        f.write(np.concatenate([V, N], -1).astype("<f4").tobytes())
+        f.write(tris.tobytes())
+
+
+def write_scene_files(ref, tmp):
+    """The scene dict ``ref`` (cornell_box_mesh with sphere normals) as
+    files in ``tmp``: the sphere a PLY, the floor an OBJ, the back wall a
+    .serialized file, every shape under its key as its id, and the XML,
+    its sample count the parameter ``$spp``.  Returns the XML's path."""
+    import os
+    from epsm_mitsuba3_torch.utils.xmlwrite import dict_to_xml
+    blob = ref["blob"]
+    _write_ply(os.path.join(tmp, "blob.ply"), blob["vertices"],
+               blob["faces"], blob["normals"])
+    _write_rectangle_obj(os.path.join(tmp, "floor.obj"))
+    _write_rectangle_serialized(os.path.join(tmp, "back.serialized"))
+    files = {"blob": {"type": "ply", "filename": "blob.ply"},
+             "floor": {"type": "obj", "filename": "floor.obj"},
+             "back": {"type": "serialized", "filename": "back.serialized"}}
+    d = {}
+    for key, val in ref.items():
+        if isinstance(val, dict) and key not in ("sensor", "integrator"):
+            val = {**val, "id": key}
+            if key in files:
+                val = {**files[key], **{k: v for k, v in val.items()
+                                        if k not in ("type", "vertices",
+                                                     "faces", "normals")}}
+        d[key] = val
+    text = dict_to_xml(d)
+    spp = ref["sensor"]["sampler"]["sample_count"]
+    text = text.replace(
+        f'<integer name="sample_count" value="{spp}"/>',
+        '<integer name="sample_count" value="$spp"/>').replace(
+        '<scene version="3.0.0">',
+        f'<scene version="3.0.0">\n    <default name="spp" value="{spp}"/>')
+    path = os.path.join(tmp, "scene.xml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _timed_calls(module, attr, secs):
+    """Wrap ``module.attr`` to add each call's seconds to ``secs``;
+    returns the restore function."""
+    fn = getattr(module, attr)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, attr, timed)
+    return lambda: setattr(module, attr, fn)
+
+
+def _assert_scenes_equal(label, a, b):
+    """Every array of two scenes, their BVHs and K2/K3 records, equal."""
+    import torch
+    from epsm_mitsuba3_torch.models.scene import GEOMETRY_FIELDS
+    from epsm_mitsuba3_torch.ops.bvh import ARRAY_FIELDS
+    pairs = [(k, getattr(a, k), getattr(b, k))
+             for k in GEOMETRY_FIELDS + ("vertex_colors", "bvh_nodes",
+                                         "bvh_tris", "bvh_tris_k")]
+    pairs += [(f"bsdfs.{k}", v, b.bsdfs[k]) for k, v in a.bsdfs.items()]
+    pairs += [(f"emitters.{k}", v, b.emitters[k])
+              for k, v in a.emitters.items()]
+    pairs += [(f"bvh.{k}", getattr(a.bvh, k), getattr(b.bvh, k))
+              for k in ARRAY_FIELDS]
+    pairs += [(f"sensors.{i}.to_world", x.to_world, y.to_world)
+              for i, (x, y) in enumerate(zip(a.sensors, b.sensors))]
+    differ = [k for k, x, y in pairs if not torch.equal(x, y)]
+    same_static = (a.static == b.static and a.bvh.n_levels == b.bvh.n_levels
+                   and set(a.bsdfs) == set(b.bsdfs)
+                   and len(a.sensors) == len(b.sensors))
+    say(f"[scene files] {label}: {len(pairs)} arrays (geometry, tables, "
+        f"sensors, BVH, K2/K3 records) compared, {len(differ)} differ"
+        f"{': ' + ', '.join(differ) if differ else ''}; static fields "
+        f"equal: {same_static}")
+    check(not differ and same_static, f"{label}: the scenes differ")
+
+
+def scene_files_phase(gen):
+    """[scene files]: ``cornell_box_mesh(512, 16, 6)`` with its sphere's
+    vertex normals (``mesh_io.compute_vertex_normals``) written to a
+    temporary directory (``write_scene_files``) and loaded on the card
+    with ``load_file``: its arrays, BVH and K2/K3 records equal
+    ``load_dict``'s of the same meshes; both rendered at 512^2 x 16 spp
+    in passes of 8 (the same seed): the images equal, K2/K3 launched 12
+    times each and K1 never; the parse, mesh-load, BVH-build and render
+    times; ``cli.main`` writes an EXR equal to ``render``'s image; and
+    ``traverse``: the sphere moved through ``update()`` renders as the
+    ``set_vertices`` path does (the sphere's smooth normals refreshed
+    there by ``refresh_smooth_normals``, as ``update()`` does), and K2 on
+    the re-packed tree equals K1's brute force over the moved vertices.
+    Returns the times and the launch totals."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch import cli
+    from epsm_mitsuba3_torch.core import xmlparse
+    from epsm_mitsuba3_torch.models import mesh_io
+    from epsm_mitsuba3_torch.ops import bvh as bvh_mod
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import intersect as I
+    from epsm_mitsuba3_torch.ops import normals as NT
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    ref = cornell_box_mesh(res=RES, spp=SF_SPP, max_depth=DEPTH)
+    blob = ref["blob"]
+    blob["normals"] = mesh_io.compute_vertex_normals(blob["vertices"],
+                                                     blob["faces"])
+    n_pass = SF_SPP // SF_CHUNK
+    expect = {"mt_closest_hit": 0, "mt_any_hit": 0,
+              "bvh4_closest_hit": DEPTH * n_pass,
+              "bvh4_any_hit": DEPTH * n_pass, "bvh4_closest_hit_mp": 0}
+    out = {"total": {}}
+
+    def count(label, counts, want):
+        for k, n in counts.items():
+            out["total"][k] = out["total"].get(k, 0) + n
+        for k, n in want.items():
+            check(counts[k] == n, f"{label}: {k} launched {counts[k]} "
+                  f"times, expected {n}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_scene_files(ref, tmp)
+        write_s = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(os.path.join(tmp, f))
+                 for f in sorted(os.listdir(tmp))}
+        t0 = time.perf_counter()
+        xmlparse.parse_string(open(path).read(), base_dir=tmp)
+        parse_s = time.perf_counter() - t0
+        mesh_s, bvh_s = [], []
+        restore = [_timed_calls(mesh_io, "load_mesh_file", mesh_s),
+                   _timed_calls(bvh_mod, "build", bvh_s)]
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc_file = mt.load_file(path)
+            torch.cuda.synchronize()
+            file_s = time.perf_counter() - t0
+            n_bvh = len(bvh_s)
+            t0 = time.perf_counter()
+            sc_dict = mt.load_dict(ref)
+            torch.cuda.synchronize()
+            dict_s = time.perf_counter() - t0
+        finally:
+            for r in restore:
+                r()
+        say(f"[scene files] wrote {sizes} in {write_s:.2f} s; load_file "
+            f"{file_s:.2f} s on {sc_file.device}: parse {parse_s * 1e3:.1f} "
+            f"ms, mesh files {sum(mesh_s) * 1e3:.1f} ms ("
+            + ", ".join(f"{x * 1e3:.1f}" for x in mesh_s)
+            + f"), BVH build {sum(bvh_s[:n_bvh]):.2f} s; load_dict of the "
+            f"same meshes {dict_s:.2f} s (its BVH build "
+            f"{sum(bvh_s[n_bvh:]):.2f} s); {sc_file.faces.shape[0]} "
+            f"triangles, {sc_file.bvh_nodes.shape[0]} BVH4 records; shapes "
+            f"{sc_file.static.shape_names}")
+        check(sc_file.static.spp == SF_SPP, "$spp not substituted")
+        _assert_scenes_equal("load_file vs load_dict", sc_file, sc_dict)
+
+        imgs, walls = {}, {}
+        for label, sc in (("load_file", sc_file), ("load_dict", sc_dict)):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs[label] = mt.render(sc, spp=SF_SPP, spp_chunk=SF_CHUNK,
+                                    seed=0)
+            torch.cuda.synchronize()
+            walls[label] = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            count(f"render {label}", counts, expect)
+            image_checks(imgs[label], RES)
+        CT.raise_on_overflow(sc_file.device)
+        same = bool(torch.equal(imgs["load_file"], imgs["load_dict"]))
+        say(f"[scene files] renders {RES}^2 x {SF_SPP} spp in passes of "
+            f"{SF_CHUNK}, depth {DEPTH}: load_file scene "
+            f"{walls['load_file']:.1f} ms, load_dict scene "
+            f"{walls['load_dict']:.1f} ms (first renders of each); images "
+            f"equal bit for bit: {same}; launches {counts}")
+        check(same, "the load_file and load_dict renders differ")
+
+        exr = os.path.join(tmp, "out.exr")
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([path, "-o", exr, "--spp", str(SF_SPP)])
+        cli_s = time.perf_counter() - t0
+        count("cli", read_counts(), {k: n // n_pass
+                                     for k, n in expect.items()})
+        img_cli = mt.read_image(exr).data
+        img_ref = mt.render(sc_file, spp=SF_SPP, seed=0).cpu().numpy()
+        same = bool(np.array_equal(img_cli, img_ref))
+        say(f"[scene files] cli.main -o out.exr --spp {SF_SPP}: rc {rc}, "
+            f"{cli_s:.2f} s (load, one {SF_SPP}-spp pass, EXR of "
+            f"{os.path.getsize(exr)} bytes); read back {img_cli.shape}, "
+            f"equal to render's image bit for bit: {same}")
+        check(rc == 0 and same, "the CLI's EXR is not render's image")
+
+    # traverse: move the sphere through update() and through set_vertices
+    names = sc_file.static.shape_names
+    s, c = sc_file.static.vertex_ranges[names.index("blob")]
+    offset = torch.tensor([0.05, -0.03, 0.04], device=sc_file.device)
+    params = mt.traverse(sc_file)
+    check("blob.vertex_positions" in params.keys(), "no blob key")
+    params["blob.vertex_positions"] = params["blob.vertex_positions"] + offset
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc_t = params.update()
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    v = sc_file.vertices.clone()
+    v[s:s + c] += offset
+    rows = torch.zeros(v.shape[0], dtype=torch.bool, device=v.device)
+    rows[s:s + c] = True
+    sc_s = NT.refresh_smooth_normals(sc_file.set_vertices(v), rows)
+    same_nodes = bool(torch.equal(sc_t.bvh_nodes, sc_s.bvh_nodes)) and \
+        not bool(torch.equal(sc_t.bvh_nodes, sc_file.bvh_nodes))
+    imgs = {}
+    for label, sc in (("update", sc_t), ("set_vertices", sc_s)):
+        zero_counts()
+        imgs[label] = mt.render(sc, spp=SF_SPP, spp_chunk=SF_CHUNK, seed=0)
+        count(f"render {label}", read_counts(), expect)
+    same = bool(torch.equal(imgs["update"], imgs["set_vertices"]))
+    say(f"[scene files] traverse: {len(params.keys())} keys; update() "
+        f"(positions, the sphere's smooth normals, refit + re-pack) "
+        f"{update_ms:.1f} ms; records re-packed as set_vertices' and moved: "
+        f"{same_nodes}; images equal bit for bit: {same}")
+    check(same_nodes and same, "traverse().update() differs from "
+          "set_vertices")
+    o, d, maxt = main_path_rays(sc_t, gen, SF_CHUNK)
+    k = slice(0, 65536)
+    t, slot, u, vv = CT.closest_hit(sc_t.bvh_nodes, sc_t.bvh_tris, o[k],
+                                    d[k], maxt[k])
+    prim = torch.where(slot >= 0, sc_t.bvh.order[slot.clamp(min=0).long()],
+                       -1)
+    ref_hit = I.ray_intersect_brute(CI.pack_tris(sc_t.vertices, sc_t.faces),
+                                    o[k], d[k], maxt[k])
+    hold("scene files: K2 on the re-packed tree vs K1 brute force, moved "
+         "sphere", (t, prim, u, vv, slot >= 0),
+         (ref_hit[0], ref_hit[1].long(), ref_hit[2], ref_hit[3],
+          ref_hit[1] >= 0))
+    out.update(parse_s=parse_s, mesh_s=sum(mesh_s), bvh_s=sum(bvh_s[:n_bvh]),
+               file_s=file_s, render_ms=walls, cli_s=cli_s,
+               update_ms=update_ms)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [glassslab]: the paper's normal-field experiment at its published widths
+# ---------------------------------------------------------------------------
+
+def glassslab_phase():
+    """[glassslab]: ``run("manifold_caustic", glassslab.make(...))`` at
+    512^2, spp 64, depth 4, match_res 256, a 16 x 16 grid (the published
+    widths), ground truth 64 spp, GS_ITERS iterations (cut from the
+    published 1,000, for the time limit): ms an iteration and by phase,
+    K1 launches an iteration (exact), normal_field and its gradient
+    finite and non-zero, peak memory, the device's busy share over one
+    profiled iteration; then the normal_field gradient on the card
+    against the CPU's at 64^2 x 4 spp."""
+    run = experiment_run("glassslab", GS_SPP, GS_SPP, GS_ITERS,
+                         match_res=GS_MATCH, profile_table=False)
+    init = run.pop("exp")["init_theta"]["normal_field"].cpu().numpy()
+    last = run["rows"][-1]["theta"]["normal_field"]
+    say("[glassslab] dL/dnormal_field an iteration: "
+        + "; ".join(f"max |g| {float(x['normal_field'].abs().max()):.6g}, "
+                    f"|g| {float(x['normal_field'].norm()):.6g}"
+                    for x in run["grads"])
+        + f"; max |normal_field - init| after the last "
+        f"{float(abs(last - init).max()):.6g}")
+    run["cpu"] = exp_card_vs_cpu((("glassslab", 4),), "glassslab, card vs cpu")
+    return run
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2219,6 +2610,7 @@ def main() -> int:
         return 1
     start = time.perf_counter()
     import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.models import mesh_io as MIO
     from epsm_mitsuba3_torch.ops import _native
     from epsm_mitsuba3_torch.ops import bvh as BT
     from epsm_mitsuba3_torch.ops import cuda_intersect as CI
@@ -2233,11 +2625,11 @@ def main() -> int:
 
     # -- 1. build: every compiler at once ----------------------------------
     t0 = time.perf_counter()
-    _native.build([CI.SPEC, CT.SPEC, BT.SPEC])
+    _native.build([CI.SPEC, CT.SPEC, BT.SPEC, MIO.SPEC])
     CI.build()
     CT.build()
-    say(f"[build] K1, K2/K4/K3 (nvcc) and the BVH builder (g++) built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    say(f"[build] K1, K2/K4/K3 (nvcc), the BVH builder and the OBJ parser "
+        f"(g++) built in {time.perf_counter() - t0:.1f} s")
     for lib in (CI.SPEC.name, CT.SPEC.name):
         for line in _native.build_logs.get(lib, "").splitlines():
             if "entry function" in line or "registers" in line \
@@ -2385,6 +2777,18 @@ def main() -> int:
     # -- 14. [epsm experiments]: glass, rough metal and many objects --------
     epsm_exp = epsm_experiments_phase()
     epsm_launches["launches_epsm_experiments_runs"] = epsm_exp["total"]
+
+    # -- 15. [scene files]: XML + PLY/OBJ/serialized, the CLI, traverse ------
+    t0 = time.perf_counter()
+    sf = scene_files_phase(gen)
+    epsm_launches["launches_scene_files_phase"] = sf["total"]
+    say(f"[scene files] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. [glassslab]: the normal-field experiment at its widths ----------
+    t0 = time.perf_counter()
+    gs = glassslab_phase()
+    epsm_launches["launches_glassslab_run"] = gs["total"]
+    say(f"[glassslab] phase {time.perf_counter() - t0:.1f} s")
 
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []

@@ -10,10 +10,21 @@ version instead.
     from epsm_mitsuba3_torch.scenes import cornell_box
     scene = mt.load_dict(cornell_box(res=512, spp=64, max_depth=6))
     img = mt.render(scene, spp=64, spp_chunk=4)        # (H, W, 3) on cuda
+
+    scene = mt.load_file("scene.xml")                  # XML + mesh files
+    params = mt.traverse(scene)
+    params["blob.vertex_positions"] = params["blob.vertex_positions"] + 0.1
+    scene = params.update()
+    mt.write_image("out.exr", mt.render(scene))
 """
 
+from .core.bitmap import Bitmap, read_image, write_image  # noqa: F401
 from .core.transform import ScalarTransform4f  # noqa: F401
-from .models.scene import Scene, load_dict, scene_from_arrays  # noqa: F401
+from .core.xmlparse import load_file, load_string  # noqa: F401
+from .models.scene import (Scene, SceneParameters, load_dict,  # noqa: F401
+                           scene_from_arrays, traverse)
+from .ops.normals import (compute_vertex_normals,  # noqa: F401
+                          scene_with_vertices)
 from .models.records import Ray, RayFlags  # noqa: F401
 from .ad.render import render  # noqa: F401
 

@@ -1,9 +1,8 @@
 """The bunny experiment (counterpart of ``app/exp/bunny.py``, the
 reference's ``EPSM/exp/bunny.py``): one object's xz translation in a
 Cornell box.  Budgets: 200 iterations, 64 spp, depth 6 (bunny.py:3-8).
-The reference loads ``data/meshes/bunny.ply`` where it is present; mesh
-files are not loaded by the port yet, so that branch raises, and the
-default, a sphere stand-in, is the one the port builds.
+It loads ``mesh_path`` (the reference's ``data/meshes/bunny.ply``) where
+the file is present, and builds a sphere stand-in otherwise.
 """
 from __future__ import annotations
 
@@ -21,11 +20,12 @@ def make(resolution=512, spp=64, it=200, thres=10 ** 9, max_depth=6,
     """The experiment dict of ``app/optim.run``; ``device=None`` means the
     GPU."""
     if os.path.exists(mesh_path):
-        raise NotImplementedError(
-            f"{mesh_path}: loading mesh files is not ported yet")
-    obj = {"type": "sphere", "radius": 0.5, "center": [0, 0.5, 0],
-           "bsdf": {"type": "diffuse",
-                    "reflectance": {"type": "rgb", "value": [0.7, 0.6, 0.4]}}}
+        obj = {"type": "ply", "filename": mesh_path,
+               "to_world": T.translate([0, 0.5, 0])}
+    else:
+        obj = {"type": "sphere", "radius": 0.5, "center": [0, 0.5, 0]}
+    obj["bsdf"] = {"type": "diffuse",
+                   "reflectance": {"type": "rgb", "value": [0.7, 0.6, 0.4]}}
     d = {"type": "scene",
          "integrator": {"type": "manifold", "max_depth": max_depth}}
     d.update(C.three_sensors(T, [0, 1.5, 4], [0, 0.5, 0], [0, 1, 0],

@@ -1,19 +1,23 @@
-"""Scene container, Mitsuba-style dict loader and the array interface
-(counterpart of ``models/scene.py``).
+"""Scene container, Mitsuba-style dict loader, the array interface and
+``traverse`` (counterpart of ``models/scene.py``).
 
 Geometry is one flat set of arrays (all meshes concatenated); structure
 (kinds present, integrator settings, film sizes) is static metadata.
-``load_dict`` takes the subset of the reference schema that the port's
-scenes use: ``rectangle``/``cube``/``sphere`` shapes (the sphere
-tessellated) and in-memory ``mesh`` shapes, ``diffuse``, the smooth
-``conductor``, the GGX ``roughconductor`` and the smooth ``dielectric``
-(optionally ``twosided``),
-``area``, ``perspective``, ``independent``, ``hdrfilm`` with a ``box``
-filter, and the ``path``, ``prb``, ``manifold`` and ``manifold_caustic``
-integrators.  Shapes keep their names and vertex ranges, by which the
-experiments (``app/exp``) move them.  A scene of more than ``ops/accel.py``
-``BRUTE_FORCE_MAX_TRIS`` triangles gets a BVH at load, packed once into
-the records of kernels K2/K3.
+``load_dict`` takes the subset of the reference schema that the port
+renders: ``rectangle``/``cube``/``disk``/``sphere``/``cylinder`` shapes
+(the sphere tessellated), in-memory ``mesh`` shapes and mesh files
+(``obj``, ``ply``, ``serialized``, through ``mesh_io``), ``shapegroup``
+and ``instance`` (flattened at load) and ``merge``; ``diffuse``, the
+smooth ``conductor``, the GGX ``roughconductor`` and the smooth
+``dielectric`` (optionally ``twosided``), also stand-alone with an
+``id`` and referenced by ``{"type": "ref"}``; ``area`` emitters,
+``perspective``, ``independent``, ``hdrfilm`` with a ``box`` filter,
+and the ``path``, ``prb``, ``manifold`` and ``manifold_caustic``
+integrators.  Any other plugin raises ``NotImplementedError`` with its
+name.  Shapes keep their names and vertex ranges, by which the
+experiments (``app/exp``) and ``traverse`` move them.  A scene of more
+than ``ops/accel.py`` ``BRUTE_FORCE_MAX_TRIS`` triangles gets a BVH at
+load, packed once into the records of kernels K2/K3.
 
 ``scene_from_arrays`` builds a scene from numpy arrays under the JAX
 ``Scene``'s field names: it carries the scene state between the two
@@ -28,12 +32,15 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.spectrum import blackbody_rgb
 from ..core.transform import ScalarTransform4f
 from ..ops import accel
 from ..ops import bvh as bvh_mod
 from ..ops import cuda_traverse as CT
+from ..ops import normals as nrm_mod
 from . import bsdf as bsdf_mod
 from . import emitters as em_mod
+from . import mesh_io
 from . import shapes as shapes_mod
 from .records import Ray, RayFlags
 from .sensors import Sensor
@@ -69,6 +76,10 @@ class Scene:
     em_faces: torch.Tensor       # (E, Tmax) int32 global face ids, -1 pad
     sensors: Tuple[Sensor, ...] = ()
     static: SceneStatic = field(default_factory=SceneStatic)
+    #: (V, 3) per-vertex colours of the meshes that carry them (PLY
+    #: ``red``/``green``/``blue``), zero rows elsewhere; no shading
+    #: reads them yet (the reference's ``mesh_attribute`` texture)
+    vertex_colors: Optional[torch.Tensor] = None
     #: BVH above ``accel.BRUTE_FORCE_MAX_TRIS`` triangles, else None
     bvh: Optional[bvh_mod.BVH] = None
     #: its K2/K3 inputs (``cuda_traverse.pack_bvh4``): node records
@@ -149,7 +160,8 @@ class Scene:
 # Dict loader (mi.load_dict subset)
 # ===========================================================================
 
-_SHAPE_TYPES = ("rectangle", "cube", "sphere", "mesh")
+_SHAPE_TYPES = ("obj", "ply", "serialized", "rectangle", "cube", "disk",
+                "sphere", "cylinder", "instance", "shapegroup", "mesh")
 _SENSOR_TYPES = ("perspective",)
 _INTEGRATOR_TYPES = ("path", "prb", "manifold", "manifold_caustic")
 
@@ -160,9 +172,17 @@ def _rgb(value, default=(1.0, 1.0, 1.0)):
         return np.asarray(default, np.float32)
     if isinstance(value, dict):
         t = value.get("type", "rgb")
-        if t not in ("rgb", "srgb", "d65", "uniform"):
-            raise NotImplementedError(f"spectrum type '{t}' is not ported")
-        return _rgb(value.get("value", value.get("color", default)))
+        if t in ("rgb", "srgb", "d65", "uniform"):
+            return _rgb(value.get("value", value.get("color", default)))
+        if t == "blackbody":
+            rgb = blackbody_rgb(float(value.get("temperature", 5000.0)),
+                                normalize=False)
+            return rgb * float(value.get("scale", 1.0))
+        if t in ("regular", "irregular"):
+            raise NotImplementedError(
+                f"tabulated spectrum '{t}': its projection needs the CIE "
+                "tables of core/spectral.py, which are not ported")
+        raise NotImplementedError(f"spectrum type '{t}' is not ported")
     arr = np.asarray(value, np.float32)
     if arr.ndim == 0:
         arr = np.full((3,), float(arr), np.float32)
@@ -198,9 +218,12 @@ def _transform(value) -> np.ndarray:
 class _Builder:
     def __init__(self):
         self.vertices, self.normals, self.uvs, self.faces = [], [], [], []
+        self.vertex_colors = []
         self.face_shape, self.shape_bsdf, self.shape_emitter = [], [], []
         self.shape_names, self.vertex_ranges = [], []
         self.bsdf_rows = []
+        self.bsdf_by_id = {}
+        self.shapegroups = {}
         self.em_rows, self.em_shape, self.em_face_list = [], [], []
         self.sensors = []
         self.integrator = {"type": "path", "max_depth": 6, "rr_depth": 5}
@@ -211,6 +234,13 @@ class _Builder:
 
     # -- BSDFs (_Builder.add_bsdf) ------------------------------------------
     def add_bsdf(self, d: dict) -> int:
+        """A row of the BSDF table for ``d`` (a ``ref`` is the row of its
+        ``id``); a BSDF with an ``id`` is registered under it."""
+        if d.get("type") == "ref":
+            if d["id"] not in self.bsdf_by_id:
+                raise KeyError(f"bsdf reference to an unknown id "
+                               f"'{d['id']}'")
+            return self.bsdf_by_id[d["id"]]
         twosided = False
         p = d
         while p.get("type") == "twosided":
@@ -260,7 +290,10 @@ class _Builder:
             "k_c": _rgb(p.get("k"), (1.0, 1.0, 1.0)),
             "eta": eta,
         })
-        return len(self.bsdf_rows) - 1
+        idx = len(self.bsdf_rows) - 1
+        if "id" in d:
+            self.bsdf_by_id[d["id"]] = idx
+        return idx
 
     # -- emitters (_Builder.add_emitter) ------------------------------------
     def add_emitter(self, d: dict, shape_index: int) -> int:
@@ -277,7 +310,33 @@ class _Builder:
     # -- shapes (_Builder.add_shape) ----------------------------------------
     def add_shape(self, d: dict, name: str):
         t = d["type"]
-        if t == "mesh":
+        if t == "shapegroup":
+            # a group definition: its children, no geometry of its own
+            # (shapegroup.cpp)
+            self.shapegroups[d.get("id", name)] = [
+                v for v in d.values()
+                if isinstance(v, dict) and v.get("type") in _SHAPE_TYPES]
+            return
+        if t == "instance":
+            # flattened at load: the group's shapes under the instance's
+            # transform (instance.cpp)
+            ref = next((v for v in d.values()
+                        if isinstance(v, dict) and v.get("type") == "ref"),
+                       None)
+            gid = ref["id"] if ref else d.get("shapegroup")
+            if gid not in self.shapegroups:
+                raise ValueError(f"instance references unknown group "
+                                 f"'{gid}'")
+            inst_t = _transform(d.get("to_world"))
+            for j, child in enumerate(self.shapegroups[gid]):
+                child = dict(child)
+                child["to_world"] = inst_t @ _transform(child.get("to_world"))
+                self.add_shape(child, f"{name}.{gid}_{j}")
+            return
+        if t in ("obj", "ply", "serialized"):
+            mesh = mesh_io.load_mesh_file(d["filename"],
+                                          int(d.get("shape_index", 0)))
+        elif t == "mesh":
             # raw in-memory mesh: vertex and face arrays
             mesh = {"vertices": np.asarray(d["vertices"], np.float32),
                     "faces": np.asarray(d["faces"], np.int32)}
@@ -293,22 +352,30 @@ class _Builder:
                 radius=float(d.get("radius", 1.0)),
                 center=tuple(d.get("center", (0.0, 0.0, 0.0))),
                 subdiv=int(d.get("subdiv", 32)))
+        elif t == "cylinder":
+            mesh = shapes_mod.cylinder(radius=float(d.get("radius", 1.0)))
         else:
             mesh = getattr(shapes_mod, t)()
         to_world = _transform(d.get("to_world"))
         v = mesh["vertices"]
         vh = np.concatenate([v, np.ones((len(v), 1), np.float32)], -1)
         v = (vh @ to_world.T)[:, :3]
+        # normals by the inverse transpose, in the reference's order of
+        # float32 operations (scene.py:734-744)
         n = mesh.get("normals")
-        if n is None or bool(d.get("face_normals", False)):
-            n = np.zeros_like(v)     # zero rows: the face normal at a hit
-        else:
-            n = n @ np.linalg.inv(to_world[:3, :3])
+        if n is not None:
+            nrm_mat = np.linalg.inv(to_world[:3, :3]).T
+            n = n @ nrm_mat.T
             n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True),
                                1e-20)
+        if n is None or bool(d.get("face_normals", False)):
+            n = np.zeros_like(v)     # zero rows: the face normal at a hit
         uv = mesh.get("uvs")
         if uv is None:
             uv = np.zeros((len(v), 2), np.float32)
+        vcol = mesh.get("colors")
+        if vcol is None:
+            vcol = np.zeros((len(v), 3), np.float32)
         f = mesh["faces"]
         if bool(d.get("flip_normals", False)):
             f = f[:, ::-1].copy()
@@ -320,11 +387,11 @@ class _Builder:
             if not isinstance(val, dict):
                 continue
             vt = val.get("type")
-            if key == "emitter" or vt in em_mod.KIND_NAMES:
-                em_idx = self.add_emitter(val, shape_index)
-            elif key == "bsdf" or vt == "twosided" \
+            if vt == "ref" or key == "bsdf" or vt == "twosided" \
                     or vt in bsdf_mod.KIND_NAMES:
                 bsdf_idx = self.add_bsdf(val)
+            elif key == "emitter" or vt in em_mod.KIND_NAMES:
+                em_idx = self.add_emitter(val, shape_index)
             else:
                 raise NotImplementedError(
                     f"shape child '{key}' of type '{vt}' is not ported")
@@ -339,6 +406,7 @@ class _Builder:
         self.vertices.append(v.astype(np.float32))
         self.normals.append(n.astype(np.float32))
         self.uvs.append(uv.astype(np.float32))
+        self.vertex_colors.append(vcol.astype(np.float32))
         self.faces.append((f + self._v_off).astype(np.int32))
         self.face_shape.append(np.full((nf,), shape_index, np.int32))
         if em_idx >= 0:
@@ -377,6 +445,7 @@ class _Builder:
             "vertices": np.concatenate(self.vertices),
             "normals": np.concatenate(self.normals),
             "uvs": np.concatenate(self.uvs),
+            "vertex_colors": np.concatenate(self.vertex_colors),
             "faces": np.concatenate(self.faces),
             "face_shape": np.concatenate(self.face_shape),
             "shape_bsdf": np.asarray(self.shape_bsdf, np.int32),
@@ -413,6 +482,12 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
             b.integrator = dict(val)
         elif t in _SHAPE_TYPES:
             b.add_shape(val, key)
+        elif t in bsdf_mod.KIND_NAMES or t == "twosided":
+            b.add_bsdf(val)          # stand-alone, referenced by its id
+        elif t == "merge":
+            for k2, v2 in val.items():
+                if isinstance(v2, dict) and v2.get("type") in _SHAPE_TYPES:
+                    b.add_shape(v2, f"{key}.{k2}")
         else:
             raise NotImplementedError(
                 f"scene element '{key}' of type '{t}' is not ported")
@@ -439,6 +514,9 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     ``shape_bsdf``, ``shape_emitter``, ``em_faces``, the table columns
     ``bsdfs.<field>`` and ``emitters.<field>``, and ``sensors.<i>.to_world``.
     Table columns the port does not use are ignored.
+
+    ``vertex_colors`` (V, 3) is taken where it is given, zeros
+    otherwise.
 
     ``sensors``: per sensor, the static fields of ``Sensor`` other than
     ``to_world`` (kind, fov_x, width, height, rfilter, ...).
@@ -502,6 +580,150 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
             bvh = bvh_mod.build(arrays["vertices"], arrays["faces"], device)
         nodes, tris, tris_k = CT.pack_bvh4(bvh, geo["vertices"],
                                            geo["faces"])
+    vcol = arrays.get("vertex_colors")
+    vcol = (torch.zeros_like(geo["vertices"]) if vcol is None
+            else t(vcol, torch.float32))
     return Scene(bsdfs=bsdfs, emitters=emitters, sensors=sensor_objs,
                  static=static, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris,
-                 bvh_tris_k=tris_k, **geo)
+                 bvh_tris_k=tris_k, vertex_colors=vcol, **geo)
+
+
+# ===========================================================================
+# traverse / SceneParameters (util.py:12-346)
+# ===========================================================================
+
+class SceneParameters:
+    """Dict-like view of a scene's differentiable parameters, under the
+    reference's keys: ``<shape>.vertex_positions``,
+    ``<shape>.vertex_normals``, ``<shape>.bsdf.reflectance.value``,
+    ``<shape>.bsdf.alpha``, ``<shape>.emitter.radiance.value`` and
+    ``sensor[i].to_world``.  Assignments are buffered; ``update()``
+    applies them in order and returns the new Scene (also kept as
+    ``self.scene``), differentiable in every value written.  It
+    recomputes the smooth normals of the shapes whose positions changed,
+    except those whose normals were written in the same update, and
+    refits and re-packs a BVH (``Scene.set_vertices``)."""
+
+    def __init__(self, scene: Scene):
+        self.scene = scene
+        self._pending: Dict[str, Any] = {}
+
+    def keys(self):
+        ks = []
+        emissive = self.scene.shape_emitter.tolist()
+        for i, name in enumerate(self.scene.static.shape_names):
+            ks += [f"{name}.vertex_positions", f"{name}.vertex_normals",
+                   f"{name}.bsdf.reflectance.value", f"{name}.bsdf.alpha"]
+            if emissive[i] >= 0:
+                ks.append(f"{name}.emitter.radiance.value")
+        ks += [f"sensor[{i}].to_world" for i in range(len(self.scene.sensors))]
+        return ks
+
+    def __contains__(self, key):
+        try:
+            self._resolve(key)
+            return True
+        except KeyError:
+            return False
+
+    def _resolve(self, key: str):
+        if key.startswith("sensor[") and key.endswith("].to_world"):
+            return ("sensor", int(key[len("sensor["):key.index("]")]))
+        name, _, rest = key.partition(".")
+        try:
+            idx = self.scene.static.shape_names.index(name)
+        except ValueError:
+            raise KeyError(key) from None
+        if rest == "vertex_positions":
+            return ("verts", idx)
+        if rest == "vertex_normals":
+            return ("norms", idx)
+        if rest in ("bsdf.reflectance.value", "bsdf.reflectance"):
+            return ("bsdf", idx, "reflectance")
+        if rest == "bsdf.alpha":
+            return ("bsdf", idx, "alpha")
+        if rest in ("emitter.radiance.value", "emitter.radiance"):
+            return ("emitter", idx, "radiance")
+        raise KeyError(key)
+
+    def __getitem__(self, key: str):
+        if key in self._pending:
+            return self._pending[key]
+        kind = self._resolve(key)
+        sc = self.scene
+        if kind[0] in ("verts", "norms"):
+            s, c = sc.static.vertex_ranges[kind[1]]
+            arr = sc.vertices if kind[0] == "verts" else sc.normals
+            return arr[s:s + c]
+        if kind[0] == "bsdf":
+            return sc.bsdfs[kind[2]][int(sc.shape_bsdf[kind[1]])]
+        if kind[0] == "emitter":
+            return sc.emitters[kind[2]][int(sc.shape_emitter[kind[1]])]
+        return sc.sensors[kind[1]].to_world
+
+    def __setitem__(self, key: str, value):
+        self._resolve(key)
+        self._pending[key] = value
+
+    def update(self, values: Optional[Mapping[str, Any]] = None) -> Scene:
+        for k, v in (values or {}).items():
+            self[k] = v
+        sc = self.scene
+
+        def as_t(value, like):
+            return torch.as_tensor(value, dtype=like.dtype,
+                                   device=like.device)
+
+        def set_rows(arr, s, c, value):
+            return torch.cat([arr[:s], as_t(value, arr).reshape(c, -1),
+                              arr[s + c:]])
+
+        def set_row(arr, i, value):
+            return torch.cat([arr[:i], as_t(value, arr).reshape(
+                (1,) + arr.shape[1:]), arr[i + 1:]])
+
+        verts_shapes, norms_shapes = [], []
+        for key, value in self._pending.items():
+            kind = self._resolve(key)
+            if kind[0] == "verts":
+                s, c = sc.static.vertex_ranges[kind[1]]
+                sc = replace(sc, vertices=set_rows(sc.vertices, s, c, value))
+                verts_shapes.append(kind[1])
+            elif kind[0] == "norms":
+                s, c = sc.static.vertex_ranges[kind[1]]
+                sc = replace(sc, normals=set_rows(sc.normals, s, c, value))
+                norms_shapes.append(kind[1])
+            elif kind[0] in ("bsdf", "emitter"):
+                table = "bsdfs" if kind[0] == "bsdf" else "emitters"
+                owner = sc.shape_bsdf if kind[0] == "bsdf" \
+                    else sc.shape_emitter
+                tab = dict(getattr(sc, table))
+                tab[kind[2]] = set_row(tab[kind[2]], int(owner[kind[1]]),
+                                       value)
+                sc = replace(sc, **{table: tab})
+            else:
+                sensors = list(sc.sensors)
+                s0 = sensors[kind[1]]
+                sensors[kind[1]] = replace(
+                    s0, to_world=as_t(value, s0.to_world).reshape(4, 4))
+                sc = replace(sc, sensors=tuple(sensors))
+        if verts_shapes:
+            # the moved shapes' smooth normals, differentiably
+            # (mesh.cpp:85-87); a shape whose normals were written in
+            # this update keeps them
+            rows = torch.zeros(sc.vertices.shape[0], dtype=torch.bool,
+                               device=sc.device)
+            for i in set(verts_shapes) - set(norms_shapes):
+                s, c = sc.static.vertex_ranges[i]
+                rows[s:s + c] = True
+            if bool(rows.any()):
+                sc = nrm_mod.refresh_smooth_normals(sc, rows)
+            sc = sc.set_vertices(sc.vertices)
+        self._pending = {}
+        self.scene = sc
+        return sc
+
+
+def traverse(scene: Scene) -> SceneParameters:
+    """mi.traverse: the scene's parameters under the reference's keys."""
+    return SceneParameters(scene)

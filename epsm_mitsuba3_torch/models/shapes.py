@@ -1,6 +1,6 @@
 """Procedural shapes as triangle meshes (counterpart of
-``models/shapes.py``): the rectangle, the cube and the tessellated UV
-sphere."""
+``models/shapes.py``): the rectangle, the cube, the disk, the
+tessellated UV sphere and the open cylinder."""
 from __future__ import annotations
 
 import numpy as np
@@ -44,6 +44,19 @@ def cube():
     }
 
 
+def disk(segments: int = 32):
+    """Unit disk on the XY plane (disk.cpp): a triangle fan around the
+    origin."""
+    ang = np.linspace(0.0, 2.0 * np.pi, segments, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], -1)
+    v = np.concatenate([np.zeros((1, 3)), rim], axis=0).astype(np.float32)
+    f = np.asarray(
+        [[0, 1 + i, 1 + (i + 1) % segments] for i in range(segments)],
+        np.int32)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (len(v), 1))
+    return {"vertices": v, "faces": f, "normals": n}
+
+
 def sphere(radius: float = 1.0, center=(0.0, 0.0, 0.0), subdiv: int = 32):
     """UV sphere (sphere.cpp's analytic shape as a mesh): ``subdiv``
     rings of latitude, 2 ``subdiv`` segments of longitude, each pole a
@@ -69,3 +82,22 @@ def sphere(radius: float = 1.0, center=(0.0, 0.0, 0.0), subdiv: int = 32):
                      np.broadcast_to(i < lat - 1, i.shape)], -1)
     faces = quads[keep].astype(np.int32)
     return {"vertices": v, "faces": faces, "normals": pts.astype(np.float32)}
+
+
+def cylinder(radius: float = 1.0, segments: int = 32):
+    """Open cylinder along +Z, z in [0, 1] (cylinder.cpp)."""
+    ang = np.linspace(0.0, 2.0 * np.pi, segments, endpoint=False)
+    ring = np.stack([radius * np.cos(ang), radius * np.sin(ang)], -1)
+    v0 = np.concatenate([ring, np.zeros((segments, 1))], -1)
+    v1 = np.concatenate([ring, np.ones((segments, 1))], -1)
+    v = np.concatenate([v0, v1], axis=0).astype(np.float32)
+    n = np.concatenate(
+        [np.concatenate([ring / radius, np.zeros((segments, 1))], -1)] * 2,
+        0).astype(np.float32)
+    faces = []
+    for i in range(segments):
+        j = (i + 1) % segments
+        faces.append([i, j, segments + j])
+        faces.append([segments + j, segments + i, i])
+    return {"vertices": v, "faces": np.asarray(faces, np.int32),
+            "normals": n}

@@ -92,3 +92,24 @@ def test_epsm_entry_points_without_device_raise():
         Matcher(8)
     with pytest.raises(RuntimeError, match="CUDA"):
         cornellbox.make(resolution=8, match_res=8)
+
+
+def test_scene_file_entry_points_without_device_raise(tmp_path):
+    """The scene-file slice's entry points default to the GPU too:
+    ``load_file``, ``load_string``, the CLI and ``glassslab.make``."""
+    _require_no_cuda()
+    from epsm_mitsuba3_torch import cli
+    from epsm_mitsuba3_torch.app.exp import glassslab
+    from epsm_mitsuba3_torch.utils.xmlwrite import dict_to_xml
+    path = tmp_path / "box.xml"
+    text = dict_to_xml(cornell_box(res=8, spp=1), str(path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mt.load_file(str(path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mt.load_string(text)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([str(path), "-o", str(tmp_path / "o.exr")])
+    assert not (tmp_path / "o.exr").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        glassslab.make(resolution=8, match_res=8)
+    assert mt.load_file(str(path), device="cpu").faces.shape == (12, 3)
