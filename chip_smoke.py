@@ -109,7 +109,21 @@ Phases (any failed check raises, and the script exits non-zero):
     phase, K1 launches (each count exact), the normal field and its
     gradient finite and non-zero, peak memory, the busy share of one
     profiled iteration; the normal-field gradient on the card against the
-    CPU at 64^2 x 4 spp.
+    CPU at 64^2 x 4 spp;
+17. [camera]: the box (K1) and the mesh (K2/K3) rendered at 512^2 with no
+    rfilter (the hdrfilm's default gaussian, splatted by the roll-sum
+    ``splat_coalesced``) and the stratified sampler, at 64 and 16 spp
+    (launches exact, wall ms, peak memory, one profiled pass each); the
+    mesh's fwd+bwd cell with the same film; the gaussian film of one
+    pass on its own (ms, launches and memory of the film, its adjoint and
+    the general scatter ``splat``; the roll-sum bit for bit alike from
+    run to run, the scatter within 1e-5); two ``manifold`` iterations of
+    the epsm-mesh cell with a gaussian sensor on a stratified scene, whose
+    passes must seed the independent sampler (PRB the scene's); and the
+    card against the CPU at 64^2: every filter with the independent and
+    the stratified sampler, each sampler kind at spp 16 and 9, each
+    sensor kind (a thin lens of aperture 0.08, a batch sensor of two
+    views), PRB gradients through two films, the manifold backward.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -1286,6 +1300,8 @@ def zero_counts():
     from epsm_mitsuba3_torch.ops import cuda_traverse as CT
     for counts in (CI.launches, CT.launches):
         for k in counts:
+            if _TALLY is not None:
+                _TALLY[k] = _TALLY.get(k, 0) + counts[k]
             counts[k] = 0
 
 
@@ -2602,6 +2618,340 @@ def glassslab_phase():
     return run
 
 
+# ---------------------------------------------------------------------------
+# [camera]: reconstruction filters, sampler kinds and sensor kinds
+# ---------------------------------------------------------------------------
+
+#: launch counts summed over a phase: ``zero_counts`` adds the counts it
+#: clears here while this is a dict
+_TALLY = None
+
+
+def camera_dict(make, rfilter=None, sampler="stratified", sensor=None,
+                **kw):
+    """``make(**kw)`` (a scene dict of ``epsm_mitsuba3_torch.scenes``) with
+    the film's filter (None: no rfilter entry, so the hdrfilm's default
+    gaussian), the sampler kind and the sensor's entries changed."""
+    d = make(**kw)
+    s = d["sensor"]
+    if rfilter is None:
+        s["film"].pop("rfilter", None)
+    else:
+        s["film"]["rfilter"] = {"type": rfilter}
+    s["sampler"]["type"] = sampler
+    s.update(sensor or {})
+    return d
+
+
+def batch_sensor(d):
+    """``d`` with its sensor replaced by a batch sensor of two perspective
+    views side by side, on a film as wide as the old one."""
+    from epsm_mitsuba3_torch.core.transform import ScalarTransform4f as T
+    s = d["sensor"]
+    views = {f"view{i}": {
+        "type": "perspective", "fov": 35.0 + 10 * i,
+        "to_world": T.look_at(origin=[0.4 * i - 0.2, 1, 3.9],
+                              target=[0, 1, 0], up=[0, 1, 0]).matrix}
+        for i in range(2)}
+    d["sensor"] = {"type": "batch", **views, "film": s["film"],
+                   "sampler": s["sampler"]}
+    return d
+
+
+def seeded_kinds(fn):
+    """(fn's result, the sampler kinds ``samplers.seed`` was asked for
+    while fn ran, in order)."""
+    from epsm_mitsuba3_torch.models import samplers as smp
+    kinds, seed = [], smp.seed
+
+    def spy(*a, **kw):
+        kinds.append(kw.get("kind", "independent"))
+        return seed(*a, **kw)
+
+    smp.seed = spy
+    try:
+        return fn(), kinds
+    finally:
+        smp.seed = seed
+
+
+def film_costs(label, spp):
+    """The gaussian film of one PRB pass at 512^2 x ``spp`` on its own:
+    ``_film_fn`` (the roll-sum ``splat_coalesced`` and ``develop``) and
+    its adjoint ``film_adjoint``, by CUDA events and torch.profiler (ms,
+    launches, the memory they add at their peak); the general scatter
+    ``splat`` (the EPSM primal's film) beside it; each run twice, the
+    roll-sum's results bit for bit alike, the scatter's (float atomics)
+    within 1e-5 of its largest entry, the two splats within 1e-4 of the
+    largest entry of each other (the scatter weighs a sample by the
+    filter at px + 0.5 - x, whose float32 rounding grows with the film
+    coordinate x; the roll-sum at the jitter alone)."""
+    import torch
+    from epsm_mitsuba3_torch.ad import prb
+    from epsm_mitsuba3_torch.models import films
+    from epsm_mitsuba3_torch.models.sensors import Sensor
+    dev = torch.device("cuda")
+    n = RES * RES * spp
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pix = torch.arange(n, device=dev) // spp
+    corner = torch.stack([pix % RES, pix // RES], -1).float()
+    pos = corner + torch.rand(n, 2, device=dev, generator=gen)
+    # where pixel + jitter rounds up to the next integer, the roll-sum
+    # (as the reference's) splats the sample from its own pixel with
+    # jitter 0: the scatter is held at those positions
+    rounded = int((torch.floor(pos) != corner).any(-1).sum())
+    pos_lane = corner + (pos - torch.floor(pos))
+    vals = torch.rand(n, 3, device=dev, generator=gen)
+    weight = torch.ones(n, 3, device=dev)
+    g_img = torch.randn(RES, RES, 3, device=dev, generator=gen)
+    sensor = Sensor(to_world=torch.eye(4, device=dev), width=RES, height=RES,
+                    rfilter="gaussian")
+    calls = {
+        "film": lambda: prb._film_fn(vals, pos, weight, sensor, spp),
+        "adjoint": lambda: prb.film_adjoint(g_img, pos, weight, sensor, spp,
+                                            n),
+        "splat": lambda: films.develop(*films.splat(pos_lane, vals, RES,
+                                                    RES, "gaussian"))}
+    out = {}
+    for name, fn in calls.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 5, warm=1)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        prof = profile_pass(f"{label}: {name}", fn, ("roll", "index_add"),
+                            cpu=False, table=False)
+        diff = float((a - b).abs().max())
+        out[name] = dict(ms=ms, launches=prof["launches"] if prof else None,
+                         extra_mib=extra, rerun_max_abs=diff, out=a)
+    check(out["film"]["rerun_max_abs"] == 0.0
+          and out["adjoint"]["rerun_max_abs"] == 0.0,
+          "camera: splat_coalesced is not deterministic on the card")
+    top = float(out["splat"]["out"].abs().max())
+    check(out["splat"]["rerun_max_abs"] <= 1e-5 * top,
+          "camera: two runs of the scatter differ beyond 1e-5")
+    err = float((out["film"]["out"] - out["splat"]["out"]).abs().max()) / top
+    check(err <= 1e-4, f"camera: splat_coalesced and splat differ by {err}")
+    say(f"[camera] {label}, {RES}^2 x {spp} spp ({n} lanes): "
+        + "; ".join(f"{k} {v['ms']:.2f} ms, {v['launches']} launches, "
+                    f"+{v['extra_mib']:.1f} MiB at its peak, rerun max "
+                    f"|diff| {v['rerun_max_abs']:.3g}"
+                    for k, v in out.items())
+        + f"; splat_coalesced vs splat {err:.3g} of the largest entry "
+        f"({rounded} lanes' pixel + jitter rounded to the next integer) "
+        "[limits: reruns of the roll-sum 0, of the scatter 1e-5; the two "
+        "1e-4]")
+    for v in out.values():
+        v.pop("out")
+    out["rounded_lanes"] = rounded
+    return out
+
+
+def camera_card_vs_cpu():
+    """[camera card vs cpu] at 64^2 x 4 spp, depth 6 (the gates of
+    ``card_vs_cpu`` and ``grad_card_vs_cpu``): every filter with the
+    independent and the stratified sampler; each sampler kind at spp 16
+    and 9; each sensor kind (a thin lens of aperture 0.08, a batch sensor
+    of two views); PRB gradients through a gaussian film with the
+    stratified sampler and through a thin lens with a Lanczos film and
+    the multijitter sampler; the manifold backward on a gaussian,
+    stratified box."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.core.transform import ScalarTransform4f as T
+    from epsm_mitsuba3_torch.integrators import epsm as ET
+    from epsm_mitsuba3_torch.models import films, samplers, sensors
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    box = dict(res=64, spp=4, max_depth=DEPTH)
+    for rf in films.FILTERS:
+        for smp in ("independent", "stratified"):
+            card_vs_cpu(f"{rf} / {smp}", camera_dict(cornell_box, rf, smp,
+                                                     **box), 4)
+    for smp in samplers.KINDS:
+        for spp in (16, 9):
+            card_vs_cpu(f"gaussian / {smp} at spp {spp}", camera_dict(
+                cornell_box, None, smp, res=64, spp=spp, max_depth=DEPTH),
+                spp)
+    probe = T.look_at(origin=[0.1, 1.2, 1.5], target=[0, 0.6, -1],
+                      up=[0, 1, 0]).matrix
+    sensor_cases = {
+        "perspective": {},
+        "thinlens": {"aperture_radius": 0.08, "focus_distance": 3.9},
+        "orthographic": {"to_world": T.look_at(
+            origin=[0, 1, 3.9], target=[0, 1, 0], up=[0, 1, 0]).scale(
+                [0.9, 0.9, 1]).matrix},
+        "distant": {}, "radiancemeter": {"to_world": probe},
+        "irradiancemeter": {"to_world": probe}, "batch": None}
+    check(set(sensor_cases) == set(sensors.KINDS), "camera: sensor kinds")
+    for kind, extra in sensor_cases.items():
+        d = camera_dict(cornell_box, None, "stratified", **box)
+        if kind == "batch":
+            d = batch_sensor(d)
+        else:
+            d["sensor"].update({"type": kind, **extra})
+        card_vs_cpu(f"{kind} sensor, gaussian / stratified", d, 4)
+    # PRB gradients through the film (face normals: vertex gradients)
+    for label, rf, smp, sensor in (
+            ("gaussian / stratified", None, "stratified", None),
+            ("thinlens, lanczos / multijitter", "lanczos", "multijitter",
+             sensor_cases["thinlens"])):
+        d = camera_dict(cornell_box, rf, smp, sensor, **box)
+        if sensor:
+            d["sensor"]["type"] = "thinlens"
+        for k in ("floor", "ceiling", "back", "left", "right"):
+            d[k]["face_normals"] = True
+        grad_card_vs_cpu(f"cornell_box {label}", d, 4)
+    # the manifold backward on a stratified scene (independent samples)
+    d = camera_dict(cornell_box, None, "stratified", **box)
+    g = torch.randn(64, 64, 5, generator=torch.Generator().manual_seed(3))
+    names = ("vertices", "bsdfs.reflectance")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sc = mt.load_dict(d, device=dev)
+        got[dev] = ET.render_backward(sc, names, g.to(sc.device) * 0.05, 3,
+                                      DEPTH, 5, False, -1, 4)
+        if dev == "cuda":
+            CT.raise_on_overflow(sc.device)
+    errs = {k: rel_l2(got["cuda"][k].cpu(), got["cpu"][k]) for k in names}
+    say("[camera card vs cpu] manifold backward, gaussian / stratified box "
+        "64^2 x 4 spp: |g_gpu - g_cpu| / |g_cpu| "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + "  [limit 1e-3 each]")
+    for k, e in errs.items():
+        check(e <= 1e-3 and float(got["cpu"][k].abs().max()) > 0,
+              f"camera: manifold backward {k} card vs cpu {e}")
+
+
+def camera_phase():
+    """[camera]: the box (K1) and cornell_box_mesh (K2/K3) at 512^2 with no
+    rfilter (the hdrfilm's default gaussian) and the stratified sampler,
+    at the render cells' spp (64 in passes of 4, 16 in passes of 8): a
+    warm-up and TIMED_RENDERS timed renders each, launches exact, one
+    profiled pass each, peak memory; the mesh's fwd+bwd cell (2 passes of
+    8 spp) with the same film and sampler, and one profiled pass; the
+    gaussian film of a pass on its own (``film_costs``); one warm-up and
+    two timed ``manifold`` iterations of the epsm-mesh cell with a
+    gaussian sensor on a stratified scene, whose forward and backward
+    must seed the independent sampler; then ``camera_card_vs_cpu``.
+    Returns the numbers and the K1-K4 launches of the phase."""
+    global _TALLY
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
+    from epsm_mitsuba3_torch.scenes import cornell_box, cornell_box_mesh
+    zero_counts()
+    _TALLY = {}
+    out = {}
+    try:
+        # -- full width renders: K1 and K2/K3 through the gaussian film --
+        for label, make, spp, chunk, expect, names in (
+                ("camera box", cornell_box, SPP, SPP_CHUNK,
+                 {"mt_closest_hit": DEPTH * (SPP // SPP_CHUNK),
+                  "mt_any_hit": DEPTH * (SPP // SPP_CHUNK),
+                  "bvh4_closest_hit": 0, "bvh4_any_hit": 0},
+                 ("mt_closest", "mt_any")),
+                ("camera mesh", cornell_box_mesh, MESH_SPP, MESH_CHUNK,
+                 {"mt_closest_hit": 0, "mt_any_hit": 0,
+                  "bvh4_closest_hit": DEPTH * (MESH_SPP // MESH_CHUNK),
+                  "bvh4_any_hit": DEPTH * (MESH_SPP // MESH_CHUNK)},
+                 ("bvh4_closest", "bvh4_any"))):
+            scene = mt.load_dict(camera_dict(make, res=RES, spp=chunk,
+                                             max_depth=DEPTH))
+            check(scene.sensors[0].rfilter == "gaussian"
+                  and scene.static.sampler_kind == "stratified",
+                  f"{label}: not a gaussian / stratified scene")
+            torch.cuda.reset_peak_memory_stats()
+            median, counts = render_phase(label, scene, spp, chunk, expect)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof = profile_pass(f"{label}, one {chunk}-spp pass",
+                                lambda: mt.render(scene, spp=chunk, seed=7),
+                                names + ("roll",))
+            say(f"[{label}] peak device memory {peak:.2f} GiB")
+            out[label] = dict(median_ms=median, counts=counts, peak_gib=peak,
+                              profile=prof)
+            del scene
+        # -- PRB fwd+bwd: the mesh cell with the gaussian film --
+        mesh = mt.load_dict(camera_dict(cornell_box_mesh, res=RES,
+                                         spp=MESH_CHUNK, max_depth=DEPTH))
+        median, mrays, counts, (sc, lv) = train_phase(
+            "camera train mesh", mesh, MESH_CHUNK, MESH_PASSES,
+            {"bvh4_closest_hit": DEPTH, "bvh4_closest_hit_mp": 0,
+             "bvh4_any_hit": DEPTH, "mt_closest_hit": 0, "mt_any_hit": 0})
+        prof = profile_pass(f"camera train mesh, one {MESH_CHUNK}-spp "
+                            "fwd+bwd pass",
+                            lambda: fwd_bwd(sc, lv, MESH_CHUNK, 99),
+                            ("bvh4_closest", "bvh4_any", "roll"))
+        out["camera train mesh"] = dict(median_ms=median, mrays=mrays,
+                                        counts=counts, profile=prof)
+        del mesh, sc, lv
+        out["film"] = film_costs("gaussian film of a mesh pass", MESH_CHUNK)
+        # -- EPSM: a manifold iteration, gaussian sensor, stratified scene --
+        scene = mt.load_dict(camera_dict(cornell_box_mesh, res=EPSM_RES,
+                                         spp=EPSM_SPP, max_depth=DEPTH))
+        dev = scene.device
+        with torch.no_grad():
+            gt = mt.render(scene, spp=EPSM_SPP, seed=123,
+                           integrator={"type": "path", "max_depth": DEPTH})
+        gt_low = gt.reshape(-1, 3)
+        matcher = Matcher(EPSM_RES)
+        v0 = scene.vertices
+        ex = torch.tensor([1.0, 0.0, 0.0], device=dev)
+        integ = {"type": "manifold", "max_depth": DEPTH}
+
+        def iteration(seed):
+            theta = torch.tensor(0.01, device=dev, requires_grad=True)
+            sc = scene.set_vertices(v0 + theta * ex)
+            img = mt.render(sc, spp=EPSM_SPP, seed=seed, integrator=integ)
+            with torch.no_grad():
+                g5 = matcher.match_Sinkhorn(img[..., :3].reshape(-1, 3),
+                                            gt_low).reshape(EPSM_RES,
+                                                            EPSM_RES, 5)
+            (g,) = torch.autograd.grad(torch.sum(img * g5), theta)
+            return float(g)
+
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for i, run in enumerate(("warm-up", "timed 1", "timed 2")):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, kinds = seeded_kinds(lambda: iteration(i))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+            say(f"[camera epsm] {run}: {walls[-1]:.1f} ms, dL/dtheta "
+                f"{g:.6g}, sampler kinds seeded {kinds}, launches {counts}")
+            check(math.isfinite(g) and g != 0.0,
+                  f"camera epsm: gradient {g}")
+            check(kinds == ["independent", "independent"],
+                  f"camera epsm: the manifold pass seeded {kinds}, expected "
+                  "the independent sampler in the forward and the backward")
+            for k, n in {"bvh4_closest_hit": 4 * DEPTH + 1,
+                         "bvh4_any_hit": 3 * DEPTH}.items():
+                check(counts[k] == n, f"camera epsm: {k} launched "
+                      f"{counts[k]} times, expected {n}")
+        _, kinds = seeded_kinds(lambda: mt.render(scene, spp=1, seed=1))
+        check(kinds == ["stratified"], f"camera: PRB seeded {kinds}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        say(f"[camera epsm] cornell_box_mesh {EPSM_RES}^2 x {EPSM_SPP} spp, "
+            "gaussian sensor, stratified scene sampler (the manifold passes "
+            f"seed independent, PRB stratified): iterations "
+            f"{walls[1]:.1f} / {walls[2]:.1f} ms; peak device memory "
+            f"{peak:.2f} GiB")
+        out["camera epsm"] = dict(walls=walls[1:], counts=counts,
+                                  peak_gib=peak)
+        del scene
+        camera_card_vs_cpu()
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2789,6 +3139,13 @@ def main() -> int:
     gs = glassslab_phase()
     epsm_launches["launches_glassslab_run"] = gs["total"]
     say(f"[glassslab] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 17. [camera]: filters, samplers and sensors on every path ----------
+    t0 = time.perf_counter()
+    cam = camera_phase()
+    epsm_launches["launches_camera_phase"] = cam["total"]
+    say(f"[camera] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{cam['total']}")
 
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []

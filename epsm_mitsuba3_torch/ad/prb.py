@@ -33,33 +33,43 @@ from ..models.records import Ray
 from ..ops import intersect as I
 
 
-def _film_fn(values, weight, sensor, spp):
-    """Box-filter film of the pixel-major lanes (``_film_fn``)."""
-    return films.accumulate_coalesced(values * weight, sensor.width,
-                                      sensor.height, spp)
+def _film_fn(values, pos, weight, sensor, spp):
+    """The film of the pixel-major lanes (``_film_fn``, :93-101): the box
+    filter's per-pixel mean, or any other filter's scatter-free splat of
+    the samples at ``pos`` developed by a detached weight channel."""
+    value = values * weight
+    if sensor.rfilter == "box":
+        return films.accumulate_coalesced(value, sensor.width,
+                                          sensor.height, spp)
+    jitter = pos - torch.floor(pos)
+    data, w = films.splat_coalesced(jitter, value, sensor.width,
+                                    sensor.height, spp, sensor.rfilter)
+    return films.develop(data, w.detach())
 
 
-def film_adjoint(g_img, weight, sensor, spp: int, n: int) -> torch.Tensor:
+def film_adjoint(g_img, pos, weight, sensor, spp: int,
+                 n: int) -> torch.Tensor:
     """Per-lane adjoint radiance δL (n, 3) of the image cotangent
     ``g_img`` (``film_adjoint``, :104-108), by ``torch.autograd.grad``
     through the film."""
     with torch.enable_grad():
         values = torch.zeros((n, 3), dtype=g_img.dtype,
                              device=g_img.device, requires_grad=True)
-        img = _film_fn(values, weight, sensor, spp)
+        img = _film_fn(values, pos, weight, sensor, spp)
         (dL,) = torch.autograd.grad(img, values, g_img)
     return dL
 
 
 def _camera(scene, seed, sensor_idx, spp):
-    """The pass's sampler (advanced past the camera draw), camera rays and
-    film weights: the same in the forward and the replay."""
+    """The pass's sampler (the scene's kind, advanced past the camera
+    draws), camera rays, film weights and splat positions: the same in
+    the forward and the replay (:744-746)."""
     sensor = scene.sensors[sensor_idx]
     n = sensor.width * sensor.height * spp
-    sampler = smp.seed(seed, n, kind=scene.static.sampler_kind,
+    sampler = smp.seed(seed, n, kind=scene.static.sampler_kind, spp=spp,
                        device=scene.device)
-    sampler, ray, weight, _ = common.sample_rays(sensor, sampler, spp)
-    return sensor, n, sampler, ray, weight
+    sampler, ray, weight, pos = common.sample_rays(sensor, sampler, spp)
+    return sensor, n, sampler, ray, weight, pos
 
 
 def _replay_bounce(sc, leaves: Sequence[torch.Tensor], st: P.LoopState,
@@ -151,22 +161,22 @@ class _RenderPRB(torch.autograd.Function):
     @staticmethod
     def forward(ctx, scene, cfg, names, *leaves):
         seed, sensor_idx, spp, max_depth, rr_depth, multi_pop = cfg
-        sensor, _, sampler, ray, weight = _camera(scene, seed, sensor_idx,
-                                                  spp)
+        sensor, _, sampler, ray, weight, pos = _camera(scene, seed,
+                                                       sensor_idx, spp)
         L, _, trace = P.sample_primal_recorded(scene, sampler, ray,
                                                max_depth, rr_depth,
                                                multi_pop)
         ctx.scene, ctx.cfg, ctx.names = scene, cfg, names
         ctx.L, ctx.trace = L, trace
-        return _film_fn(L, weight, sensor, spp)
+        return _film_fn(L, pos, weight, sensor, spp)
 
     @staticmethod
     def backward(ctx, g_img):
         seed, sensor_idx, spp, max_depth, rr_depth, _ = ctx.cfg
         scene = ctx.scene
-        sensor, n, sampler, ray, weight = _camera(scene, seed, sensor_idx,
-                                                  spp)
-        dL = film_adjoint(g_img.contiguous(), weight, sensor, spp, n)
+        sensor, n, sampler, ray, weight, pos = _camera(scene, seed,
+                                                       sensor_idx, spp)
+        dL = film_adjoint(g_img.contiguous(), pos, weight, sensor, spp, n)
         grads = prb_backward(scene, ctx.names, sampler, ray, dL, ctx.L,
                              max_depth, rr_depth, ctx.trace)
         ctx.L = ctx.trace = None
@@ -200,8 +210,8 @@ def render_prb(scene, seed: int = 0, sensor_idx: int = 0, spp: int = 16,
         return _RenderPRB.apply(scene, cfg, names,
                                 *(leaves[k] for k in names))
     with torch.no_grad():
-        sensor, _, sampler, ray, weight = _camera(scene, seed, sensor_idx,
-                                                  spp)
+        sensor, _, sampler, ray, weight, pos = _camera(scene, seed,
+                                                       sensor_idx, spp)
         L, _ = P.sample_primal(scene, sampler, ray, max_depth, rr_depth,
                                multi_pop)
-        return _film_fn(L, weight, sensor, spp)
+        return _film_fn(L, pos, weight, sensor, spp)

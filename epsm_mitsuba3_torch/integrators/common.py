@@ -3,6 +3,8 @@ camera rays in the pixel-major lane order (lane = pixel * spp + s) and
 the MIS power heuristic, which is detached as in the reference."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..models import samplers as smp
@@ -18,16 +20,25 @@ def mis_weight(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
     return torch.where(pdf_a > 0.0, w, 0.0)
 
 
-def sample_rays(sensor: sns.Sensor, sampler: smp.Sampler, spp: int):
+def sample_rays(sensor: sns.Sensor, sampler: smp.Sampler, spp: int,
+                lane_offset: Optional[int] = None):
     """Wavefront of primary rays (common.py:291-422).
 
-    Returns (sampler, ray, weight, pos (N, 2) film position in pixels)."""
-    if sensor.rfilter != "box":
-        raise NotImplementedError(
-            f"rfilter '{sensor.rfilter}': the port has the box filter only")
+    Returns (sampler, ray, weight, pos (N, 2) splat position in pixels):
+    the pixel's corner for the box filter (common.py:418-420), the
+    jittered position for every other filter.  A ``thinlens`` sensor
+    draws a second 2-D sample for its aperture, whatever its radius.
+    ``lane_offset``: the rays of the global lanes [off, off + n) for a
+    sampler of n lanes (a shard of the wavefront); None: all
+    ``W * H * spp`` lanes."""
     w, h = sensor.width, sensor.height
     device = sensor.to_world.device
-    idx = torch.arange(w * h * spp, device=device) // spp
+    if lane_offset is None:
+        gidx = torch.arange(w * h * spp, device=device)
+    else:
+        n = sampler.rng.state.shape[0]
+        gidx = (torch.arange(n, device=device) + lane_offset) & smp.M32
+    idx = gidx // spp
     pos_y = (idx // w).to(torch.float32)
     pos_x = (idx % w).to(torch.float32)
 
@@ -35,7 +46,11 @@ def sample_rays(sensor: sns.Sensor, sampler: smp.Sampler, spp: int):
     pos_f = torch.stack([pos_x, pos_y], dim=-1) + jitter
     pos01 = torch.stack([pos_f[:, 0] * (1.0 / w), pos_f[:, 1] * (1.0 / h)],
                         dim=-1)
+    aperture = None
+    if sensor.kind == "thinlens":
+        sampler, aperture = smp.next_2d(sampler)
 
-    ray, weight = sns.sample_ray_differential(sensor, pos01)
-    # the box filter splats at the integer pixel position (common.py:418)
-    return sampler, ray, weight, torch.stack([pos_x, pos_y], dim=-1)
+    ray, weight = sns.sample_ray_differential(sensor, pos01, aperture)
+    if sensor.rfilter == "box":
+        return sampler, ray, weight, torch.stack([pos_x, pos_y], dim=-1)
+    return sampler, ray, weight, pos_f

@@ -31,7 +31,7 @@ from ..core import math as m
 from ..core import warp
 from ..integrators import common, path as P
 from ..models import bsdf as B
-from ..models import samplers as smp
+from ..models import films, samplers as smp
 from ..models.records import Ray, RayFlags
 from ..ops import cuda_traverse as CT
 from ..ops import intersect as I
@@ -622,13 +622,24 @@ def inject_gradients(scene, logs: PathLog, path_grad, light_grad,
 # ---------------------------------------------------------------------------
 
 def _primal(scene, seed, sensor_idx, spp, max_depth, rr_depth):
-    """The EPSM primal (epsm.py:13-82): the path tracer's image and two
-    zero position channels, (H, W, 5)."""
-    from ..ad import prb
-    sensor, _, sampler, ray, weight = prb._camera(scene, seed, sensor_idx,
-                                                  spp)
+    """The EPSM primal (epsm.py:13-82, :755-771): the path tracer's image
+    and two zero position channels, (H, W, 5).  It seeds the independent
+    sampler whatever the scene names, as the reference does (:759); a
+    filter other than the box is splatted by the general scatter
+    (``films.splat``, :763-769)."""
+    sensor = scene.sensors[sensor_idx]
+    n = sensor.width * sensor.height * spp
+    sampler = smp.seed(seed, n, device=scene.device)
+    sampler, ray, weight, pos = common.sample_rays(sensor, sampler, spp)
     L, _ = P.sample_primal(scene, sampler, ray, max_depth, rr_depth)
-    img = prb._film_fn(L, weight, sensor, spp)
+    value = L * weight
+    if sensor.rfilter == "box":
+        img = films.accumulate_coalesced(value, sensor.width, sensor.height,
+                                         spp)
+    else:
+        data, w = films.splat(pos, value, sensor.width, sensor.height,
+                              sensor.rfilter)
+        img = films.develop(data, w)
     zeros = torch.zeros(img.shape[:-1] + (2,), dtype=img.dtype,
                         device=img.device)
     return torch.cat([img, zeros], dim=-1)
@@ -684,12 +695,12 @@ def render_backward(scene, names: Sequence[str], grad_in, seed,
     of sum(image * ``grad_in``) w.r.t. the scene leaves ``names``.
 
     Runs on the backward sensor (the reference hard-codes sensor 2 at
-    128^2 and spp 8, epsm.py:142-145); falls back to the last sensor."""
+    128^2 and spp 8, epsm.py:142-145); falls back to the last sensor.
+    Seeds the independent sampler whatever the scene names (:797)."""
     s_idx = bwd_sensor_idx if bwd_sensor_idx >= 0 else len(scene.sensors) - 1
     sensor = scene.sensors[s_idx]
     n = sensor.width * sensor.height * bwd_spp
-    sampler = smp.seed(seed, n, kind=scene.static.sampler_kind,
-                       device=scene.device)
+    sampler = smp.seed(seed, n, device=scene.device)
     sampler, ray, weight, _ = common.sample_rays(sensor, sampler, bwd_spp)
     return backward_core(scene, names, grad_in, ray, sampler, 0, s_idx,
                          max_depth, rr_depth, caustic, bwd_spp, weight)
@@ -771,8 +782,10 @@ def backward_core(scene, names: Sequence[str], grad_in, ray: Ray, sampler,
         out[f"sensors.{s_idx}.to_world"] = tw
 
         # the colour-channel adjoint: a PRB replay with dL from the box
-        # film's adjoint, so colour-dependent OT losses reach material and
-        # radiance parameters beside the geometric manifold gradients (the
+        # film's adjoint, whatever the sensor's filter (each lane reads
+        # its own pixel, as the reference does, :820-827, :887), so
+        # colour-dependent OT losses reach material and radiance
+        # parameters beside the geometric manifold gradients (the
         # reference comments its ``dr.backward_from(δL * Lo)`` out,
         # epsm.py:733-738); the recording pass makes the replay traverse
         # nothing

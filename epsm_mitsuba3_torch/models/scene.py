@@ -10,14 +10,17 @@ renders: ``rectangle``/``cube``/``disk``/``sphere``/``cylinder`` shapes
 and ``instance`` (flattened at load) and ``merge``; ``diffuse``, the
 smooth ``conductor``, the GGX ``roughconductor`` and the smooth
 ``dielectric`` (optionally ``twosided``), also stand-alone with an
-``id`` and referenced by ``{"type": "ref"}``; ``area`` emitters,
-``perspective``, ``independent``, ``hdrfilm`` with a ``box`` filter,
-and the ``path``, ``prb``, ``manifold`` and ``manifold_caustic``
-integrators.  Any other plugin raises ``NotImplementedError`` with its
-name.  Shapes keep their names and vertex ranges, by which the
-experiments (``app/exp``) and ``traverse`` move them.  A scene of more
-than ``ops/accel.py`` ``BRUTE_FORCE_MAX_TRIS`` triangles gets a BVH at
-load, packed once into the records of kernels K2/K3.
+``id`` and referenced by ``{"type": "ref"}``; ``area`` emitters; the
+seven sensor kinds of ``models/sensors.py`` (``batch`` with perspective
+children), the five samplers of ``models/samplers.py``, ``hdrfilm``
+with any of the six filters of ``models/films.py`` (``gaussian`` where
+none is named); and the ``path``, ``prb``, ``manifold`` and
+``manifold_caustic`` integrators.  Any other plugin raises
+``NotImplementedError`` with its name.  Shapes keep their names and
+vertex ranges, by which the experiments (``app/exp``) and ``traverse``
+move them.  A scene of more than ``ops/accel.py``
+``BRUTE_FORCE_MAX_TRIS`` triangles gets a BVH at load, packed once into
+the records of kernels K2/K3.
 
 ``scene_from_arrays`` builds a scene from numpy arrays under the JAX
 ``Scene``'s field names: it carries the scene state between the two
@@ -42,12 +45,18 @@ from . import bsdf as bsdf_mod
 from . import emitters as em_mod
 from . import mesh_io
 from . import shapes as shapes_mod
+from . import films
+from . import samplers as smp_mod
+from . import sensors as sns_mod
 from .records import Ray, RayFlags
 from .sensors import Sensor
 
 #: per-vertex / per-face / per-shape arrays of the reference Scene
 GEOMETRY_FIELDS = ("vertices", "normals", "uvs", "faces", "face_shape",
                    "shape_bsdf", "shape_emitter", "em_faces")
+#: a sensor's float arrays, ``sensors.<i>.<name>`` (the batch sensor's
+#: sub-sensor transforms only where it has them)
+SENSOR_ARRAYS = ("to_world", "sub_to_world")
 
 
 @dataclass(frozen=True)
@@ -98,7 +107,8 @@ class Scene:
         """The differentiable leaves by name: every float tensor of the
         scene state, i.e. the float geometry fields, the float columns of
         the BSDF and emitter tables (``bsdfs.<k>``, ``emitters.<k>``) and
-        each sensor's ``sensors.<i>.to_world``.  The BVH and its packed
+        each sensor's ``sensors.<i>.to_world`` (and a batch sensor's
+        ``sensors.<i>.sub_to_world``).  The BVH and its packed
         records derive from the vertices and are no leaves."""
         out = {k: getattr(self, k) for k in GEOMETRY_FIELDS
                if getattr(self, k).is_floating_point()}
@@ -107,7 +117,9 @@ class Scene:
                         for k, v in getattr(self, prefix).items()
                         if v.is_floating_point()})
         for i, sensor in enumerate(self.sensors):
-            out[f"sensors.{i}.to_world"] = sensor.to_world
+            for k in SENSOR_ARRAYS:
+                if getattr(sensor, k) is not None:
+                    out[f"sensors.{i}.{k}"] = getattr(sensor, k)
         return out
 
     def with_leaves(self, leaves: Mapping[str, torch.Tensor]) -> "Scene":
@@ -121,8 +133,8 @@ class Scene:
                           if k.startswith(prefix + ".")})
             kw[prefix] = table
         kw["sensors"] = tuple(
-            replace(s, to_world=leaves.get(f"sensors.{i}.to_world",
-                                           s.to_world))
+            replace(s, **{k: leaves.get(f"sensors.{i}.{k}", getattr(s, k))
+                          for k in SENSOR_ARRAYS})
             for i, s in enumerate(self.sensors))
         return replace(self, **kw)
 
@@ -162,7 +174,7 @@ class Scene:
 
 _SHAPE_TYPES = ("obj", "ply", "serialized", "rectangle", "cube", "disk",
                 "sphere", "cylinder", "instance", "shapegroup", "mesh")
-_SENSOR_TYPES = ("perspective",)
+_SENSOR_TYPES = sns_mod.KINDS
 _INTEGRATOR_TYPES = ("path", "prb", "manifold", "manifold_caustic")
 
 
@@ -418,21 +430,61 @@ class _Builder:
 
     # -- sensor (_Builder.add_sensor) ---------------------------------------
     def add_sensor(self, d: dict):
+        """A sensor row (``_Builder.add_sensor``, :847-911).  A ``batch``
+        sensor tiles its perspective children side by side on its film,
+        whose width must divide by their number (batch.cpp:49-58); as in
+        the reference, it sets the scene's spp but not its sampler kind."""
         film = d.get("film", {})
         if film.get("type", "hdrfilm") != "hdrfilm":
             raise NotImplementedError(f"film '{film['type']}' is not ported")
         sampler = d.get("sampler", {})
         rf = film.get("rfilter", {})
         rfk = rf.get("type", "gaussian") if isinstance(rf, dict) else str(rf)
+        if rfk not in films.FILTERS:
+            raise NotImplementedError(f"rfilter '{rfk}' is not ported")
         self.spp = int(sampler.get("sample_count", self.spp))
-        self.sampler_kind = sampler.get("type", self.sampler_kind)
+        if d.get("type") == "batch":
+            subs = [v for v in d.values() if isinstance(v, dict)
+                    and v.get("type") in _SENSOR_TYPES
+                    and v.get("type") != "batch"]
+            if not subs:
+                raise ValueError("batch sensor needs nested sensors")
+            for sub in subs:
+                if sub.get("type") != "perspective":
+                    raise ValueError(
+                        "batch sensor: only perspective sub-sensors are "
+                        f"supported (got {sub.get('type')!r})")
+            sub_tw = np.stack([_transform(sub.get("to_world"))
+                               for sub in subs])
+            w0 = int(subs[0].get("film", {}).get("width", 256))
+            h0 = int(subs[0].get("film", {}).get("height", 256))
+            bw = int(film.get("width", w0 * len(subs)))
+            if bw % len(subs) != 0:
+                raise ValueError(
+                    f"batch sensor: film width {bw} must be divisible by "
+                    f"the number of child sensors {len(subs)} "
+                    "(batch.cpp:50-54)")
+            self.sensors.append(dict(
+                to_world=sub_tw[0], sub_to_world=sub_tw, kind="batch",
+                width=bw, height=int(film.get("height", h0)), rfilter=rfk,
+                sub_fov_x=tuple(float(sub.get("fov", 45.0))
+                                for sub in subs)))
+            return
+        kind = sampler.get("type", self.sampler_kind)
+        if kind not in smp_mod.KINDS:
+            raise NotImplementedError(f"sampler '{kind}' is not ported")
+        self.sampler_kind = kind
         self.sensors.append(dict(
             to_world=_transform(d.get("to_world")),
             kind=d.get("type", "perspective"),
             fov_x=float(d.get("fov", 45.0)),
+            near=float(d.get("near_clip", 1e-2)),
+            far=float(d.get("far_clip", 1e4)),
             width=int(film.get("width", 256)),
             height=int(film.get("height", 256)),
-            rfilter=rfk))
+            rfilter=rfk,
+            aperture_radius=float(d.get("aperture_radius", 0.0)),
+            focus_distance=float(d.get("focus_distance", 1.0))))
 
     def arrays(self) -> Dict[str, np.ndarray]:
         """The scene state under the reference Scene's field names."""
@@ -461,7 +513,9 @@ class _Builder:
             for k in rows[0]:
                 out[f"{prefix}.{k}"] = np.asarray([r[k] for r in rows])
         for i, s in enumerate(self.sensors):
-            out[f"sensors.{i}.to_world"] = s["to_world"]
+            for k in SENSOR_ARRAYS:
+                if k in s:
+                    out[f"sensors.{i}.{k}"] = s[k]
         return out
 
 
@@ -493,7 +547,7 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
                 f"scene element '{key}' of type '{t}' is not ported")
     if not b.sensors:
         b.add_sensor({"type": "perspective"})
-    sensors = [{k: v for k, v in s.items() if k != "to_world"}
+    sensors = [{k: v for k, v in s.items() if k not in SENSOR_ARRAYS}
                for s in b.sensors]
     return scene_from_arrays(b.arrays(), sensors=sensors,
                              integrator=b.integrator, spp=b.spp,
@@ -512,14 +566,16 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     """Build a Scene from numpy arrays named as the reference Scene's
     fields: ``vertices``, ``normals``, ``uvs``, ``faces``, ``face_shape``,
     ``shape_bsdf``, ``shape_emitter``, ``em_faces``, the table columns
-    ``bsdfs.<field>`` and ``emitters.<field>``, and ``sensors.<i>.to_world``.
+    ``bsdfs.<field>`` and ``emitters.<field>``, ``sensors.<i>.to_world``
+    and, for a batch sensor, ``sensors.<i>.sub_to_world``.
     Table columns the port does not use are ignored.
 
     ``vertex_colors`` (V, 3) is taken where it is given, zeros
     otherwise.
 
     ``sensors``: per sensor, the static fields of ``Sensor`` other than
-    ``to_world`` (kind, fov_x, width, height, rfilter, ...).
+    its arrays (kind, fov_x, near, far, width, height, rfilter,
+    aperture_radius, focus_distance, sub_fov_x).
     ``integrator``: the scene's integrator properties (type, max_depth,
     rr_depth).  ``shape_names`` / ``vertex_ranges``: per shape its name
     and (vertex_start, vertex_count).  ``device=None`` means the GPU; without CUDA that raises.
@@ -561,7 +617,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     bsdf_mod.check_kinds(bsdf_kinds)
     em_mod.check_kinds(emitter_kinds)
     sensor_objs = tuple(
-        Sensor(to_world=t(arrays[f"sensors.{i}.to_world"], torch.float32),
+        Sensor(**{k: t(arrays[f"sensors.{i}.{k}"], torch.float32)
+                  for k in SENSOR_ARRAYS if f"sensors.{i}.{k}" in arrays},
                **dict(s))
         for i, s in enumerate(sensors))
     static = SceneStatic(

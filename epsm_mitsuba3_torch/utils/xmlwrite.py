@@ -7,6 +7,8 @@ import numpy as np
 
 _PLUGIN_CATEGORY = {
     "perspective": "sensor", "thinlens": "sensor", "orthographic": "sensor",
+    "distant": "sensor", "radiancemeter": "sensor",
+    "irradiancemeter": "sensor", "batch": "sensor",
     "hdrfilm": "film", "specfilm": "film",
     "independent": "sampler", "stratified": "sampler",
     "multijitter": "sampler", "orthogonal": "sampler",

@@ -89,3 +89,25 @@ def test_cli_writes_pfm_and_refuses_unknown_formats(images, tmp_path):
     with pytest.raises(ValueError, match="format"):
         CT.main([path, "-o", str(tmp_path / "o.tiff"), *ARGS,
                  "--device", "cpu"])
+
+
+def test_cli_default_gaussian_filter_equals_jax(tmp_path):
+    """A scene file with no ``<rfilter>`` and a stratified sampler renders
+    through the CLI with the hdrfilm's default gaussian filter, as JAX's
+    CLI does, within the render tolerance."""
+    text = XML.replace('      <rfilter type="box"/>\n', "").replace(
+        'sampler type="independent"', 'sampler type="stratified"')
+    assert "rfilter" not in text
+    scene = tmp_path / "g.xml"
+    scene.write_text(text)
+    out_t, out_j = tmp_path / "t.exr", tmp_path / "j.exr"
+    assert CT.main([str(scene), "-o", str(out_t), *ARGS,
+                    "--device", "cpu"]) == 0
+    assert CJ.main([str(scene), "-o", str(out_j), *ARGS]) == 0
+    img_t = mt.read_image(str(out_t)).data
+    assert img_t.shape == (16, 16, 3) and img_t.mean() > 0.01
+    assert_images_close(img_t, read_j(str(out_j)).data)
+    sc = mt.load_file(str(scene), {"albedo": "0.6, 0.5, 0.4", "res": "16"},
+                      device="cpu")
+    assert sc.sensors[0].rfilter == "gaussian"
+    assert sc.static.sampler_kind == "stratified"

@@ -262,3 +262,36 @@ def test_constraint_frame_matches_jax():
     ref = np.asarray(EJ.to_constraint_local(jnp.asarray(n), jnp.asarray(v)))
     got = ET.to_constraint_local(_t(n), _t(v)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_manifold_seeds_independent_on_a_stratified_scene():
+    """The EPSM primal and backward seed the independent sampler whatever
+    the scene names, as the reference does (``integrators/epsm.py:759``,
+    ``:797``): on a scene whose sampler is ``stratified`` the port's
+    ``manifold`` render equals JAX's pixel for pixel (a stratified
+    forward would draw other samples on every lane) and its backward
+    from a seeded 5-channel cotangent gives JAX's gradients (within 1e-3
+    of each largest entry, ``tests/test_torch_epsm_backward.py``).  PRB
+    and ``path`` keep the scene's kind."""
+    from test_torch_render import assert_images_close
+    d = cornell_box_jax(res=8, spp=2, max_depth=2)
+    d["sensor"]["sampler"]["type"] = "stratified"
+    sj = mi.load_dict(d)
+    st = port_scene_of(sj)
+    assert st.static.sampler_kind == sj.static.sampler_kind == "stratified"
+    ref = np.asarray(EJ.render_epsm(sj, seed=3, spp=2, max_depth=2))
+    img = ET.render_epsm(st, seed=3, spp=2, max_depth=2).numpy()
+    assert img.shape == ref.shape == (8, 8, 5) and img[..., :3].mean() > 0
+    assert_images_close(img, ref)
+    names = ("vertices", "bsdfs.reflectance", "sensors.0.to_world")
+    g = np.random.default_rng(5).normal(size=(8, 8, 5)).astype(
+        np.float32) * 0.05
+    ref = jax.jit(EJ.render_backward, static_argnums=(3, 4, 5, 6, 7))(
+        sj, jnp.asarray(g), jnp.uint32(3), 2, 5, False, -1, 2)
+    got = ET.render_backward(st, names, torch.from_numpy(g), 3, 2, 5, False,
+                             -1, 2)
+    for k, r in (("vertices", ref.vertices),
+                 ("bsdfs.reflectance", ref.bsdfs["reflectance"]),
+                 ("sensors.0.to_world", ref.sensors[0].to_world)):
+        assert np.abs(np.asarray(r)).max() > 0, k
+        _close_to_max(got[k].numpy(), r, 1e-3, k)

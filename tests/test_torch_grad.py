@@ -216,6 +216,6 @@ def test_film_adjoint_matches_jax():
     pos = jnp.zeros((n, 2), jnp.float32)
     ref = prb_j.film_adjoint(jnp.asarray(g), pos, jnp.ones((n, 3)),
                              sensor_j, spp, n)
-    got = prb_t.film_adjoint(torch.from_numpy(g), torch.ones(n, 3),
-                             st.sensors[0], spp, n)
+    got = prb_t.film_adjoint(torch.from_numpy(g), torch.zeros(n, 2),
+                             torch.ones(n, 3), st.sensors[0], spp, n)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

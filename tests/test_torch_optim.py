@@ -90,8 +90,10 @@ def test_optimizer_reset_and_reshape():
     assert torch.isfinite(o["x"]).all()
 
 
-def _box_case():
-    sj = mi.load_dict(cornell_box_jax(res=16, spp=4, max_depth=3))
+def _box_case(d=None):
+    """``run``'s experiment dicts in both packages: the left wall's
+    reflectance of ``d`` (default ``cornell_box(16, 4, 3)``) as theta."""
+    sj = mi.load_dict(d or cornell_box_jax(res=16, spp=4, max_depth=3))
     st = port_scene_of(sj)
     row = int(np.asarray(sj.shape_bsdf)[3])          # the left wall
     rows = np.arange(np.asarray(sj.bsdfs["reflectance"]).shape[0]) == row

@@ -26,6 +26,9 @@ from epsm_mitsuba3_torch.models.scene import GEOMETRY_FIELDS
 from epsm_mitsuba3_torch.ops.bvh import ARRAY_FIELDS as BVH_FIELDS
 from epsm_mitsuba3_torch.scenes import cornell_box
 
+#: a Sensor's static fields, the same in both packages
+SENSOR_STATIC = ("kind", "fov_x", "near", "far", "width", "height",
+                 "rfilter", "aperture_radius", "focus_distance", "sub_fov_x")
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 RES, SPP, DEPTH = 32, 4, 4
 
@@ -38,6 +41,8 @@ def jax_arrays(sj) -> dict:
                 for k, v in sj.emitters.items()})
     for i, s in enumerate(sj.sensors):
         out[f"sensors.{i}.to_world"] = np.asarray(s.to_world)
+        if s.sub_to_world is not None:
+            out[f"sensors.{i}.sub_to_world"] = np.asarray(s.sub_to_world)
     if sj.bvh is not None:
         out.update({f"bvh.{k}": np.asarray(getattr(sj.bvh, k))
                     for k in BVH_FIELDS})
@@ -46,8 +51,8 @@ def jax_arrays(sj) -> dict:
 
 def port_scene_of(sj, device="cpu"):
     """The port's Scene holding the JAX scene's state."""
-    sensors = [dict(kind=s.kind, fov_x=s.fov_x, width=s.width,
-                    height=s.height, rfilter=s.rfilter) for s in sj.sensors]
+    sensors = [{f: getattr(s, f) for f in SENSOR_STATIC}
+               for s in sj.sensors]
     st = sj.static
     return mt.scene_from_arrays(jax_arrays(sj), sensors=sensors,
                                 integrator=dict(st.integrator), spp=st.spp,
@@ -111,7 +116,7 @@ def test_load_dict_arrays_equal_jax(scenes):
     np.testing.assert_array_equal(st.sensors[0].to_world.numpy(),
                                   ref["sensors.0.to_world"])
     s_j, s_t = sj.sensors[0], st.sensors[0]
-    for f in ("kind", "fov_x", "width", "height", "rfilter"):
+    for f in SENSOR_STATIC:
         assert getattr(s_t, f) == getattr(s_j, f), f
     assert st.static.bsdf_kinds == sj.static.bsdf_kinds
     assert st.static.emitter_kinds == sj.static.emitter_kinds
