@@ -78,8 +78,9 @@ Phases (any failed check raises, and the script exits non-zero):
     iterations at thres 2 (the switch to PRB and the Adam reset run): ms,
     loss, theta and K1 launches an iteration, each count exact;
 13. [epsm card vs cpu]: a manifold_caustic theta gradient on cornellbox at
-    32^2 on the card and on the CPU, and the Sinkhorn matcher at 128^2 on
-    the card and the CPU against float64;
+    32^2 on the card and on the CPU, and the Sinkhorn matcher at 64^2
+    (the mesh phase's 128^2 inputs resized) on the card and the CPU
+    against float64;
 14. [epsm experiments]: ``run`` on ``app/exp``'s egg (a glass sphere,
     manifold_caustic, depth 6), glossyball (a GGX rough-conductor sphere,
     theta its translation and roughness), highlight (a rough-conductor
@@ -123,7 +124,21 @@ Phases (any failed check raises, and the script exits non-zero):
     card against the CPU at 64^2: every filter with the independent and
     the stratified sampler, each sampler kind at spp 16 and 9, each
     sensor kind (a thin lens of aperture 0.08, a batch sensor of two
-    views), PRB gradients through two films, the manifold backward.
+    views), PRB gradients through two films, the manifold backward;
+18. [emitters]: the box (K1) at 512^2 x 64 spp with each new light kind
+    beside its area light (point, spot, directional, constant, a 512 x
+    1024 envmap written as EXR and loaded by file name, a projector with
+    a checkerboard, directionalarea on the ceiling light), the constant
+    light alone and no emitter (exactly 0): a warm-up and 3 timed renders
+    each, K1 launches exact, one profiled pass, peak memory; the mesh's
+    fwd+bwd cell with the envmap and a point light (K2/K3 exact, the
+    gradients of the vertices through set_vertices, of radiance,
+    intensity and the texels finite and non-zero); one manifold
+    iteration of the epsm-mesh cell with a constant light after the area
+    light (ms by phase); the envmap sampler alone at 2^20 lanes, the
+    bisection against the compare-sum (ms, memory, equal texels); the
+    card against the CPU at 64^2 for every case (images), each new kind's
+    PRB gradients and the manifold backward with the constant light.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -178,6 +193,10 @@ EPSM_RES, EPSM_SPP, EPSM_ITERS = 128, 8, 4
 #: 256 and a ground truth at 64 spp of the default 512, to fit the time
 #: limit; 3 iterations of manifold_caustic_hybrid with thres 2
 CB_RES, CB_SPP, CB_GT_SPP, CB_ITERS, CB_THRES = 512, 32, 64, 3, 2
+#: [epsm card vs cpu]: the matcher held card against CPU at 64^2 (the
+#: mesh phase's 128^2 inputs resized): its CPU side at 128^2 took 168 s
+#: of a run on a slow host, a seventh of the script's time limit
+MATCH_CMP_RES = 64
 #: [epsm experiments]: app/exp's egg, glossyball, highlight and shadow at
 #: their published widths (512^2, match_res 128, each config's depth and
 #: method; shadow's 400 spheres), EXP_ITERS iterations of run(); (config,
@@ -1650,7 +1669,8 @@ def epsm_mesh_phase():
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         prof = profile_pass("epsm mesh, one manifold iteration",
                             lambda: iteration(99),
-                            ("bvh4_closest", "bvh4_any"))
+                            ("bvh4_closest", "bvh4_any"), cpu=False,
+                            table=False)
         timer.read()
     finally:
         timer.close()
@@ -1740,7 +1760,7 @@ def epsm_cornellbox_phase():
     prof = profile_pass("epsm cornellbox, one manifold_caustic iteration "
                         "(and a 1-spp ground truth)",
                         lambda: optim.run("manifold_caustic", exp, iters=1),
-                        ("mt_closest", "mt_any"))
+                        ("mt_closest", "mt_any"), cpu=False, table=False)
     return dict(rows=rows, total=total, wall=wall, peak_gib=peak,
                 profile=prof)
 
@@ -1750,12 +1770,12 @@ def epsm_card_vs_cpu(x, y):
     cornellbox at 32^2, spp 4, match_res 32, depth 4, on the card and on
     the CPU (the plain versions), both through one OT gradient (the
     card's matcher on the card's render): relative L2 <= 1e-3, as the
-    other gradient checks; (ii) the Sinkhorn matcher at 128^2 on the
-    mesh phase's inputs on the card and on the CPU in float32, and on the
-    card in float64: at eps = 1e-4 float32 is itself ~1e-3 of the largest
-    entry off the exact result, so the check is relative L2 <= 1e-2 and a
-    largest difference within twice the larger of the two float32
-    results' distances to float64."""
+    other gradient checks; (ii) the Sinkhorn matcher at MATCH_CMP_RES^2
+    on the mesh phase's inputs (resized from 128^2) on the card and on
+    the CPU in float32, and on the card in float64: at eps = 1e-4 float32
+    is itself ~1e-3 of the largest entry off the exact result, so the
+    check is relative L2 <= 1e-2 and a largest difference within twice
+    the larger of the two float32 results' distances to float64."""
     import torch
     import epsm_mitsuba3_torch as mt
     from epsm_mitsuba3_torch.app import optim
@@ -1795,13 +1815,16 @@ def epsm_card_vs_cpu(x, y):
     check(err <= 1e-3, f"epsm: card and CPU theta gradients differ by {err}")
     check(float(grads["cpu"].abs().max()) > 0, "epsm: zero theta gradient")
 
+    res = MATCH_CMP_RES
+    x, y = (optim._resize(v.reshape(EPSM_RES, EPSM_RES, 3), res).reshape(
+        -1, 3) for v in (x, y))
     t0 = time.perf_counter()
-    g_card = Matcher(EPSM_RES).match_Sinkhorn(x, y)
+    g_card = Matcher(res).match_Sinkhorn(x, y)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    g64 = Matcher(EPSM_RES).match_Sinkhorn(x.double(), y.double())
+    g64 = Matcher(res).match_Sinkhorn(x.double(), y.double())
     t0 = time.perf_counter()
-    g_cpu = Matcher(EPSM_RES, device="cpu").match_Sinkhorn(x.cpu(), y.cpu())
+    g_cpu = Matcher(res, device="cpu").match_Sinkhorn(x.cpu(), y.cpu())
     cpu_s = time.perf_counter() - t0
     g_card, g64 = g_card.cpu(), g64.cpu()
     top = float(g64.abs().max())
@@ -1812,8 +1835,8 @@ def epsm_card_vs_cpu(x, y):
     e_cc, e_card, e_cpu = far(g_card, g_cpu), far(g_card, g64), far(g_cpu,
                                                                      g64)
     l2 = rel_l2(g_card.double(), g_cpu.double())
-    say(f"[epsm card vs cpu] match_Sinkhorn at {EPSM_RES}^2 ({x.shape[0]} "
-        f"points, the mesh phase's inputs): card {card_s:.2f} s, cpu "
+    say(f"[epsm card vs cpu] match_Sinkhorn at {res}^2 ({x.shape[0]} "
+        f"points, the mesh phase's inputs resized): card {card_s:.2f} s, cpu "
         f"{cpu_s:.2f} s; largest |difference| / largest |g64|: card-cpu "
         f"{e_cc:.3g}, card-f64 {e_card:.3g}, cpu-f64 {e_cpu:.3g}; relative "
         f"L2 card-cpu {l2:.3g}  [limits: L2 1e-2, card-cpu <= 2 x "
@@ -2952,6 +2975,421 @@ def camera_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# [emitters]: every emitter kind on every render path
+# ---------------------------------------------------------------------------
+
+#: [emitters]: the box's cases, in order: each new kind beside the box's
+#: area light, then the constant light alone and no emitter at all
+EM_CASES = ("point", "spot", "directional", "constant", "envmap",
+            "projector", "directionalarea", "constant only", "no emitter")
+#: timed renders a case (after a warm-up); the envmap's lat-long size;
+#: lanes of the envmap sampler timed alone
+EM_RENDERS, EM_ENV_HW, EM_SAMPLER_LANES = 3, (512, 1024), 2 ** 20
+
+
+def emitter_lights(tmp, env_hw=EM_ENV_HW):
+    """The lights of [emitters] by case, each a dict of scene entries: a
+    point light and a spot aimed down below the ceiling light, a
+    directional light through the box's open front, a constant
+    environment, an envmap (a lat-long map made from the script's seed,
+    written as EXR with the port's ``core/bitmap.py`` into ``tmp`` and
+    loaded through ``filename``) and a projector with a checkerboard."""
+    import os
+    import numpy as np
+    from epsm_mitsuba3_torch.core.bitmap import write_image
+    from epsm_mitsuba3_torch.core.transform import ScalarTransform4f as T
+    r = np.random.default_rng(12)
+    path = os.path.join(tmp, "sky.exr")
+    write_image(path, (r.random((*env_hw, 3)) ** 4 * 4).astype(np.float32))
+    return {
+        "point": {"bulb": {"type": "point", "position": [0.0, 1.6, 0.2],
+                           "intensity": [2.0, 1.8, 1.5]}},
+        "spot": {"spot": {"type": "spot", "to_world": T.look_at(
+            origin=[0, 1.8, 0], target=[0, 0, 0], up=[0, 0, 1]).matrix,
+            "intensity": 6.0, "cutoff_angle": 35.0}},
+        "directional": {"sun": {"type": "directional",
+                                "direction": [0.2, -0.5, -1.0],
+                                "irradiance": [2.0, 1.9, 1.6]}},
+        "constant": {"sky": {"type": "constant", "radiance": 0.5}},
+        "envmap": {"env": {"type": "envmap", "filename": path,
+                           "scale": 0.5}},
+        "projector": {"slide": {"type": "projector", "to_world": T.look_at(
+            origin=[0, 1, 2.5], target=[0, 1, -1], up=[0, 1, 0]).matrix,
+            "fov": 40.0, "scale": 10.0, "irradiance": {
+                "type": "checkerboard", "color0": [1.0, 0.1, 0.1],
+                "color1": [0.1, 0.1, 1.0], "uv_scale": 4.0}}},
+    }
+
+
+def emitter_box(case, lights, res, spp, face_normals=False):
+    """``cornell_box(res, spp, DEPTH)`` lit for ``case`` (``EM_CASES``):
+    directionalarea on the ceiling light's own shape."""
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    d = cornell_box(res=res, spp=spp, max_depth=DEPTH)
+    if face_normals:
+        for k in ("floor", "ceiling", "back", "left", "right"):
+            d[k]["face_normals"] = True
+    if case == "directionalarea":
+        d["light"]["emitter"]["type"] = "directionalarea"
+    elif case == "no emitter":
+        del d["light"]
+    elif case == "constant only":
+        del d["light"]
+        d.update(lights["constant"])
+    else:
+        d.update(lights[case])
+    return d
+
+
+def emitter_leaves(scene, names=None):
+    """The scene's emitter leaves that a gradient can reach, with copies
+    that require grad: the lights' radiance, intensity and irradiance and
+    each texture's texels (or just ``names``)."""
+    keep = names or ("bsdfs.reflectance", "emitters.radiance",
+                     "emitters.intensity", "emitters.irradiance")
+    return {k: v.clone().requires_grad_(True)
+            for k, v in scene.leaves().items()
+            if k in keep or (names is None and k.startswith("textures.")
+                             and k.endswith(".data"))}
+
+
+def emitters_box_cell(lights, res=RES, spp=SPP, chunk=SPP_CHUNK):
+    """emitters-box-512-64spp: each case of ``EM_CASES`` at the box render
+    cell's size (K1): a warm-up and EM_RENDERS timed renders, the K1
+    launches of each (exact), the image finite, non-zero (exactly 0 with
+    no emitter), one profiled pass, the peak memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    out = {}
+    n_passes = spp // chunk
+    expect = {"mt_closest_hit": DEPTH * n_passes,
+              "mt_any_hit": DEPTH * n_passes, "bvh4_closest_hit": 0,
+              "bvh4_any_hit": 0}
+    for case in EM_CASES:
+        scene = mt.load_dict(emitter_box(case, lights, res, chunk))
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for run in ["warm-up"] + [f"timed {i + 1}"
+                                  for i in range(EM_RENDERS)]:
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = mt.render(scene, spp=spp, spp_chunk=chunk, seed=0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+            for k, n in expect.items():
+                check(counts[k] == n, f"emitters box {case}: {k} launched "
+                      f"{counts[k]} times, expected {n}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(tuple(img.shape) == (res, res, 3)
+              and bool(torch.isfinite(img).all()),
+              f"emitters box {case}: image {tuple(img.shape)} not finite")
+        mean = float(img.mean())
+        if case == "no emitter":
+            check(bool((img == 0).all()), "emitters box: a scene without "
+                  "an emitter gave a non-zero pixel")
+        else:
+            check(mean > 0, f"emitters box {case}: black image")
+        prof = profile_pass(f"emitters box {case}, one {chunk}-spp pass",
+                            lambda: mt.render(scene, spp=chunk, seed=7),
+                            ("mt_closest", "mt_any"), cpu=False,
+                            table=False)
+        ws = sorted(walls[1:])
+        say(f"[emitters box] {case}: {res}^2 x {spp} spp in passes of "
+            f"{chunk}, kinds {scene.static.emitter_kinds}: wall median "
+            f"{ws[len(ws) // 2]:.1f} ms (range {ws[0]:.1f}-{ws[-1]:.1f}); "
+            f"launches {counts}; image mean {mean:.5f}; peak device memory "
+            f"{peak:.2f} GiB; busy of a pass "
+            + (f"{prof['busy']:.1f} of {prof['wall']:.1f} ms "
+               f"({100 * prof['busy'] / prof['wall']:.1f} %), "
+               f"{prof['launches']} launches" if prof else "not measured"))
+        out[case] = dict(median_ms=ws[len(ws) // 2],
+                         range_ms=(ws[0], ws[-1]), counts=counts, mean=mean,
+                         peak_gib=peak, profile=prof)
+        del scene, img
+    return out
+
+
+def emitters_mesh_cell(lights, res=RES, spp=MESH_CHUNK, passes=MESH_PASSES):
+    """emitters-mesh-512-8spp-fwdbwd: cornell_box_mesh (outward normals on
+    its sphere, ``blob_normals``) with the envmap and a point light added,
+    ``passes`` fwd+bwd passes (the loss
+    ``mean(img^2)``) a run, a warm-up and 3 timed runs: K2/K3 launches
+    exact in each forward, none in the backward; the gradients of the
+    vertices (through ``set_vertices``), the lights' radiance and
+    intensity and the envmap's texels finite and non-zero."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    d = blob_normals(cornell_box_mesh(res=res, spp=spp, max_depth=DEPTH))
+    d.update(lights["envmap"])
+    d.update(lights["point"])
+    scene = mt.load_dict(d)
+    env = scene.static.env_texture
+    names = ("emitters.radiance", "emitters.intensity",
+             f"textures.{env}.data")
+    expect = {"bvh4_closest_hit": DEPTH, "bvh4_any_hit": DEPTH,
+              "bvh4_closest_hit_mp": 0, "mt_closest_hit": 0,
+              "mt_any_hit": 0}
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for run in ["warm-up", "timed 1", "timed 2", "timed 3"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(passes):
+            v = scene.vertices.clone().requires_grad_(True)
+            lv = emitter_leaves(scene, names)
+            sc = scene.set_vertices(v).with_leaves(lv)
+            zero_counts()
+            img = mt.render(sc, spp=spp, seed=p + 1)
+            loss = torch.mean(img ** 2)
+            fwd = read_counts()
+            zero_counts()
+            grads = torch.autograd.grad(loss, [v, *lv.values()])
+            bwd = read_counts()
+            for k, n in expect.items():
+                check(fwd[k] == n, f"emitters mesh: {k} launched {fwd[k]} "
+                      f"times in a forward, expected {n}")
+            check(sum(bwd.values()) == 0,
+                  f"emitters mesh: the replay launched kernels: {bwd}")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        norms = {k: float(g.norm()) for k, g in
+                 zip(("vertices",) + names, grads)}
+        say(f"[emitters mesh] {run}: {walls[-1]:.1f} ms for {passes} "
+            f"passes, loss {float(loss):.6g}; |grad| "
+            + ", ".join(f"{k} {n:.4g}" for k, n in norms.items()))
+        for k, g in zip(("vertices",) + names, grads):
+            check(bool(torch.isfinite(g).all()) and norms[k] > 0,
+                  f"emitters mesh: the gradient of {k} is not finite and "
+                  "non-zero")
+    CT.raise_on_overflow(scene.device)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ws = sorted(walls[1:])
+    rays = res * res * spp * DEPTH * 2 * passes
+    mrays = rays / (ws[1] / 1e3) / 1e6
+    say(f"[emitters mesh] cornell_box_mesh + envmap {EM_ENV_HW} + point, "
+        f"{res}^2 x {spp} spp, {passes} fwd+bwd passes: wall median "
+        f"{ws[1]:.1f} ms (range {ws[0]:.1f}-{ws[-1]:.1f}); {mrays:.2f} "
+        f"physical Mrays/s fwd+bwd; forward launches {fwd}; peak device "
+        f"memory {peak:.2f} GiB")
+    return dict(median_ms=ws[1], range_ms=(ws[0], ws[-1]), mrays=mrays,
+                counts=fwd, peak_gib=peak)
+
+
+def emitters_epsm_cell(lights, res=EPSM_RES, spp=EPSM_SPP):
+    """emitters-epsm-mesh-128-8spp: the epsm-mesh cell with a constant
+    environment added after the area light (so that emitter row 0 stays
+    the area light): a warm-up and one timed ``manifold`` iteration, ms
+    by phase (CUDA events), K2/K3 launches exact, the gradient finite and
+    non-zero, the peak memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    d = cornell_box_mesh(res=res, spp=spp, max_depth=DEPTH)
+    d.update(lights["constant"])
+    scene = mt.load_dict(d)
+    check(int(scene.emitters["kind"][0]) == 0,
+          "emitters epsm: row 0 is not the area light")
+    dev = scene.device
+    with torch.no_grad():
+        gt = mt.render(scene, spp=spp, seed=123,
+                       integrator={"type": "path", "max_depth": DEPTH})
+    gt_low = gt.reshape(-1, 3)
+    matcher = Matcher(res)
+    v0 = scene.vertices
+    ex = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    integ = {"type": "manifold", "max_depth": DEPTH}
+    timer = epsm_backward_timer()
+
+    def iteration(seed):
+        theta = torch.tensor(0.01, device=dev, requires_grad=True)
+        sc = scene.set_vertices(v0 + theta * ex)
+        img = timer.wrap_call("forward render", lambda: mt.render(
+            sc, spp=spp, seed=seed, integrator=integ))
+        with torch.no_grad():
+            g5 = timer.wrap_call("Sinkhorn match", lambda: (
+                matcher.match_Sinkhorn(img[..., :3].reshape(-1, 3),
+                                       gt_low))).reshape(res, res, 5)
+        (g,) = timer.wrap_call("backward", lambda: torch.autograd.grad(
+            torch.sum(img * g5), theta))
+        return float(g)
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for i, run in enumerate(("warm-up", "timed")):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = iteration(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            ms = split_phases(timer.read())
+            say(f"[emitters epsm] {run}: {wall:.1f} ms, dL/dtheta {g:.6g}; "
+                + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+                + f" ms; launches {counts}")
+            check(math.isfinite(g) and g != 0.0,
+                  f"emitters epsm: gradient {g}")
+            for k, n in {"bvh4_closest_hit": 4 * DEPTH + 1,
+                         "bvh4_any_hit": 3 * DEPTH, "mt_closest_hit": 0,
+                         "mt_any_hit": 0}.items():
+                check(counts[k] == n, f"emitters epsm: {k} launched "
+                      f"{counts[k]} times, expected {n}")
+            CT.raise_on_overflow(dev)
+    finally:
+        timer.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"[emitters epsm] cornell_box_mesh + constant, {res}^2 x {spp} "
+        f"spp, one manifold iteration: {wall:.1f} ms; peak device memory "
+        f"{peak:.2f} GiB")
+    return dict(wall_ms=wall, phases=ms, counts=counts, peak_gib=peak)
+
+
+def envmap_sampler_alone(lights, lanes=EM_SAMPLER_LANES):
+    """The envmap's sampler alone at ``lanes`` lanes of the 512 x 1024
+    map: ``_envmap_sample`` (the column found by bisecting the lane's row,
+    ``core/distr2d.py`` ``bisect_rows``) against the reference's
+    compare-sum over each lane's gathered row CDF (here on the port's
+    float64 CDFs, twice the reference's float32 bytes), both timed by
+    CUDA events, with the peak memory each adds; the texels equal."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.models import emitters as E
+    scene = mt.load_dict(emitter_box("envmap", lights, 64, 1))
+    dev = scene.device
+    tex = scene.textures[scene.static.env_texture]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s2 = torch.rand(lanes, 2, device=dev, generator=gen)
+    ref_p = torch.rand(lanes, 3, device=dev, generator=gen)
+    row = int((scene.emitters["kind"] == E.KIND_ENVMAP).nonzero()[0, 0])
+    em_idx = torch.full((lanes,), row, dtype=torch.int32, device=dev)
+    p_em = {k: v[em_idx.long()] for k, v in scene.emitters.items()}
+
+    def bisect():
+        return E._envmap_sample(p_em, ref_p, s2, em_idx, tex)[0].uv
+
+    def compare_sum():
+        wgt = E.envmap_weights(tex)
+        h, w = wgt.shape
+        row_cdf = torch.cumsum(wgt.sum(1), 0)
+        row_cdf = row_cdf / row_cdf[-1]
+        col = torch.cumsum(wgt, 1)
+        col = col / col[:, -1:]
+        y = torch.clamp(torch.searchsorted(row_cdf, s2[:, 1].contiguous(),
+                                           right=True), 0, h - 1)
+        x = torch.clamp((col[y] <= s2[:, :1]).sum(-1), 0, w - 1)
+        return torch.stack([(x + 0.5) / w, (y + 0.5) / h], -1)
+
+    out = {}
+    for label, fn in (("bisection", bisect), ("compare-sum", compare_sum)):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        uv = fn()
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        ms = cuda_ms(fn, 10)
+        out[label] = dict(ms=ms, peak_mib=extra, uv=uv)
+    same = bool(torch.equal(out["bisection"]["uv"],
+                            out["compare-sum"]["uv"]))
+    say(f"[emitters envmap sampler] {lanes} lanes, map "
+        f"{tuple(tex.data.shape)}: "
+        + "; ".join(f"{k} {v['ms']:.3f} ms, + {v['peak_mib']:.1f} MiB at "
+                    "its peak" for k, v in out.items())
+        + f"; the same texel on every lane: {same}")
+    check(same, "emitters: the bisection and the compare-sum picked other "
+          "texels")
+    return {k: dict(ms=v["ms"], peak_mib=v["peak_mib"])
+            for k, v in out.items()}
+
+
+def emitters_card_vs_cpu(lights, res=64, spp=4):
+    """[emitters card vs cpu] at 64^2 x 4 spp, depth 6, with the camera
+    phase's gates: every case's image; each new kind's PRB gradients (the
+    vertices, with face normals on the walls; the reflectances; the
+    lights' radiance, intensity, irradiance; the texels); the manifold
+    backward of the box with the constant light after the area light.
+    The far lights' shadow rays reach ~1e5 (K1 on the card, its plain
+    version on the CPU)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.integrators import epsm as ET
+    for case in EM_CASES:
+        card_vs_cpu(f"emitters {case}",
+                    emitter_box(case, lights, res, spp), spp)
+    for case in EM_CASES[:-2]:
+        d = emitter_box(case, lights, res, spp, face_normals=True)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            sc = mt.load_dict(d, device=dev)
+            v = sc.vertices.clone().requires_grad_(True)
+            lv = emitter_leaves(sc)
+            img = mt.render(sc.with_leaves({"vertices": v, **lv}), spp=spp,
+                            seed=0, device=dev)
+            gs = torch.autograd.grad((img ** 2).mean(), [v, *lv.values()])
+            got[dev] = dict(zip(("vertices", *lv), gs))
+        errs = {k: rel_l2(got["cuda"][k].cpu(), g)
+                for k, g in got["cpu"].items()}
+        say(f"[emitters card vs cpu] {case}: PRB gradients |g_gpu - g_cpu| "
+            "/ |g_cpu| "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + "  [limit 1e-3 each]")
+        for k, e in errs.items():
+            check(e <= 1e-3, f"emitters {case}: card and CPU gradients of "
+                  f"{k} differ by {e} relative")
+    d = emitter_box("constant", lights, res, spp)
+    g = torch.randn(res, res, 5, generator=torch.Generator().manual_seed(3))
+    names = ("vertices", "bsdfs.reflectance", "emitters.radiance")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sc = mt.load_dict(d, device=dev)
+        got[dev] = ET.render_backward(sc, names, g.to(sc.device) * 0.05, 3,
+                                      DEPTH, 5, False, -1, spp)
+    errs = {k: rel_l2(got["cuda"][k].cpu(), got["cpu"][k]) for k in names}
+    say("[emitters card vs cpu] manifold backward, box + constant "
+        f"{res}^2 x {spp} spp: |g_gpu - g_cpu| / |g_cpu| "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + "  [limit 1e-3 each]")
+    for k, e in errs.items():
+        check(e <= 1e-3 and float(got["cpu"][k].abs().max()) > 0,
+              f"emitters: manifold backward {k} card vs cpu {e}")
+
+
+def emitters_phase():
+    """[emitters]: every emitter kind on every render path (K1 on the box,
+    K2/K3 on the mesh and in the EPSM iteration), then the envmap sampler
+    alone and the card against the CPU.  Returns the numbers and the K1-K4
+    launches of the phase."""
+    global _TALLY
+    import tempfile
+    zero_counts()
+    _TALLY = {}
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            lights = emitter_lights(tmp)
+            for label, fn in (("box", emitters_box_cell),
+                              ("mesh", emitters_mesh_cell),
+                              ("epsm", emitters_epsm_cell),
+                              ("sampler", envmap_sampler_alone),
+                              ("card vs cpu", emitters_card_vs_cpu)):
+                t0 = time.perf_counter()
+                out[label] = fn(lights)
+                say(f"[emitters] {label}: {time.perf_counter() - t0:.1f} s")
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2972,6 +3410,13 @@ def main() -> int:
     gpu = gpu_line()
     say(f"[device] {gpu} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {name} x{torch.cuda.device_count()}")
+    laps = [time.perf_counter()]
+
+    def lap(label):
+        """Print the seconds since the last lap: the script's time by
+        phase, against its limit."""
+        laps.append(time.perf_counter())
+        say(f"[phase] {label}: {laps[-1] - laps[-2]:.1f} s")
 
     # -- 1. build: every compiler at once ----------------------------------
     t0 = time.perf_counter()
@@ -2988,6 +3433,8 @@ def main() -> int:
     k4_regs = k4_registers(_native.build_logs.get(CT.SPEC.name, ""))
     for key, use in k4_regs.items():
         say(f"[build] K4 {key}: {use}")
+
+    lap("1 build")
 
     # -- 2. K1 against its plain version, at three shapes -----------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3016,6 +3463,8 @@ def main() -> int:
         "of its bound (aim >= 60 %); any / closest at ii and iii: "
         f"{ratio['ii']:.3f}, {ratio['iii']:.3f} (aim <= 0.25)")
 
+    lap("2 K1")
+
     # -- 3. the Cornell box at full width ----------------------------------
     scene = mt.load_dict(cornell_box(res=RES, spp=SPP, max_depth=DEPTH))
     n_passes = SPP // SPP_CHUNK
@@ -3027,6 +3476,8 @@ def main() -> int:
                  lambda: mt.render(scene, spp=SPP_CHUNK, seed=7),
                  ("mt_closest", "mt_any"))
     del scene
+
+    lap("3 render box")
 
     # -- 4. K2/K3 against their plain versions --------------------------------
     t0 = time.perf_counter()
@@ -3050,6 +3501,8 @@ def main() -> int:
     del rays_mesh
     per_depth = render_rays(mesh, MESH_CHUNK)
 
+    lap("4-5 K2/K3/K4")
+
     # -- 6. the BVH slice at full width ------------------------------------
     n_mesh = MESH_SPP // MESH_CHUNK
     _, counts_mesh = render_phase(
@@ -3061,10 +3514,14 @@ def main() -> int:
                  ("bvh4_closest", "bvh4_any"))
     del mesh
 
+    lap("6 render mesh")
+
     # -- 7. card against CPU --------------------------------------------------
     card_vs_cpu("cornell_box", cornell_box(res=64, spp=4, max_depth=DEPTH), 4)
     card_vs_cpu("cornell_box_mesh",
                 cornell_box_mesh(res=64, spp=4, max_depth=DEPTH), 4)
+
+    lap("7 card vs cpu")
 
     # -- 8. fwd+bwd at full width: bench.py's toy and bvh cells -------------
     box = mt.load_dict(cornell_box(res=RES, spp=SPP_CHUNK, max_depth=DEPTH))
@@ -3104,9 +3561,13 @@ def main() -> int:
         check(e <= 1e-4, f"K4 and K2 gradients of {k} differ by {e}")
     del mesh, sc_mesh, lv_mesh
 
+    lap("8 fwd+bwd")
+
     # -- 9. Adam on the mesh, through set_vertices -----------------------------
     adam_phase(cornell_box_mesh(res=RES, spp=MESH_CHUNK, max_depth=DEPTH),
                gen)
+
+    lap("9 adam")
 
     # -- 10. gradients on the card against the CPU -----------------------------
     box64 = cornell_box(res=64, spp=4, max_depth=DEPTH)
@@ -3116,6 +3577,8 @@ def main() -> int:
     grad_card_vs_cpu("cornell_box_mesh (sphere normals)", blob_normals(
         cornell_box_mesh(res=64, spp=4, max_depth=DEPTH)), 4)
 
+    lap("10 gradients card vs cpu")
+
     # -- 11-13. the EPSM leg: bench.py's manifold_iter on the mesh, the
     # cornellbox experiment at its widths, card against CPU ------------------
     epsm_mesh = epsm_mesh_phase()
@@ -3124,9 +3587,13 @@ def main() -> int:
     epsm_launches = {"launches_epsm_mesh_iteration": epsm_mesh["counts"],
                      "launches_epsm_cornellbox_run": epsm_cb["total"]}
 
+    lap("11-13 epsm mesh, cornellbox, card vs cpu")
+
     # -- 14. [epsm experiments]: glass, rough metal and many objects --------
     epsm_exp = epsm_experiments_phase()
     epsm_launches["launches_epsm_experiments_runs"] = epsm_exp["total"]
+
+    lap("14 epsm experiments")
 
     # -- 15. [scene files]: XML + PLY/OBJ/serialized, the CLI, traverse ------
     t0 = time.perf_counter()
@@ -3134,11 +3601,15 @@ def main() -> int:
     epsm_launches["launches_scene_files_phase"] = sf["total"]
     say(f"[scene files] phase {time.perf_counter() - t0:.1f} s")
 
+    lap("15 scene files")
+
     # -- 16. [glassslab]: the normal-field experiment at its widths ----------
     t0 = time.perf_counter()
     gs = glassslab_phase()
     epsm_launches["launches_glassslab_run"] = gs["total"]
     say(f"[glassslab] phase {time.perf_counter() - t0:.1f} s")
+
+    lap("16 glassslab")
 
     # -- 17. [camera]: filters, samplers and sensors on every path ----------
     t0 = time.perf_counter()
@@ -3146,6 +3617,17 @@ def main() -> int:
     epsm_launches["launches_camera_phase"] = cam["total"]
     say(f"[camera] phase {time.perf_counter() - t0:.1f} s; launches "
         f"{cam['total']}")
+
+    lap("17 camera")
+
+    # -- 18. [emitters]: every emitter kind on every render path -----------
+    t0 = time.perf_counter()
+    em = emitters_phase()
+    epsm_launches["launches_emitters_phase"] = em["total"]
+    say(f"[emitters] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{em['total']}")
+
+    lap("18 emitters")
 
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []

@@ -85,19 +85,31 @@ def _replay_bounce(sc, leaves: Sequence[torch.Tensor], st: P.LoopState,
         # NEE, attached: the emitter point and the receiving point carry
         # the gradient; pdfs and the recorded visibility are detached
         sampler, s2 = smp.next_2d(st.sampler)
-        ds, _ = E.sample_direction(
+        ds, em_weight_att = E.sample_direction(
             sc.emitters, sc.static.emitter_kinds, si.p.detach(), s2,
-            sc.vertices, sc.faces, sc.em_faces)
+            sc.vertices, sc.faces, sc.em_faces, sc.textures,
+            sc.static.env_texture)
         active_em = active_em & (ds.pdf != 0.0)
         d_att = m.normalize(ds.p - si.p)
-        # every emitter kind of the port is an area emitter (check_kinds),
-        # whose attached evaluation is eval_hit
+        # the area kinds' attached evaluation is eval_hit at the attached
+        # emitter point; every other kind's is sample_direction's weight,
+        # attached to its intensity, irradiance, radiance and the envmap's
+        # texels (JAX ad/prb.py:168-177).  A scene of area lights alone
+        # skips the select, whose other branch's backward would cost it
+        # as much as its own
         em_val = E.eval_hit(sc.emitters, ds.emitter_index,
                             m.dot(-d_att, ds.n))
         pdf_d = ds.pdf.detach()
         em_weight = torch.where(
             (pdf_d > 0.0)[..., None],
             em_val / torch.clamp(pdf_d, min=1e-20)[..., None], 0.0)
+        area_kinds = (E.KIND_AREA, E.KIND_DIRECTIONALAREA)
+        if any(k not in area_kinds for k in sc.static.emitter_kinds):
+            kind = sc.emitters["kind"][torch.clamp(ds.emitter_index,
+                                                   min=0).long()]
+            is_area = (kind == area_kinds[0]) | (kind == area_kinds[1])
+            em_weight = torch.where(is_area[..., None], em_weight,
+                                    em_weight_att)
         em_weight = torch.where((active_em & ~cached["occl"])[..., None],
                                 em_weight, 0.0)
         wo_em = si.to_local(d_att.detach())

@@ -1,7 +1,8 @@
 """Sampling warps used by the primal path tracer (counterpart of
-``core/warp.py``): the hemisphere and triangle warps, and GGX's
-visible-normal sampling with its NDF, Smith G1 and pdf.  The Beckmann
-distribution is not ported (``models/bsdf.py`` raises for it)."""
+``core/warp.py``): the hemisphere, sphere, cone and triangle warps, and
+GGX's visible-normal sampling with its NDF, Smith G1 and pdf.  The
+Beckmann distribution and the classic ``square_to_ggx`` are not ported
+(``models/bsdf.py`` raises for Beckmann)."""
 from __future__ import annotations
 
 import math
@@ -11,6 +12,8 @@ import torch
 from . import math as m
 
 _INV_PI = 1.0 / math.pi
+_INV_TWO_PI = 0.5 / math.pi
+_INV_FOUR_PI = 0.25 / math.pi
 
 
 def square_to_uniform_disk_concentric(sample: torch.Tensor) -> torch.Tensor:
@@ -36,6 +39,45 @@ def square_to_cosine_hemisphere(sample: torch.Tensor) -> torch.Tensor:
 
 def square_to_cosine_hemisphere_pdf(v: torch.Tensor) -> torch.Tensor:
     return _INV_PI * torch.clamp(v[..., 2], min=0.0)
+
+
+def square_to_uniform_sphere(sample: torch.Tensor) -> torch.Tensor:
+    """Uniform sphere (warp.h:478): z = 1 - 2 s1, uniform azimuth."""
+    z = 1.0 - 2.0 * sample[..., 1]
+    r = m.safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * sample[..., 0]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_sphere_pdf(v: torch.Tensor) -> torch.Tensor:
+    return torch.full(v.shape[:-1], _INV_FOUR_PI, dtype=v.dtype,
+                      device=v.device)
+
+
+def square_to_uniform_hemisphere(sample: torch.Tensor) -> torch.Tensor:
+    z = sample[..., 1]
+    r = m.safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * sample[..., 0]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_hemisphere_pdf(v: torch.Tensor) -> torch.Tensor:
+    return torch.full(v.shape[:-1], _INV_TWO_PI, dtype=v.dtype,
+                      device=v.device)
+
+
+def square_to_uniform_cone(sample: torch.Tensor, cos_cutoff) -> torch.Tensor:
+    """Uniform direction inside a cone around +Z (warp.h:344)."""
+    one_minus = 1.0 - cos_cutoff
+    cos_theta = 1.0 - one_minus * sample[..., 1]
+    sin_theta = m.safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = 2.0 * math.pi * sample[..., 0]
+    return torch.stack([sin_theta * torch.cos(phi),
+                        sin_theta * torch.sin(phi), cos_theta], dim=-1)
+
+
+def square_to_uniform_cone_pdf(cos_cutoff):
+    return _INV_TWO_PI / (1.0 - cos_cutoff)
 
 
 def square_to_uniform_triangle(sample: torch.Tensor) -> torch.Tensor:

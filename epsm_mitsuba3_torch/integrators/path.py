@@ -46,17 +46,33 @@ class LoopState:
 def _emitter_hit_le(scene, si, ray_d, prev_p, prev_bsdf_pdf, prev_bsdf_delta,
                     active):
     """Emission at the current vertex, MIS-weighted against NEE
-    (epsm.py:566-577)."""
+    (epsm.py:566-577), and the environment's on escaped rays (JAX
+    ``integrators/path.py:49-79``).
+
+    The environment's MIS pdf is ``pdf_direction`` of emitter row 0, as
+    in the reference (:66-72): where row 0 is an area light, an escaped
+    ray's pdf is the area branch's on the miss record's ``si.p`` and
+    ``si.n``, not the environment's own.  Without a constant or envmap
+    light the environment term is the plain (zero) sum."""
     ek = scene.static.emitter_kinds
+    tex, env = scene.textures, scene.static.env_texture
+    mis_active = active & ~prev_bsdf_delta
     ds_pdf = E.pdf_direction(
         scene.emitters, ek, prev_p, ray_d, si.emitter_index, si.p, si.n,
-        scene.vertices, scene.faces, scene.em_faces,
-        active & ~prev_bsdf_delta)
+        scene.vertices, scene.faces, scene.em_faces, mis_active, tex, env)
     mis = mis_weight(prev_bsdf_pdf, ds_pdf)
     le_surf = E.eval_hit(scene.emitters, si.emitter_index, si.wi[..., 2])
     le_surf = torch.where((active & si.valid)[..., None], le_surf, 0.0)
-    le_env = E.eval_env(scene.emitters, ek, ray_d)
-    return mis[..., None] * le_surf + le_env
+    le_env = E.eval_env(scene.emitters, ek, ray_d, active & ~si.valid, tex,
+                        env)
+    if E.KIND_CONSTANT not in ek and E.KIND_ENVMAP not in ek:
+        return mis[..., None] * le_surf + le_env
+    env_pdf = E.pdf_direction(
+        scene.emitters, ek, prev_p, ray_d,
+        torch.zeros_like(si.emitter_index), si.p, si.n, scene.vertices,
+        scene.faces, scene.em_faces, mis_active, tex, env)
+    mis_env = mis_weight(prev_bsdf_pdf, torch.where(~si.valid, env_pdf, 0.0))
+    return mis[..., None] * le_surf + mis_env[..., None] * le_env
 
 
 def _nee(scene, si, sampler, active_em):
@@ -66,7 +82,8 @@ def _nee(scene, si, sampler, active_em):
     sampler, s2 = smp.next_2d(sampler)
     ds, em_weight = E.sample_direction(
         scene.emitters, scene.static.emitter_kinds, si.p, s2,
-        scene.vertices, scene.faces, scene.em_faces)
+        scene.vertices, scene.faces, scene.em_faces, scene.textures,
+        scene.static.env_texture)
     active_em = active_em & (ds.pdf != 0.0)
     # lanes with no NEE work carry zero-extent shadow rays
     shadow_ray = si.spawn_ray(ds.d)
@@ -79,6 +96,7 @@ def _nee(scene, si, sampler, active_em):
     bsdf_val_em, bsdf_pdf_em = B.eval_pdf(
         scene.bsdfs, scene.static.bsdf_kinds, si.bsdf_index, si.wi, wo,
         active_em)
+    # a delta light (point, spot, projector, directional) takes weight 1
     mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf_em))
     lr_dir = mis_em[..., None] * bsdf_val_em * em_weight
     return sampler, ds, lr_dir, active_em, occluded

@@ -10,7 +10,11 @@ renders: ``rectangle``/``cube``/``disk``/``sphere``/``cylinder`` shapes
 and ``instance`` (flattened at load) and ``merge``; ``diffuse``, the
 smooth ``conductor``, the GGX ``roughconductor`` and the smooth
 ``dielectric`` (optionally ``twosided``), also stand-alone with an
-``id`` and referenced by ``{"type": "ref"}``; ``area`` emitters; the
+``id`` and referenced by ``{"type": "ref"}``; the eight emitter kinds of
+``models/emitters.py``, on a shape (area, directionalarea) or on their
+own (point, spot, directional, constant, envmap from a bitmap file,
+projector with a bitmap or checkerboard irradiance), and a scene with no
+emitter (one constant-black row, as in the reference); the
 seven sensor kinds of ``models/sensors.py`` (``batch`` with perspective
 children), the five samplers of ``models/samplers.py``, ``hdrfilm``
 with any of the six filters of ``models/films.py`` (``gaussian`` where
@@ -24,7 +28,9 @@ the records of kernels K2/K3.
 
 ``scene_from_arrays`` builds a scene from numpy arrays under the JAX
 ``Scene``'s field names: it carries the scene state between the two
-packages, so that both render the very same scene.
+packages, so that both render the very same scene.  The bitmap and
+checkerboard textures the emitters read are ``Scene.textures``; a texture
+on a BSDF is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from . import bsdf as bsdf_mod
 from . import emitters as em_mod
 from . import mesh_io
 from . import shapes as shapes_mod
+from . import textures as tex_mod
 from . import films
 from . import samplers as smp_mod
 from . import sensors as sns_mod
@@ -69,6 +76,8 @@ class SceneStatic:
     integrator: Tuple[Tuple[str, Any], ...] = ()
     spp: int = 16
     sampler_kind: str = "independent"
+    #: index into ``Scene.textures`` of the (single) envmap bitmap, or -1
+    env_texture: int = -1
 
 
 @dataclass(frozen=True)
@@ -85,6 +94,9 @@ class Scene:
     em_faces: torch.Tensor       # (E, Tmax) int32 global face ids, -1 pad
     sensors: Tuple[Sensor, ...] = ()
     static: SceneStatic = field(default_factory=SceneStatic)
+    #: the textures the emitters read (the envmap's bitmap, a projector's
+    #: bitmap or checkerboard), by ``emitters["texture_index"]``
+    textures: Tuple[tex_mod.Texture, ...] = ()
     #: (V, 3) per-vertex colours of the meshes that carry them (PLY
     #: ``red``/``green``/``blue``), zero rows elsewhere; no shading
     #: reads them yet (the reference's ``mesh_attribute`` texture)
@@ -106,10 +118,13 @@ class Scene:
     def leaves(self) -> Dict[str, torch.Tensor]:
         """The differentiable leaves by name: every float tensor of the
         scene state, i.e. the float geometry fields, the float columns of
-        the BSDF and emitter tables (``bsdfs.<k>``, ``emitters.<k>``) and
+        the BSDF and emitter tables (``bsdfs.<k>``, ``emitters.<k>``),
         each sensor's ``sensors.<i>.to_world`` (and a batch sensor's
-        ``sensors.<i>.sub_to_world``).  The BVH and its packed
-        records derive from the vertices and are no leaves."""
+        ``sensors.<i>.sub_to_world``) and each texture's tensors
+        (``textures.<i>.data``, ``.color0``, ``.color1``, ``.uv_scale``,
+        ``.uv_offset``), so that an envmap's texels take a gradient.
+        The BVH and its packed records derive from the vertices and are
+        no leaves."""
         out = {k: getattr(self, k) for k in GEOMETRY_FIELDS
                if getattr(self, k).is_floating_point()}
         for prefix in ("bsdfs", "emitters"):
@@ -120,6 +135,10 @@ class Scene:
             for k in SENSOR_ARRAYS:
                 if getattr(sensor, k) is not None:
                     out[f"sensors.{i}.{k}"] = getattr(sensor, k)
+        for i, tex in enumerate(self.textures):
+            for k in tex_mod.ARRAYS:
+                if getattr(tex, k) is not None:
+                    out[f"textures.{i}.{k}"] = getattr(tex, k)
         return out
 
     def with_leaves(self, leaves: Mapping[str, torch.Tensor]) -> "Scene":
@@ -136,6 +155,10 @@ class Scene:
             replace(s, **{k: leaves.get(f"sensors.{i}.{k}", getattr(s, k))
                           for k in SENSOR_ARRAYS})
             for i, s in enumerate(self.sensors))
+        kw["textures"] = tuple(
+            t.replace(**{k: leaves.get(f"textures.{i}.{k}", getattr(t, k))
+                         for k in tex_mod.ARRAYS})
+            for i, t in enumerate(self.textures))
         return replace(self, **kw)
 
     def set_vertices(self, vertices: torch.Tensor) -> "Scene":
@@ -190,6 +213,10 @@ def _rgb(value, default=(1.0, 1.0, 1.0)):
             rgb = blackbody_rgb(float(value.get("temperature", 5000.0)),
                                 normalize=False)
             return rgb * float(value.get("scale", 1.0))
+        if t in ("bitmap", "checkerboard"):
+            raise NotImplementedError(
+                f"a '{t}' texture here is not ported: the port's textures "
+                "serve the envmap and projector emitters only")
         if t in ("regular", "irregular"):
             raise NotImplementedError(
                 f"tabulated spectrum '{t}': its projection needs the CIE "
@@ -219,6 +246,15 @@ def _ior(value, default: float) -> float:
     return float(value)
 
 
+def _uv2(d: dict, key: str, default: float):
+    """A texture's (u, v) pair ``key``: a list, a number for both, or
+    ``<key>_x`` / ``<key>_y`` (the legacy upgrade's names)."""
+    v = d.get(key, default)
+    if isinstance(v, (list, tuple)):
+        return tuple(float(x) for x in v)
+    return (float(d.get(key + "_x", v)), float(d.get(key + "_y", v)))
+
+
 def _transform(value) -> np.ndarray:
     if value is None:
         return np.eye(4, dtype=np.float32)
@@ -237,6 +273,8 @@ class _Builder:
         self.bsdf_by_id = {}
         self.shapegroups = {}
         self.em_rows, self.em_shape, self.em_face_list = [], [], []
+        self.textures = []
+        self.env_texture = -1
         self.sensors = []
         self.integrator = {"type": "path", "max_depth": 6, "rr_depth": 5}
         self.spp = 16
@@ -307,14 +345,85 @@ class _Builder:
             self.bsdf_by_id[d["id"]] = idx
         return idx
 
+    # -- textures (_Builder.add_texture) ------------------------------------
+    def add_texture(self, d: dict) -> int:
+        """A texture for an emitter (``_Builder.add_texture``, :308-380):
+        a ``bitmap`` read from its ``filename`` or a ``checkerboard``.
+        Returns its index into ``Scene.textures``."""
+        t = d.get("type")
+        uv = {"uv_scale": _uv2(d, "uv_scale", 1.0),
+              "uv_offset": _uv2(d, "uv_offset", 0.0)}
+        if t == "bitmap":
+            from ..core.bitmap import read_image
+            tex = {"kind": "bitmap", "data": read_image(d["filename"]).data,
+                   "color0": np.zeros(3, np.float32),
+                   "color1": np.ones(3, np.float32), **uv}
+        elif t == "checkerboard":
+            tex = {"kind": "checkerboard",
+                   "data": np.zeros((1, 1, 3), np.float32),
+                   "color0": _rgb(d.get("color0"), (0.4, 0.4, 0.4)),
+                   "color1": _rgb(d.get("color1"), (0.2, 0.2, 0.2)), **uv}
+        else:
+            raise NotImplementedError(f"texture type '{t}' is not ported")
+        self.textures.append(tex)
+        return len(self.textures) - 1
+
     # -- emitters (_Builder.add_emitter) ------------------------------------
-    def add_emitter(self, d: dict, shape_index: int) -> int:
+    def add_emitter(self, d: dict, shape_index: int = -1) -> int:
+        """A row of the emitter table (``_Builder.add_emitter``,
+        :586-645); ``shape_index`` -1 for a light without a shape."""
         t = d["type"]
         if t not in em_mod.KIND_NAMES:
-            raise NotImplementedError(f"emitter type '{t}' is not ported")
+            raise NotImplementedError(
+                f"emitter type '{t}' is not ported (register_emitter "
+                "plugins are not)")
+        kind = em_mod.KIND_NAMES[t]
+        to_world = _transform(d.get("to_world"))
+        pos = to_world[:3, 3]
+        direction = to_world[:3, :3] @ np.array([0, 0, 1], np.float32)
+        if "position" in d:
+            pos = np.asarray(d["position"], np.float32)
+        if "direction" in d:
+            direction = np.asarray(d["direction"], np.float32)
+        cutoff = float(d.get("cutoff_angle", 20.0))
+        beam = float(d.get("beam_width", cutoff * 0.75))
+        tex_idx = -1
+        if kind == em_mod.KIND_ENVMAP and "filename" in d:
+            tex_idx = self.add_texture({"type": "bitmap",
+                                        "filename": d["filename"]})
+            self.env_texture = tex_idx
+        rad = d.get("radiance")
+        if isinstance(rad, dict) and rad.get("type") in ("bitmap",
+                                                         "checkerboard"):
+            tex_idx = self.add_texture(rad)
+            rad = None
+        # the projector: an irradiance texture, a frame from to_world
+        frame_x = to_world[:3, :3] @ np.array([1, 0, 0], np.float32)
+        frame_y = to_world[:3, :3] @ np.array([0, 1, 0], np.float32)
+        tan_fov = np.tan(np.deg2rad(float(d.get("fov", 45.0))) / 2.0)
+        intensity = _rgb(d.get("intensity"))
+        irr = d.get("irradiance")
+        irr_tex = isinstance(irr, dict) and irr.get("type") in (
+            "bitmap", "checkerboard")
+        if kind == em_mod.KIND_PROJECTOR:
+            if irr_tex:
+                tex_idx = self.add_texture(irr)
+            elif irr is not None:
+                intensity = _rgb(irr)
+            intensity = intensity * float(d.get("scale", 1.0))
         self.em_rows.append({
-            "kind": em_mod.KIND_NAMES[t],
-            "radiance": _rgb(d.get("radiance")) * float(d.get("scale", 1.0)),
+            "kind": kind,
+            "texture_index": tex_idx,
+            "radiance": _rgb(rad) * float(d.get("scale", 1.0)),
+            "intensity": intensity,
+            "frame_x": frame_x,
+            "frame_y": frame_y,
+            "tan_fov": np.asarray([tan_fov, tan_fov], np.float32),
+            "irradiance": _rgb(None) if irr_tex else _rgb(irr),
+            "position": pos,
+            "direction": direction,
+            "cutoff_cos": np.cos(np.deg2rad(cutoff)),
+            "beam_cos": np.cos(np.deg2rad(beam)),
             "shape_index": shape_index,
         })
         return len(self.em_rows) - 1
@@ -490,9 +599,6 @@ class _Builder:
         """The scene state under the reference Scene's field names."""
         if not self.shape_bsdf:
             raise ValueError("scene has no shapes")
-        if not self.em_rows:
-            raise NotImplementedError(
-                "a scene without an area emitter is not ported")
         out = {
             "vertices": np.concatenate(self.vertices),
             "normals": np.concatenate(self.normals),
@@ -503,15 +609,27 @@ class _Builder:
             "shape_bsdf": np.asarray(self.shape_bsdf, np.int32),
             "shape_emitter": np.asarray(self.shape_emitter, np.int32),
         }
-        tmax = max(len(x) for x in self.em_face_list)
-        em_faces = np.full((len(self.em_rows), tmax), -1, np.int32)
+        n_e = max(len(self.em_rows), 1)
+        tmax = max((len(x) for x in self.em_face_list), default=1)
+        em_faces = np.full((n_e, tmax), -1, np.int32)
         for em_idx, face_ids in zip(self.em_shape, self.em_face_list):
             em_faces[em_idx, :len(face_ids)] = face_ids
         out["em_faces"] = em_faces
-        for prefix, rows in (("bsdfs", self.bsdf_rows),
-                             ("emitters", self.em_rows)):
-            for k in rows[0]:
-                out[f"{prefix}.{k}"] = np.asarray([r[k] for r in rows])
+        for k in self.bsdf_rows[0]:
+            out[f"bsdfs.{k}"] = np.asarray([r[k] for r in self.bsdf_rows])
+        # the emitter table: the reference's defaults, then the rows
+        # (``build``, :926-939); no emitter leaves one constant-black row
+        etable = {k: v.numpy().copy()
+                  for k, v in em_mod.empty_table(n_e).items()}
+        for i, row in enumerate(self.em_rows):
+            for k, val in row.items():
+                etable[k][i] = val
+        if not self.em_rows:
+            etable["kind"][:] = em_mod.KIND_CONSTANT
+            etable["radiance"][:] = 0.0
+        out.update({f"emitters.{k}": v for k, v in etable.items()})
+        for i, tex in enumerate(self.textures):
+            out.update({f"textures.{i}.{k}": tex[k] for k in tex_mod.ARRAYS})
         for i, s in enumerate(self.sensors):
             for k in SENSOR_ARRAYS:
                 if k in s:
@@ -538,6 +656,8 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
             b.add_shape(val, key)
         elif t in bsdf_mod.KIND_NAMES or t == "twosided":
             b.add_bsdf(val)          # stand-alone, referenced by its id
+        elif t in em_mod.KIND_NAMES:
+            b.add_emitter(val)       # a light without a shape
         elif t == "merge":
             for k2, v2 in val.items():
                 if isinstance(v2, dict) and v2.get("type") in _SHAPE_TYPES:
@@ -553,7 +673,10 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
                              integrator=b.integrator, spp=b.spp,
                              sampler_kind=b.sampler_kind,
                              shape_names=b.shape_names,
-                             vertex_ranges=b.vertex_ranges, device=device)
+                             vertex_ranges=b.vertex_ranges,
+                             textures=[{"kind": t["kind"]}
+                                       for t in b.textures],
+                             env_texture=b.env_texture, device=device)
 
 
 def scene_from_arrays(arrays: Mapping[str, np.ndarray],
@@ -562,13 +685,16 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
                       spp: int = 16, sampler_kind: str = "independent",
                       shape_names: Sequence[str] = (),
                       vertex_ranges: Sequence[Tuple[int, int]] = (),
-                      device=None) -> Scene:
+                      textures: Sequence[Mapping[str, Any]] = (),
+                      env_texture: int = -1, device=None) -> Scene:
     """Build a Scene from numpy arrays named as the reference Scene's
     fields: ``vertices``, ``normals``, ``uvs``, ``faces``, ``face_shape``,
     ``shape_bsdf``, ``shape_emitter``, ``em_faces``, the table columns
-    ``bsdfs.<field>`` and ``emitters.<field>``, ``sensors.<i>.to_world``
-    and, for a batch sensor, ``sensors.<i>.sub_to_world``.
-    Table columns the port does not use are ignored.
+    ``bsdfs.<field>`` and ``emitters.<field>`` (every column of
+    ``emitters.empty_table``), ``sensors.<i>.to_world`` and, for a batch
+    sensor, ``sensors.<i>.sub_to_world``, and each texture's
+    ``textures.<i>.data``, ``.color0``, ``.color1``, ``.uv_scale`` and
+    ``.uv_offset``.  BSDF columns the port does not use are ignored.
 
     ``vertex_colors`` (V, 3) is taken where it is given, zeros
     otherwise.
@@ -576,6 +702,9 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     ``sensors``: per sensor, the static fields of ``Sensor`` other than
     its arrays (kind, fov_x, near, far, width, height, rfilter,
     aperture_radius, focus_distance, sub_fov_x).
+    ``textures``: per texture its static fields (``kind``: bitmap or
+    checkerboard), beside its arrays.  ``env_texture``: the index of the
+    envmap's bitmap among them, or -1.
     ``integrator``: the scene's integrator properties (type, max_depth,
     rr_depth).  ``shape_names`` / ``vertex_ranges``: per shape its name
     and (vertex_start, vertex_count).  ``device=None`` means the GPU; without CUDA that raises.
@@ -608,10 +737,18 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
         raise NotImplementedError(
             "the Beckmann microfacet distribution is not ported")
     emitters = {
-        "kind": t(arrays["emitters.kind"], torch.int32),
-        "radiance": t(arrays["emitters.radiance"], torch.float32),
-        "shape_index": t(arrays["emitters.shape_index"], torch.int32),
-    }
+        k: t(arrays[f"emitters.{k}"],
+             torch.int32 if k in em_mod.INT_COLUMNS else torch.float32)
+        for k in em_mod.COLUMNS}
+    texs = tuple(
+        tex_mod.Texture(kind=str(s["kind"]), **{
+            k: t(arrays[f"textures.{i}.{k}"], torch.float32)
+            for k in tex_mod.ARRAYS if f"textures.{i}.{k}" in arrays})
+        for i, s in enumerate(textures))
+    for tex in texs:
+        if tex.kind not in ("bitmap", "checkerboard"):
+            raise NotImplementedError(
+                f"texture kind '{tex.kind}' is not ported")
     bsdf_kinds = tuple(sorted({int(k) for k in arrays["bsdfs.kind"]}))
     emitter_kinds = tuple(sorted({int(k) for k in arrays["emitters.kind"]}))
     bsdf_mod.check_kinds(bsdf_kinds)
@@ -626,7 +763,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
         vertex_ranges=tuple((int(a), int(b)) for a, b in vertex_ranges),
         bsdf_kinds=bsdf_kinds, emitter_kinds=emitter_kinds,
         integrator=tuple(sorted(dict(integrator or {}).items())),
-        spp=int(spp), sampler_kind=sampler_kind)
+        spp=int(spp), sampler_kind=sampler_kind,
+        env_texture=int(env_texture))
     bvh = nodes = tris = tris_k = None
     if geo["faces"].shape[0] > accel.BRUTE_FORCE_MAX_TRIS:
         if "bvh.order" in arrays:
@@ -641,8 +779,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     vcol = (torch.zeros_like(geo["vertices"]) if vcol is None
             else t(vcol, torch.float32))
     return Scene(bsdfs=bsdfs, emitters=emitters, sensors=sensor_objs,
-                 static=static, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris,
-                 bvh_tris_k=tris_k, vertex_colors=vcol, **geo)
+                 static=static, textures=texs, bvh=bvh, bvh_nodes=nodes,
+                 bvh_tris=tris, bvh_tris_k=tris_k, vertex_colors=vcol, **geo)
 
 
 # ===========================================================================

@@ -1,0 +1,117 @@
+"""Textures (counterpart of ``models/textures.py``, the reference's
+src/textures/{bitmap,checkerboard}.cpp): the bitmap, looked up with
+bilinear filtering and wrapped at its edges, and the checkerboard.
+
+A scene carries a tuple of ``Texture`` records whose tensors are
+differentiable leaves (``textures.<i>.data`` and the rest), so an
+envmap's texels take a gradient.  ``eval_select`` evaluates every
+texture and selects per lane, as the reference does.  The volume texture
+and ``register_texture`` are not ported and raise by name."""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional
+
+import torch
+
+from ..ops.gather import take_rows
+
+#: a texture's tensors, ``textures.<i>.<name>`` among the scene's leaves
+ARRAYS = ("data", "color0", "color1", "uv_scale", "uv_offset")
+
+
+@dataclass(frozen=True)
+class Texture:
+    kind: str = "bitmap"                  # bitmap | checkerboard
+    data: torch.Tensor = None             # (H, W, C) linear RGB (bitmap)
+    color0: torch.Tensor = None           # (3,) checkerboard
+    color1: torch.Tensor = None
+    uv_scale: torch.Tensor = None         # (2,) to_uv scaling
+    uv_offset: Optional[torch.Tensor] = None  # (2,) to_uv translation
+
+    def replace(self, **kw) -> "Texture":
+        return replace(self, **kw)
+
+
+def _t(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def bitmap(data, uv_scale=(1.0, 1.0), uv_offset=(0.0, 0.0),
+           device=None) -> Texture:
+    data = _t(data, device)
+    return Texture(kind="bitmap", data=data,
+                   color0=torch.zeros(3, device=data.device),
+                   color1=torch.ones(3, device=data.device),
+                   uv_scale=_t(uv_scale, data.device),
+                   uv_offset=_t(uv_offset, data.device))
+
+
+def checkerboard(color0=(0.4, 0.4, 0.4), color1=(0.2, 0.2, 0.2),
+                 uv_scale=(1.0, 1.0), uv_offset=(0.0, 0.0),
+                 device=None) -> Texture:
+    c0 = _t(color0, device)
+    return Texture(kind="checkerboard",
+                   data=torch.zeros((1, 1, 3), device=c0.device),
+                   color0=c0, color1=_t(color1, c0.device),
+                   uv_scale=_t(uv_scale, c0.device),
+                   uv_offset=_t(uv_offset, c0.device))
+
+
+def volume3d(*_a, **_kw):
+    raise NotImplementedError(
+        "the volume texture (models/textures.py volume3d) is not ported")
+
+
+def register_texture(name: str, *_a, **_kw):
+    raise NotImplementedError(
+        f"register_texture('{name}'): texture plugins are not ported")
+
+
+def _to_uv(tex: Texture, uv: torch.Tensor) -> torch.Tensor:
+    """The texture's to_uv transform: scale, then translate
+    (xml.cpp:379-410 builds translate([uoffset, voffset]) @ scale)."""
+    st = uv if tex.uv_scale is None else uv * tex.uv_scale
+    if tex.uv_offset is not None:
+        st = st + tex.uv_offset
+    return st
+
+
+def eval_one(tex: Texture, uv: torch.Tensor) -> torch.Tensor:
+    """One texture at (N, 2) uv -> (N, C)."""
+    if tex.kind == "checkerboard":
+        st = _to_uv(tex, uv)
+        mask = ((torch.floor(st[..., 0]) + torch.floor(st[..., 1]))
+                % 2.0) < 1.0
+        return torch.where(mask[..., None], tex.color0, tex.color1)
+    if tex.kind != "bitmap":
+        raise NotImplementedError(f"texture kind '{tex.kind}' is not ported")
+    st = _to_uv(tex, uv)
+    h, w = tex.data.shape[:2]
+    flat = tex.data.reshape(h * w, -1)
+    x = st[..., 0] * w - 0.5
+    y = st[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+
+    def at(xi, yi):
+        # floor-mod wraps negative texel indices, as jnp's % does
+        xi = torch.clamp(xi.to(torch.int32) % w, 0, w - 1)
+        yi = torch.clamp(yi.to(torch.int32) % h, 0, h - 1)
+        return take_rows(flat, yi * w + xi)
+
+    return ((at(x0, y0) * (1 - fx) + at(x0 + 1, y0) * fx) * (1 - fy)
+            + (at(x0, y0 + 1) * (1 - fx) + at(x0 + 1, y0 + 1) * fx) * fy)
+
+
+def eval_select(textures, tex_idx: torch.Tensor, uv: torch.Tensor,
+                fallback: torch.Tensor) -> torch.Tensor:
+    """Texture ``tex_idx`` of each lane (-1: ``fallback``)."""
+    out = fallback
+    for i, tex in enumerate(textures):
+        if tex.kind == "measured_brdf":   # BRDF tables, not colours
+            continue
+        out = torch.where((tex_idx == i)[..., None], eval_one(tex, uv), out)
+    return out

@@ -246,14 +246,21 @@ def test_cached_bounce_replays_the_recorded_pass(monkeypatch):
 
 def test_leaves_are_leaf_tensors():
     """scene_from_arrays gives leaf tensors, each of which can be made to
-    require grad; with_leaves puts them back by name."""
+    require grad; with_leaves puts them back by name.  Every float column
+    of the emitter table is a leaf (a scene with a texture adds its
+    tensors, ``tests/test_torch_prb_emitters.py``)."""
     st = mt.load_dict(cornell_box(res=8, spp=1), device="cpu")
     leaves = st.leaves()
     assert set(leaves) == {"vertices", "normals", "uvs", "bsdfs.reflectance",
                            "bsdfs.specular_reflectance",
                            "bsdfs.specular_transmittance", "bsdfs.alpha",
                            "bsdfs.eta_c", "bsdfs.k_c", "bsdfs.eta",
-                           "emitters.radiance", "sensors.0.to_world"}
+                           "emitters.radiance", "emitters.intensity",
+                           "emitters.irradiance", "emitters.position",
+                           "emitters.direction", "emitters.cutoff_cos",
+                           "emitters.beam_cos", "emitters.frame_x",
+                           "emitters.frame_y", "emitters.tan_fov",
+                           "sensors.0.to_world"}
     for k, v in leaves.items():
         assert v.is_leaf and not v.requires_grad, k
     new = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}

@@ -22,6 +22,7 @@ from epsm_mitsuba3_torch.integrators import common as common_t
 from epsm_mitsuba3_torch.integrators import path as path_t
 from epsm_mitsuba3_torch.models import films as films_t
 from epsm_mitsuba3_torch.models import samplers as smp_t
+from epsm_mitsuba3_torch.models import textures as tex_t
 from epsm_mitsuba3_torch.models.scene import GEOMETRY_FIELDS
 from epsm_mitsuba3_torch.ops.bvh import ARRAY_FIELDS as BVH_FIELDS
 from epsm_mitsuba3_torch.scenes import cornell_box
@@ -43,6 +44,9 @@ def jax_arrays(sj) -> dict:
         out[f"sensors.{i}.to_world"] = np.asarray(s.to_world)
         if s.sub_to_world is not None:
             out[f"sensors.{i}.sub_to_world"] = np.asarray(s.sub_to_world)
+    for i, tex in enumerate(sj.textures):
+        out.update({f"textures.{i}.{k}": np.asarray(getattr(tex, k))
+                    for k in tex_t.ARRAYS if getattr(tex, k) is not None})
     if sj.bvh is not None:
         out.update({f"bvh.{k}": np.asarray(getattr(sj.bvh, k))
                     for k in BVH_FIELDS})
@@ -58,7 +62,10 @@ def port_scene_of(sj, device="cpu"):
                                 integrator=dict(st.integrator), spp=st.spp,
                                 sampler_kind=st.sampler_kind,
                                 shape_names=st.shape_names,
-                                vertex_ranges=st.vertex_ranges, device=device)
+                                vertex_ranges=st.vertex_ranges,
+                                textures=[{"kind": t.kind}
+                                          for t in sj.textures],
+                                env_texture=st.env_texture, device=device)
 
 
 def assert_images_close(a, b, tol=1e-4):

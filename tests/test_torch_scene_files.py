@@ -202,9 +202,12 @@ def test_load_dict_equals_jax(files, case):
 
 
 @pytest.mark.parametrize("element,name", [
-    ({"type": "constant"}, "constant"),
-    ({"type": "envmap", "filename": "sky.exr"}, "envmap"),
-    ({"type": "point", "position": [0, 1, 0]}, "point"),
+    ({"type": "rectangle", "emitter": {"type": "my_plugin_light"}},
+     "my_plugin_light"),
+    ({"type": "rectangle", "emitter": {"type": "area", "radiance": {
+        "type": "volume"}}}, "volume"),
+    ({"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": {
+        "type": "checkerboard"}}}, "checkerboard"),
     ({"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": {
         "type": "bitmap", "filename": "t.png"}}}, "bitmap"),
     ({"type": "rectangle", "interior": {"type": "homogeneous"}},

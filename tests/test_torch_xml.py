@@ -5,8 +5,12 @@ The XML texts of ``tests/test_xml.py`` (a full scene, ``$`` substitution,
 (``<include>``, ``<ref>``, ``<alias>``, every transform op and value tag,
 mesh files named relative to the XML) are parsed by both packages: the
 dicts must be equal, recursively, arrays exactly.  The scenes the port
-renders must load to JAX's ``Scene`` fields exactly; the others raise
-``NotImplementedError`` with the plugin's name.  ``dict_to_xml`` writes
+renders must load to JAX's ``Scene`` fields exactly (the emitter kinds
+too: an envmap named by ``filename``, point, spot, directional and
+constant lights with ``<point>``, ``<vector>`` and ``<transform>``, a
+projector with a checkerboard); the others (a texture on a BSDF, a
+volume texture, an emitter plugin's kind) raise ``NotImplementedError``
+with the plugin's name.  ``dict_to_xml`` writes
 JAX's text and round-trips through ``load_string``.
 """
 import numpy as np
@@ -135,6 +139,77 @@ REFS = """
 </scene>
 """
 
+#: a light of every shapeless kind beside a rectangle, each placed by a
+#: value tag or a transform; the envmap's file is written by the test
+EMITTERS = """
+<scene version="3.0.0">
+    <sensor type="perspective">
+        <transform name="to_world">
+            <lookat origin="0, 1, 4" target="0, 1, 0" up="0, 1, 0"/>
+        </transform>
+        <film type="hdrfilm">
+            <integer name="width" value="8"/>
+            <integer name="height" value="8"/>
+        </film>
+    </sensor>
+    <shape type="rectangle">
+        <transform name="to_world"><rotate x="1" angle="-90"/></transform>
+    </shape>
+    <emitter type="envmap">
+        <string name="filename" value="sky.exr"/>
+        <float name="scale" value="0.5"/>
+    </emitter>
+    <emitter type="constant">
+        <rgb name="radiance" value="0.1, 0.2, 0.3"/>
+    </emitter>
+    <emitter type="point">
+        <point name="position" x="0.5" y="2" z="-0.25"/>
+        <rgb name="intensity" value="4"/>
+    </emitter>
+    <emitter type="spot">
+        <transform name="to_world">
+            <lookat origin="0, 2, 1" target="0, 0, 0" up="0, 1, 0"/>
+        </transform>
+        <float name="cutoff_angle" value="25"/>
+        <float name="beam_width" value="12"/>
+        <spectrum name="intensity" value="6"/>
+    </emitter>
+    <emitter type="directional">
+        <vector name="direction" x="0.3" y="-1" z="-0.2"/>
+        <rgb name="irradiance" value="2, 1.5, 1"/>
+    </emitter>
+    <emitter type="directional">
+        <transform name="to_world"><rotate x="1" angle="120"/></transform>
+    </emitter>
+    <emitter type="projector">
+        <transform name="to_world">
+            <lookat origin="0, 3, 0" target="0, 0, 0" up="0, 0, 1"/>
+        </transform>
+        <float name="fov" value="35"/>
+        <texture name="irradiance" type="checkerboard">
+            <rgb name="color0" value="1, 0, 0"/>
+            <float name="uscale" value="3"/>
+        </texture>
+    </emitter>
+</scene>"""
+
+#: a volume texture on an emitter, an emitter plugin's kind
+VOLUME_TEX = """
+<scene version="3.0.0">
+    <shape type="rectangle">
+        <emitter type="area">
+            <texture name="radiance" type="volume"/>
+        </emitter>
+    </shape>
+</scene>"""
+
+PLUGIN_EMITTER = """
+<scene version="3.0.0">
+    <shape type="rectangle">
+        <emitter type="my_plugin_light"/>
+    </shape>
+</scene>"""
+
 #: value tags that no loaded scene above carries
 VALUES = """
 <bsdf type="roughconductor" id="b">
@@ -177,7 +252,8 @@ def _jax_dict(monkeypatch, fn, *args, **kw):
 
 
 TEXTS = {"full": XML, "legacy": LEGACY, "uv_legacy": UV_LEGACY,
-         "refs": REFS}
+         "refs": REFS, "emitters": EMITTERS, "volume_tex": VOLUME_TEX,
+         "plugin_emitter": PLUGIN_EMITTER}
 PARAMS = {"refs": {"depth": "3"}}
 
 
@@ -197,7 +273,7 @@ def test_plugin_root_equals_jax(tmp_path):
     assert got["eta"]["type"] == "irregular"
 
 
-@pytest.mark.parametrize("name", ["full", "refs"])
+@pytest.mark.parametrize("name", ["full", "refs", "legacy"])
 def test_load_string_equals_jax(name):
     text, params = TEXTS[name], PARAMS.get(name)
     st = XT.load_string(text, params, device="cpu")
@@ -233,13 +309,39 @@ def test_transform_chain_matches_dict_loader():
                                sd.vertices[:c].numpy(), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("name,plugin", [("legacy", "constant"),
-                                         ("uv_legacy", "checkerboard")])
+@pytest.mark.parametrize("name,plugin", [("volume_tex", "volume"),
+                                         ("uv_legacy", "checkerboard"),
+                                         ("plugin_emitter",
+                                          "my_plugin_light")])
 def test_unported_plugins_raise(name, plugin):
-    """The legacy scenes of ``tests/test_xml.py`` hold a constant emitter
-    and a checkerboard texture: the port names them and raises."""
+    """A texture on a BSDF (the uv legacy scene of ``tests/test_xml.py``
+    holds a checkerboard reflectance), a volume texture and an emitter
+    plugin's kind: the port names them and raises."""
     with pytest.raises(NotImplementedError, match=plugin):
         XT.load_string(TEXTS[name], device="cpu")
+
+
+def test_emitter_scene_loads_as_jax(tmp_path):
+    """Every shapeless kind from XML, the envmap's file named relative to
+    the XML's directory: the parsed dict and the loaded scene (the whole
+    emitter table, the textures, the envmap's index) equal JAX's."""
+    from epsm_mitsuba3_torch.core.bitmap import write_image
+    r = np.random.default_rng(14)
+    write_image(str(tmp_path / "sky.exr"),
+                r.random((8, 16, 3)).astype(np.float32))
+    base = str(tmp_path)
+    d = XT.parse_string(EMITTERS, base_dir=base)
+    assert d["_elem2"]["filename"] == str(tmp_path / "sky.exr")
+    st = XT.load_string(EMITTERS, base_dir=base, device="cpu")
+    sj = XJ.load_string(EMITTERS, base_dir=base)
+    _assert_scene_equal(st, sj)
+    assert st.static.emitter_kinds == (1, 2, 3, 4, 5, 6)
+    assert st.static.env_texture == sj.static.env_texture == 0
+    assert [t.kind for t in st.textures] == ["bitmap", "checkerboard"]
+    for a, b in zip(st.textures, sj.textures):
+        for k in ("data", "color0", "color1", "uv_scale", "uv_offset"):
+            np.testing.assert_array_equal(getattr(a, k).numpy(),
+                                          np.asarray(getattr(b, k)), k)
 
 
 def test_legacy_upgrade_renames():
