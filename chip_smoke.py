@@ -138,7 +138,21 @@ Phases (any failed check raises, and the script exits non-zero):
     light (ms by phase); the envmap sampler alone at 2^20 lanes, the
     bisection against the compare-sum (ms, memory, equal texels); the
     card against the CPU at 64^2 for every case (images), each new kind's
-    PRB gradients and the manifold backward with the constant light.
+    PRB gradients and the manifold backward with the constant light;
+19. [textures]: a 1,024^2 reflectance bitmap and a 512^2 normal map made
+    from the seed (smooth random fields) and written as EXR: the box (K1) at 512^2 x 64 spp with
+    the bitmap on the back wall, a checkerboard on the floor, the normal
+    map on the left wall, a ``regular`` spectrum on the right wall and an
+    ``irregular`` one as the light's radiance (a warm-up and 3 timed
+    renders, K1 launches exact, the image finite and not flat, one
+    profiled pass); the mesh's fwd+bwd cell with a ``mesh_attribute``
+    sphere (vertex colours from the positions), the bitmap and the normal
+    map (K2/K3 exact, none in the backward; the gradients of the
+    vertices, the texels, the reflectances and the vertex colours finite
+    and non-zero; Mrays/s, peak memory); one manifold iteration of the
+    epsm-mesh cell with the bitmap and the normal map (ms by phase); the
+    card against the CPU at 64^2: both scenes' images and PRB gradients
+    and the textured box's manifold backward.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -3390,6 +3404,376 @@ def emitters_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# [textures]: textured BSDFs, vertex colours, normal maps, spectra
+# ---------------------------------------------------------------------------
+
+#: [textures]: texels a side of the reflectance bitmap and of the normal
+#: map; timed renders of the box (after a warm-up)
+TX_ALBEDO, TX_NORMAL, TX_RENDERS = 1024, 512, 3
+
+
+def smooth_field(rng, n, channels, cells=8):
+    """An n x n image of ``channels`` values in [0, 1): a (cells + 1)^2
+    grid of uniform draws from ``rng``, bilinearly interpolated."""
+    import numpy as np
+    grid = rng.random((cells + 1, cells + 1, channels))
+    x = np.linspace(0.0, cells, n)
+    i = np.minimum(x.astype(int), cells - 1)
+    f = (x - i)[:, None, None]
+    rows = grid[i] * (1 - f) + grid[i + 1] * f              # (n, cells+1, c)
+    f = f.reshape(1, n, 1)
+    return (rows[:, i] * (1 - f) + rows[:, i + 1] * f).astype(np.float32)
+
+
+def texture_files(tmp):
+    """The textures of [textures], made with numpy from the script's seed
+    and written as EXR with the port's ``core/bitmap.py``: a reflectance
+    bitmap in [0.1, 0.9] and a tangent-space normal map (z >= 0.8, so
+    each perturbed normal stays within ~37 degrees of the surface's).
+    Both are smooth (``smooth_field``): a white-noise texture's
+    derivative jumps at every texel edge, and the card's and the CPU's
+    last-bit differences in a sampled direction then move the vertices'
+    PRB gradient by 2.8e-2 relative (``PERF.md``, PR 13)."""
+    import os
+    import numpy as np
+    from epsm_mitsuba3_torch.core.bitmap import write_image
+    r = np.random.default_rng(13)
+    out = {"albedo": os.path.join(tmp, "albedo.exr"),
+           "normal": os.path.join(tmp, "normal.exr")}
+    write_image(out["albedo"], 0.1 + 0.8 * smooth_field(r, TX_ALBEDO, 3))
+    xy = 0.5 + 0.3 * (smooth_field(r, TX_NORMAL, 2) - 0.5)
+    z = 0.8 + 0.2 * smooth_field(r, TX_NORMAL, 1)
+    write_image(out["normal"], np.concatenate([xy, z], -1))
+    return out
+
+
+def textured_box(files, res, spp):
+    """textures-box: ``cornell_box(res, spp, DEPTH)`` with the bitmap as
+    the back wall's reflectance, a checkerboard on the floor at uv_scale
+    8, the normal map on the left wall, a ``regular`` spectrum as the
+    right wall's reflectance and an ``irregular`` one as the light's
+    radiance."""
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    d = cornell_box(res=res, spp=spp, max_depth=DEPTH)
+    d["back"]["bsdf"]["reflectance"] = {"type": "bitmap",
+                                        "filename": files["albedo"]}
+    d["floor"]["bsdf"]["reflectance"] = {
+        "type": "checkerboard", "uv_scale": 8.0,
+        "color0": [0.8, 0.75, 0.7], "color1": [0.25, 0.3, 0.35]}
+    d["left"]["bsdf"] = {"type": "normalmap", "bsdf": d["left"]["bsdf"],
+                         "normalmap": {"type": "bitmap",
+                                       "filename": files["normal"]}}
+    d["right"]["bsdf"]["reflectance"] = {
+        "type": "regular", "wavelength_min": 400, "wavelength_max": 700,
+        "values": [0.1, 0.15, 0.6, 0.8, 0.7, 0.3]}
+    d["light"]["emitter"]["radiance"] = {
+        "type": "irregular", "value": "400:14, 480:18, 560:17, 640:16, "
+                                      "700:15"}
+    return d
+
+
+def textured_mesh(files, res, spp, sphere_colors=True):
+    """textures-mesh: ``cornell_box_mesh(res, spp, DEPTH)`` with the bitmap
+    as the back wall's reflectance and the normal map on the floor; with
+    ``sphere_colors`` the sphere takes outward normals (``blob_normals``)
+    and a ``mesh_attribute`` reflectance (``vertex_colored`` gives the
+    colours)."""
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    d = cornell_box_mesh(res=res, spp=spp, max_depth=DEPTH)
+    d["back"]["bsdf"]["reflectance"] = {"type": "bitmap",
+                                        "filename": files["albedo"]}
+    d["floor"]["bsdf"] = {"type": "normalmap", "bsdf": d["floor"]["bsdf"],
+                          "normalmap": {"type": "bitmap",
+                                        "filename": files["normal"]}}
+    if sphere_colors:
+        d = blob_normals(d)
+        d["blob"]["bsdf"]["reflectance"] = {"type": "mesh_attribute",
+                                            "name": "vertex_color"}
+    return d
+
+
+def vertex_colored(scene):
+    """The scene with vertex colours made from the positions: each
+    vertex's position mapped into [0.1, 0.9] over the scene's bounds."""
+    v = scene.vertices
+    lo, hi = v.amin(0), v.amax(0)
+    return scene.with_leaves({"vertex_colors": 0.1 + 0.8 * (v - lo)
+                              / (hi - lo).clamp(min=1e-6)})
+
+
+def texture_leaves(scene):
+    """Copies that require grad of the textured scene's leaves: the BSDF
+    bitmap's texels (not the normal map's), the reflectances and, where a
+    texture is a ``mesh_attribute``, the vertex colours."""
+    refl = [i for i in scene.static.bsdf_textures
+            if scene.textures[i].kind == "bitmap"]
+    keep = {"bsdfs.reflectance", *(f"textures.{i}.data" for i in refl)}
+    if scene.static.has_vertex_colors:
+        keep.add("vertex_colors")
+    return {k: v.clone().requires_grad_(True)
+            for k, v in scene.leaves().items() if k in keep}
+
+
+def textures_box_cell(files, res=RES, spp=SPP, chunk=SPP_CHUNK):
+    """textures-box-512-64spp: the textured box at the box render cell's
+    size (K1): a warm-up and TX_RENDERS timed renders, the K1 launches of
+    each (exact), the image finite and not flat, one profiled pass, the
+    peak memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    n_passes = spp // chunk
+    expect = {"mt_closest_hit": DEPTH * n_passes,
+              "mt_any_hit": DEPTH * n_passes, "bvh4_closest_hit": 0,
+              "bvh4_any_hit": 0}
+    scene = mt.load_dict(textured_box(files, res, chunk))
+    st = scene.static
+    check(st.has_normal_maps and len(st.bsdf_textures) == 2,
+          f"textures box: loaded {st}")
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for run in ["warm-up"] + [f"timed {i + 1}" for i in range(TX_RENDERS)]:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = mt.render(scene, spp=spp, spp_chunk=chunk, seed=0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        for k, n in expect.items():
+            check(counts[k] == n, f"textures box: {k} launched {counts[k]} "
+                  f"times, expected {n}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean, std = float(img.mean()), float(img.std())
+    check(tuple(img.shape) == (res, res, 3)
+          and bool(torch.isfinite(img).all()) and mean > 0
+          and std > 0.05 * mean, f"textures box: image shape "
+          f"{tuple(img.shape)}, mean {mean}, std {std}")
+    prof = profile_pass(f"textures box, one {chunk}-spp pass",
+                        lambda: mt.render(scene, spp=chunk, seed=7),
+                        ("mt_closest", "mt_any"), cpu=False, table=False)
+    ws = sorted(walls[1:])
+    say(f"[textures box] {res}^2 x {spp} spp in passes of {chunk}: wall "
+        f"median {ws[len(ws) // 2]:.1f} ms (range {ws[0]:.1f}-{ws[-1]:.1f})"
+        f"; launches {counts}; image mean {mean:.5f}, std {std:.5f}; peak "
+        f"device memory {peak:.2f} GiB; busy of a pass "
+        + (f"{prof['busy']:.1f} of {prof['wall']:.1f} ms "
+           f"({100 * prof['busy'] / prof['wall']:.1f} %), "
+           f"{prof['launches']} launches" if prof else "not measured"))
+    return dict(median_ms=ws[len(ws) // 2], range_ms=(ws[0], ws[-1]),
+                counts=counts, mean=mean, peak_gib=peak, profile=prof)
+
+
+def textures_mesh_cell(files, res=RES, spp=MESH_CHUNK, passes=MESH_PASSES):
+    """textures-mesh-512-8spp-fwdbwd: the textured mesh, ``passes``
+    fwd+bwd passes (the loss ``mean(img^2)``) a run, a warm-up and 3
+    timed runs: K2/K3 launches exact in each forward, none in the
+    backward; the gradients of the vertices (through ``set_vertices``),
+    the bitmap's texels, the reflectances and the vertex colours finite
+    and non-zero."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    scene = vertex_colored(mt.load_dict(textured_mesh(files, res, spp)))
+    expect = {"bvh4_closest_hit": DEPTH, "bvh4_any_hit": DEPTH,
+              "bvh4_closest_hit_mp": 0, "mt_closest_hit": 0,
+              "mt_any_hit": 0}
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for run in ["warm-up", "timed 1", "timed 2", "timed 3"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(passes):
+            v = scene.vertices.clone().requires_grad_(True)
+            lv = texture_leaves(scene)
+            sc = scene.set_vertices(v).with_leaves(lv)
+            zero_counts()
+            img = mt.render(sc, spp=spp, seed=p + 1)
+            loss = torch.mean(img ** 2)
+            fwd = read_counts()
+            zero_counts()
+            grads = torch.autograd.grad(loss, [v, *lv.values()])
+            bwd = read_counts()
+            for k, n in expect.items():
+                check(fwd[k] == n, f"textures mesh: {k} launched {fwd[k]} "
+                      f"times in a forward, expected {n}")
+            check(sum(bwd.values()) == 0,
+                  f"textures mesh: the replay launched kernels: {bwd}")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        norms = {k: float(g.norm()) for k, g in
+                 zip(("vertices", *lv), grads)}
+        say(f"[textures mesh] {run}: {walls[-1]:.1f} ms for {passes} "
+            f"passes, loss {float(loss):.6g}; |grad| "
+            + ", ".join(f"{k} {n:.4g}" for k, n in norms.items()))
+        check(len(norms) == 4, f"textures mesh: leaves {list(norms)}")
+        for k, g in zip(("vertices", *lv), grads):
+            check(bool(torch.isfinite(g).all()) and norms[k] > 0,
+                  f"textures mesh: the gradient of {k} is not finite and "
+                  "non-zero")
+    CT.raise_on_overflow(scene.device)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ws = sorted(walls[1:])
+    rays = res * res * spp * DEPTH * 2 * passes
+    mrays = rays / (ws[1] / 1e3) / 1e6
+    say(f"[textures mesh] cornell_box_mesh textured, {res}^2 x {spp} spp, "
+        f"{passes} fwd+bwd passes: wall median {ws[1]:.1f} ms (range "
+        f"{ws[0]:.1f}-{ws[-1]:.1f}); {mrays:.2f} physical Mrays/s fwd+bwd; "
+        f"forward launches {fwd}; peak device memory {peak:.2f} GiB")
+    return dict(median_ms=ws[1], range_ms=(ws[0], ws[-1]), mrays=mrays,
+                counts=fwd, peak_gib=peak)
+
+
+def textures_epsm_cell(files, res=EPSM_RES, spp=EPSM_SPP):
+    """textures-epsm-mesh-128-8spp: the epsm-mesh cell with the bitmap
+    reflectance and the normal map (``textured_mesh`` without the sphere's
+    colours): a warm-up and one timed ``manifold`` iteration, ms by phase
+    (CUDA events), K2/K3 launches exact, the gradient finite and
+    non-zero, the peak memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
+    scene = mt.load_dict(textured_mesh(files, res, spp, sphere_colors=False))
+    dev = scene.device
+    with torch.no_grad():
+        gt = mt.render(scene, spp=spp, seed=123,
+                       integrator={"type": "path", "max_depth": DEPTH})
+    gt_low = gt.reshape(-1, 3)
+    matcher = Matcher(res)
+    v0 = scene.vertices
+    ex = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    integ = {"type": "manifold", "max_depth": DEPTH}
+    timer = epsm_backward_timer()
+
+    def iteration(seed):
+        theta = torch.tensor(0.01, device=dev, requires_grad=True)
+        sc = scene.set_vertices(v0 + theta * ex)
+        img = timer.wrap_call("forward render", lambda: mt.render(
+            sc, spp=spp, seed=seed, integrator=integ))
+        with torch.no_grad():
+            g5 = timer.wrap_call("Sinkhorn match", lambda: (
+                matcher.match_Sinkhorn(img[..., :3].reshape(-1, 3),
+                                       gt_low))).reshape(res, res, 5)
+        (g,) = timer.wrap_call("backward", lambda: torch.autograd.grad(
+            torch.sum(img * g5), theta))
+        return float(g)
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for i, run in enumerate(("warm-up", "timed")):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = iteration(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            ms = split_phases(timer.read())
+            say(f"[textures epsm] {run}: {wall:.1f} ms, dL/dtheta {g:.6g}; "
+                + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+                + f" ms; launches {counts}")
+            check(math.isfinite(g) and g != 0.0,
+                  f"textures epsm: gradient {g}")
+            for k, n in {"bvh4_closest_hit": 4 * DEPTH + 1,
+                         "bvh4_any_hit": 3 * DEPTH, "mt_closest_hit": 0,
+                         "mt_any_hit": 0}.items():
+                check(counts[k] == n, f"textures epsm: {k} launched "
+                      f"{counts[k]} times, expected {n}")
+            CT.raise_on_overflow(dev)
+    finally:
+        timer.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"[textures epsm] cornell_box_mesh textured, {res}^2 x {spp} spp, "
+        f"one manifold iteration: {wall:.1f} ms; peak device memory "
+        f"{peak:.2f} GiB")
+    return dict(wall_ms=wall, phases=ms, counts=counts, peak_gib=peak)
+
+
+def textures_card_vs_cpu(files, res=64, spp=4):
+    """[textures card vs cpu] at 64^2 x 4 spp, depth 6, with the camera
+    phase's gates: the box's and the mesh's images (<= 1e-3 of the mean)
+    and PRB gradients (vertices, texels, reflectances, vertex colours;
+    relative L2 <= 1e-3), and the manifold backward of the textured box.
+    The texels' and vertex colours' gradients sum through ``index_add_``
+    atomics on the card."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.integrators import epsm as ET
+    for label, d in (("box", textured_box(files, res, spp)),
+                     ("mesh", textured_mesh(files, res, spp))):
+        got, imgs = {}, {}
+        for dev in ("cuda", "cpu"):
+            sc = vertex_colored(mt.load_dict(d, device=dev))
+            v = sc.vertices.clone().requires_grad_(True)
+            lv = texture_leaves(sc)
+            img = mt.render(sc.set_vertices(v).with_leaves(lv), spp=spp,
+                            seed=0, device=dev)
+            gs = torch.autograd.grad((img ** 2).mean(), [v, *lv.values()])
+            imgs[dev] = img.detach().cpu()
+            got[dev] = dict(zip(("vertices", *lv), gs))
+        diff = (imgs["cuda"] - imgs["cpu"]).abs()
+        mad, mean = float(diff.mean()), float(imgs["cpu"].mean())
+        within = float((diff.amax(-1) <= 1e-3).float().mean())
+        errs = {k: rel_l2(got["cuda"][k].cpu(), g)
+                for k, g in got["cpu"].items()}
+        say(f"[textures card vs cpu] {label} {res}^2 x {spp} spp: mean "
+            f"|gpu - cpu| {mad:.3g} (limit {1e-3 * mean:.3g} = 1e-3 x mean "
+            f"{mean:.4f}); {100 * within:.2f} % of pixels within 1e-3 (limit "
+            "99 %); PRB gradients |g_gpu - g_cpu| / |g_cpu| "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + "  [limit 1e-3 each]")
+        check(mad <= 1e-3 * mean and within >= 0.99,
+              f"textures {label}: card and CPU renders disagree")
+        for k, e in errs.items():
+            check(e <= 1e-3 and float(got["cpu"][k].abs().max()) > 0,
+                  f"textures {label}: card and CPU gradients of {k} differ "
+                  f"by {e} relative")
+    d = textured_box(files, res, spp)
+    g = torch.randn(res, res, 5, generator=torch.Generator().manual_seed(4))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sc = mt.load_dict(d, device=dev)
+        names = ("vertices", *texture_leaves(sc))
+        got[dev] = ET.render_backward(sc, names, g.to(sc.device) * 0.05, 3,
+                                      DEPTH, 5, False, -1, spp)
+    errs = {k: rel_l2(got["cuda"][k].cpu(), got["cpu"][k]) for k in names}
+    say(f"[textures card vs cpu] manifold backward, textured box {res}^2 x "
+        f"{spp} spp: |g_gpu - g_cpu| / |g_cpu| "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + "  [limit 1e-3 each]")
+    for k, e in errs.items():
+        check(e <= 1e-3 and float(got["cpu"][k].abs().max()) > 0,
+              f"textures: manifold backward {k} card vs cpu {e}")
+
+
+def textures_phase():
+    """[textures]: textured BSDFs, vertex colours, normal maps and
+    tabulated spectra on every render path (K1 on the box, K2/K3 on the
+    mesh and in the EPSM iteration), then the card against the CPU.
+    Returns the numbers and the K1-K4 launches of the phase."""
+    global _TALLY
+    import tempfile
+    zero_counts()
+    _TALLY = {}
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            files = texture_files(tmp)
+            for label, fn in (("box", textures_box_cell),
+                              ("mesh", textures_mesh_cell),
+                              ("epsm", textures_epsm_cell),
+                              ("card vs cpu", textures_card_vs_cpu)):
+                t0 = time.perf_counter()
+                out[label] = fn(files)
+                say(f"[textures] {label}: {time.perf_counter() - t0:.1f} s")
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3628,6 +4012,15 @@ def main() -> int:
         f"{em['total']}")
 
     lap("18 emitters")
+
+    # -- 19. [textures]: textured BSDFs, normal maps, spectra ----------------
+    t0 = time.perf_counter()
+    tx = textures_phase()
+    epsm_launches["launches_textures_phase"] = tx["total"]
+    say(f"[textures] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{tx['total']}")
+
+    lap("19 textures")
 
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []

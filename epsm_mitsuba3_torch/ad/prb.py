@@ -113,9 +113,10 @@ def _replay_bounce(sc, leaves: Sequence[torch.Tensor], st: P.LoopState,
         em_weight = torch.where((active_em & ~cached["occl"])[..., None],
                                 em_weight, 0.0)
         wo_em = si.to_local(d_att.detach())
+        textures = sc.bsdf_textures()
         bsdf_val_em, bsdf_pdf_em = B.eval_pdf(
             sc.bsdfs, sc.static.bsdf_kinds, si.bsdf_index, si.wi, wo_em,
-            active_em)
+            active_em, uv=si.uv, textures=textures, vcolor=si.vcolor)
         mis_em = torch.where(ds.delta, 1.0,
                              common.mis_weight(pdf_d, bsdf_pdf_em))
         lr_dir = st.beta * mis_em[..., None] * bsdf_val_em * em_weight
@@ -125,13 +126,15 @@ def _replay_bounce(sc, leaves: Sequence[torch.Tensor], st: P.LoopState,
         bsdfs_d = {k: v.detach() for k, v in sc.bsdfs.items()}
         st2, wo_world = P.advance(st, si_d, sampler, bsdfs_d,
                                   sc.static.bsdf_kinds, active_next,
-                                  rr_depth)
+                                  rr_depth, {i: t.detach()
+                                             for i, t in textures.items()})
 
         # indirect: the detached BSDF weight cancelled and re-attached
         L_remaining = (st.L - le - lr_dir).detach()
         bsdf_val, _ = B.eval_pdf(
             sc.bsdfs, sc.static.bsdf_kinds, si.bsdf_index, si.wi,
-            si.to_local(wo_world), active_next)
+            si.to_local(wo_world), active_next, uv=si.uv, textures=textures,
+            vcolor=si.vcolor)
         val_d = bsdf_val.detach()
         nz = val_d != 0.0
         inv_det = torch.where(nz, 1.0, 0.0) / torch.where(nz, val_d, 1.0)

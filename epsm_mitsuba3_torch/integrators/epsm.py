@@ -158,7 +158,9 @@ def _sample_path_logged(scene, sampler, ray, max_depth, rr_depth):
         smp_, s1 = smp.next_1d(smp_)
         smp_, s2 = smp.next_2d(smp_)
         bs, bsdf_weight, ok = B.sample(scene.bsdfs, kinds, si.bsdf_index,
-                                       si.wi, s1, s2, active_next)
+                                       si.wi, s1, s2, active_next, uv=si.uv,
+                                       textures=scene.bsdf_textures(),
+                                       vcolor=si.vcolor)
 
         L = st.L + torch.where(st.active[..., None], le + lr_dir, 0.0)
         new_ray = si.spawn_ray(si.to_world(bs.wo))

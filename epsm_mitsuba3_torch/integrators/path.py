@@ -95,7 +95,8 @@ def _nee(scene, si, sampler, active_em):
     wo = si.to_local(ds.d)
     bsdf_val_em, bsdf_pdf_em = B.eval_pdf(
         scene.bsdfs, scene.static.bsdf_kinds, si.bsdf_index, si.wi, wo,
-        active_em)
+        active_em, uv=si.uv, textures=scene.bsdf_textures(),
+        vcolor=si.vcolor)
     # a delta light (point, spot, projector, directional) takes weight 1
     mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf_em))
     lr_dir = mis_em[..., None] * bsdf_val_em * em_weight
@@ -103,16 +104,18 @@ def _nee(scene, si, sampler, active_em):
 
 
 def advance(st: LoopState, si, sampler, bsdfs, bsdf_kinds, active_next,
-            rr_depth: int):
+            rr_depth: int, textures=()):
     """BSDF sampling, throughput and Russian roulette: the next loop state
     from this bounce's (detached) interaction ``si``.  Draws next_1d and
-    next_2d for the BSDF, then next_1d for the roulette.  Returns (the
-    state with ``st.L`` carried over, the sampled direction in world
+    next_2d for the BSDF, then next_1d for the roulette.  ``textures``:
+    the BSDF slots' textures by index (``Scene.bsdf_textures``).  Returns
+    (the state with ``st.L`` carried over, the sampled direction in world
     space)."""
     sampler, s1 = smp.next_1d(sampler)
     sampler, s2 = smp.next_2d(sampler)
     bs, bsdf_weight, ok = B.sample(bsdfs, bsdf_kinds, si.bsdf_index, si.wi,
-                                   s1, s2, active_next)
+                                   s1, s2, active_next, uv=si.uv,
+                                   textures=textures, vcolor=si.vcolor)
     wo_world = si.to_world(bs.wo)
     new_ray = si.spawn_ray(wo_world)
     eta = st.eta * torch.where(ok, bs.eta, 1.0)
@@ -174,7 +177,7 @@ def bounce(scene, st: LoopState, max_depth: int, rr_depth: int,
     lr_dir = st.beta * lr_dir
 
     st2, _ = advance(st, si, sampler, scene.bsdfs, scene.static.bsdf_kinds,
-                     active_next, rr_depth)
+                     active_next, rr_depth, scene.bsdf_textures())
     L = st.L + torch.where(st.active[..., None], le + lr_dir, 0.0)
     return replace(st2, L=L), {"pi": pi, "occl": occl}
 

@@ -7,6 +7,13 @@ and ``eval_pdf`` check the kinds present in the scene, evaluate each of
 them on every lane and select per lane by the slot's kind, as the
 reference does; a kind the port does not have yet raises.
 
+A slot's ``reflectance`` may come from a texture (``reflectance_tex``,
+-1 for none): ``sample`` and ``eval_pdf`` take the hit's ``uv``, the
+textures the table names and the hit's vertex colour ``vcolor``, and
+evaluate the texture per lane (``_apply_textures``, :1146-1170).  The
+``normal_tex`` column (a normal or bump map) is read where the shading
+frame is built (``ops/intersect.py``).
+
 Conventions (bsdf.h): directions are in the local shading frame with the
 normal = +Z; ``wi`` points away from the surface; ``sample`` returns
 ``weight = f * cos_theta_o / pdf``; ``eval_pdf`` returns ``f * cos_theta_o``.
@@ -21,6 +28,7 @@ import torch
 from ..core import math as m
 from ..core import warp
 from ..ops.gather import take_rows
+from . import textures as tex_mod
 from .records import BSDFSample
 
 
@@ -106,6 +114,20 @@ def _kind_params(table, kinds_present, bsdf_idx):
     for kind in kinds_present:
         fields += [f for f in KIND_FIELDS[kind] if f not in fields]
     return gather_params(table, bsdf_idx, fields)
+
+
+def _apply_textures(p, table, bsdf_idx, uv, textures, vcolor):
+    """The textured slots' reflectance at the hit's ``uv``: the value of
+    the slot's ``reflectance_tex``, the hit's vertex colour ``vcolor``
+    for a ``mesh_attribute``; a slot without a texture keeps its row.
+    ``textures``: the textures the table names, by index.  The reference
+    also looks up ``diffuse_reflectance`` and ``blend_weight``, which only
+    kinds the port does not have read."""
+    if uv is None or not textures or "reflectance" not in p:
+        return p
+    idx = gather_params(table, bsdf_idx, ("reflectance_tex",))
+    return {**p, "reflectance": tex_mod.eval_select(
+        textures, idx["reflectance_tex"], uv, p["reflectance"], vcolor)}
 
 
 def _diffuse_sample(p, wi, s1, s2):
@@ -254,10 +276,13 @@ def _flip_z(v, flip):
 
 
 def sample(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, s1, s2,
-           active=None):
-    """BSDF::sample over the wavefront: (BSDFSample, weight (N,3), ok)."""
+           active=None, uv=None, textures=(), vcolor=None):
+    """BSDF::sample over the wavefront: (BSDFSample, weight (N,3), ok).
+    ``uv``, ``textures``, ``vcolor``: the textured slots' lookup
+    (``_apply_textures``)."""
     check_kinds(kinds_present)
-    p = _kind_params(table, kinds_present, bsdf_idx)
+    p = _apply_textures(_kind_params(table, kinds_present, bsdf_idx),
+                        table, bsdf_idx, uv, textures, vcolor)
     wi_f, flip = _apply_twosided_in(p, wi)
     bs = w = ok = None
     for kind in kinds_present:
@@ -277,10 +302,11 @@ def sample(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, s1, s2,
 
 
 def eval_pdf(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, wo,
-             active=None):
+             active=None, uv=None, textures=(), vcolor=None):
     """BSDF::eval_pdf over the wavefront: (f * cos_theta_o (N,3), pdf)."""
     check_kinds(kinds_present)
-    p = _kind_params(table, kinds_present, bsdf_idx)
+    p = _apply_textures(_kind_params(table, kinds_present, bsdf_idx),
+                        table, bsdf_idx, uv, textures, vcolor)
     wi_f, flip = _apply_twosided_in(p, wi)
     wo_f = _flip_z(wo, flip)
     val = torch.zeros_like(wi)

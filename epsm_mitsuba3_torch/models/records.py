@@ -91,13 +91,17 @@ class SurfaceInteraction:
     n1: torch.Tensor
     n2: torch.Tensor
     ismesh: torch.Tensor         # (N,) float, 1 on a triangle hit
+    #: (N, 3) interpolated vertex colour (``mesh_attribute`` textures);
+    #: None when the scene has no such texture
+    vcolor: Optional[torch.Tensor] = None
 
     def to_local(self, v):
         return m.to_local(self.sh_n, self.sh_s, self.sh_t, v)
 
     def detach(self) -> "SurfaceInteraction":
-        return SurfaceInteraction(**{f.name: getattr(self, f.name).detach()
-                                     for f in fields(self)})
+        return SurfaceInteraction(**{
+            f.name: getattr(self, f.name) if getattr(self, f.name) is None
+            else getattr(self, f.name).detach() for f in fields(self)})
 
     def to_world(self, v):
         return m.to_world(self.sh_n, self.sh_s, self.sh_t, v)

@@ -9,8 +9,11 @@ renders: ``rectangle``/``cube``/``disk``/``sphere``/``cylinder`` shapes
 (``obj``, ``ply``, ``serialized``, through ``mesh_io``), ``shapegroup``
 and ``instance`` (flattened at load) and ``merge``; ``diffuse``, the
 smooth ``conductor``, the GGX ``roughconductor`` and the smooth
-``dielectric`` (optionally ``twosided``), also stand-alone with an
-``id`` and referenced by ``{"type": "ref"}``; the eight emitter kinds of
+``dielectric`` (optionally ``twosided``, ``normalmap`` or ``bumpmap``),
+also stand-alone with an ``id`` and referenced by ``{"type": "ref"}``,
+their reflectance a colour, a tabulated ``regular`` or ``irregular``
+spectrum or a ``bitmap``, ``checkerboard`` or ``mesh_attribute``
+texture; the eight emitter kinds of
 ``models/emitters.py``, on a shape (area, directionalarea) or on their
 own (point, spot, directional, constant, envmap from a bitmap file,
 projector with a bitmap or checkerboard irradiance), and a scene with no
@@ -28,9 +31,9 @@ the records of kernels K2/K3.
 
 ``scene_from_arrays`` builds a scene from numpy arrays under the JAX
 ``Scene``'s field names: it carries the scene state between the two
-packages, so that both render the very same scene.  The bitmap and
-checkerboard textures the emitters read are ``Scene.textures``; a texture
-on a BSDF is not ported yet and raises.
+packages, so that both render the very same scene.  The textures the
+emitters and the BSDFs read are ``Scene.textures``, the vertex colours
+a ``mesh_attribute`` texture reads ``Scene.vertex_colors``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.spectral import project_to_rgb
 from ..core.spectrum import blackbody_rgb
 from ..core.transform import ScalarTransform4f
 from ..ops import accel
@@ -78,6 +82,18 @@ class SceneStatic:
     sampler_kind: str = "independent"
     #: index into ``Scene.textures`` of the (single) envmap bitmap, or -1
     env_texture: int = -1
+    #: the textures the BSDF table's ``reflectance_tex`` and
+    #: ``normal_tex`` columns name (``Scene.bsdf_textures``,
+    #: ``Scene.normal_textures``)
+    bsdf_textures: Tuple[int, ...] = ()
+    normal_textures: Tuple[int, ...] = ()
+    #: a texture is a ``mesh_attribute`` (the hit reads vertex colours)
+    has_vertex_colors: bool = False
+
+    @property
+    def has_normal_maps(self) -> bool:
+        """Some BSDF slot carries a normal or bump map."""
+        return bool(self.normal_textures)
 
 
 @dataclass(frozen=True)
@@ -98,8 +114,8 @@ class Scene:
     #: bitmap or checkerboard), by ``emitters["texture_index"]``
     textures: Tuple[tex_mod.Texture, ...] = ()
     #: (V, 3) per-vertex colours of the meshes that carry them (PLY
-    #: ``red``/``green``/``blue``), zero rows elsewhere; no shading
-    #: reads them yet (the reference's ``mesh_attribute`` texture)
+    #: ``red``/``green``/``blue``), zero rows elsewhere; a
+    #: ``mesh_attribute`` texture reads them
     vertex_colors: Optional[torch.Tensor] = None
     #: BVH above ``accel.BRUTE_FORCE_MAX_TRIS`` triangles, else None
     bvh: Optional[bvh_mod.BVH] = None
@@ -122,11 +138,13 @@ class Scene:
         each sensor's ``sensors.<i>.to_world`` (and a batch sensor's
         ``sensors.<i>.sub_to_world``) and each texture's tensors
         (``textures.<i>.data``, ``.color0``, ``.color1``, ``.uv_scale``,
-        ``.uv_offset``), so that an envmap's texels take a gradient.
-        The BVH and its packed records derive from the vertices and are
-        no leaves."""
+        ``.uv_offset``), so that an envmap's or a BSDF's texels take a
+        gradient, and the ``vertex_colors``.  The BVH and its packed
+        records derive from the vertices and are no leaves."""
         out = {k: getattr(self, k) for k in GEOMETRY_FIELDS
                if getattr(self, k).is_floating_point()}
+        if self.vertex_colors is not None:
+            out["vertex_colors"] = self.vertex_colors
         for prefix in ("bsdfs", "emitters"):
             out.update({f"{prefix}.{k}": v
                         for k, v in getattr(self, prefix).items()
@@ -145,7 +163,8 @@ class Scene:
         """This scene with the named leaves replaced, values unchanged:
         the BVH is kept as it is (a vertex edit goes through
         ``set_vertices``)."""
-        kw = {k: v for k, v in leaves.items() if k in GEOMETRY_FIELDS}
+        kw = {k: v for k, v in leaves.items()
+              if k in GEOMETRY_FIELDS or k == "vertex_colors"}
         for prefix in ("bsdfs", "emitters"):
             table = dict(getattr(self, prefix))
             table.update({k.split(".", 1)[1]: v for k, v in leaves.items()
@@ -160,6 +179,15 @@ class Scene:
                          for k in tex_mod.ARRAYS})
             for i, t in enumerate(self.textures))
         return replace(self, **kw)
+
+    def bsdf_textures(self) -> Dict[int, tex_mod.Texture]:
+        """The textures of the BSDF slots' reflectance, by index: what
+        ``bsdf.sample`` and ``bsdf.eval_pdf`` evaluate."""
+        return {i: self.textures[i] for i in self.static.bsdf_textures}
+
+    def normal_textures(self) -> Dict[int, tex_mod.Texture]:
+        """The normal and bump maps of the BSDF slots, by index."""
+        return {i: self.textures[i] for i in self.static.normal_textures}
 
     def set_vertices(self, vertices: torch.Tensor) -> "Scene":
         """The scene with its vertex buffer replaced, and its BVH refit and
@@ -201,26 +229,53 @@ _SENSOR_TYPES = sns_mod.KINDS
 _INTEGRATOR_TYPES = ("path", "prb", "manifold", "manifold_caustic")
 
 
+def _parse_spd(value: dict):
+    """A tabulated spectrum -> (wavelengths (M,), values (M,)) float64
+    (``_parse_spd``, :164-185): ``regular`` values over [wavelength_min,
+    wavelength_max] (360-830 nm by default), ``irregular`` explicit
+    ``wavelengths`` and ``values``, or the string "lam0:v0, lam1:v1, ..."
+    as ``value``."""
+    if isinstance(value.get("value"), str):
+        pairs = [p.split(":") for p in value["value"].split(",") if ":" in p]
+        lams = np.asarray([float(a) for a, _ in pairs], np.float64)
+        vals = np.asarray([float(b) for _, b in pairs], np.float64)
+        return lams, vals
+    vals = np.asarray(value.get("values", value.get("value")), np.float64)
+    if value.get("type") == "regular" or "wavelengths" not in value:
+        lo = float(value.get("wavelength_min", value.get("lambda_min", 360)))
+        hi = float(value.get("wavelength_max", value.get("lambda_max", 830)))
+        lams = np.linspace(lo, hi, len(vals))
+    else:
+        lams = np.asarray(value["wavelengths"], np.float64)
+    return lams, vals
+
+
 def _rgb(value, default=(1.0, 1.0, 1.0)):
-    """Parse a colour: scalar | [r, g, b] | {'type': 'rgb', 'value': ...}."""
+    """Parse a colour: scalar | [r, g, b] | {'type': 'rgb', 'value': ...}
+    | a blackbody | a tabulated spectrum, projected to linear sRGB
+    through ``core/spectral.py``."""
     if value is None:
         return np.asarray(default, np.float32)
     if isinstance(value, dict):
         t = value.get("type", "rgb")
         if t in ("rgb", "srgb", "d65", "uniform"):
             return _rgb(value.get("value", value.get("color", default)))
+        if t in ("regular", "irregular"):
+            lams, vals = _parse_spd(value)
+            rgb = project_to_rgb(
+                lambda lam: np.interp(np.asarray(lam, np.float64), lams,
+                                      vals, left=0.0, right=0.0))
+            return np.asarray(rgb, np.float32) * float(value.get("scale",
+                                                                 1.0))
         if t == "blackbody":
             rgb = blackbody_rgb(float(value.get("temperature", 5000.0)),
                                 normalize=False)
             return rgb * float(value.get("scale", 1.0))
-        if t in ("bitmap", "checkerboard"):
+        if t in ("bitmap", "checkerboard", "mesh_attribute"):
             raise NotImplementedError(
-                f"a '{t}' texture here is not ported: the port's textures "
-                "serve the envmap and projector emitters only")
-        if t in ("regular", "irregular"):
-            raise NotImplementedError(
-                f"tabulated spectrum '{t}': its projection needs the CIE "
-                "tables of core/spectral.py, which are not ported")
+                f"a '{t}' texture here is not ported: textures serve a "
+                "BSDF's reflectance, a normal or bump map, an envmap and "
+                "a projector")
         raise NotImplementedError(f"spectrum type '{t}' is not ported")
     arr = np.asarray(value, np.float32)
     if arr.ndim == 0:
@@ -263,6 +318,41 @@ def _transform(value) -> np.ndarray:
     return np.asarray(value, np.float32).reshape(4, 4)
 
 
+#: the reference's BSDF plugin names (its ``KIND_NAMES``); the port has
+#: the first four (``bsdf.KIND_NAMES``)
+_BSDF_PLUGINS = ("diffuse", "conductor", "roughconductor", "dielectric",
+                 "thindielectric", "roughdielectric", "plastic",
+                 "roughplastic", "null", "principled", "principledthin",
+                 "blendbsdf", "pplastic", "measured", "polarizer",
+                 "retarder", "circular", "measured_polarized")
+#: the texture plugins a BSDF's reflectance may name
+_REFLECTANCE_TEXTURES = ("bitmap", "checkerboard", "mesh_attribute",
+                         "volume")
+
+
+def _unwrap_bsdf(d: dict):
+    """(the nested BSDF, twosided) of ``d`` under its ``twosided``,
+    ``normalmap`` and ``bumpmap`` wrappers (``_parse_bsdf``, :224-249): a
+    wrapper's child is its ``material``, ``bsdf`` or ``nested`` entry,
+    else its first entry that is a BSDF or a twosided wrapper."""
+    twosided = False
+    while d.get("type") in ("twosided", "mask", "bumpmap", "normalmap"):
+        if d["type"] == "mask":
+            raise NotImplementedError("bsdf type 'mask' is not ported")
+        twosided = twosided or d["type"] == "twosided"
+        child = next((d[k] for k in ("material", "bsdf", "nested")
+                      if isinstance(d.get(k), dict)), None)
+        if child is None:
+            child = next((v for v in d.values() if isinstance(v, dict)
+                          and v.get("type") in _BSDF_PLUGINS + ("twosided",)),
+                         None)
+        if child is None:
+            raise ValueError(f"wrapper bsdf '{d['type']}' without nested "
+                             "material")
+        d = child
+    return d, twosided
+
+
 class _Builder:
     def __init__(self):
         self.vertices, self.normals, self.uvs, self.faces = [], [], [], []
@@ -291,13 +381,17 @@ class _Builder:
                 raise KeyError(f"bsdf reference to an unknown id "
                                f"'{d['id']}'")
             return self.bsdf_by_id[d["id"]]
-        twosided = False
-        p = d
-        while p.get("type") == "twosided":
-            twosided = True
-            p = next((v for v in p.values() if isinstance(v, dict)), None)
-            if p is None:
-                raise ValueError("twosided bsdf without nested material")
+        # a normal or bump map wrapper's texture, recorded before the
+        # unwrapping (:402-415); a bump map's texture is read as a
+        # tangent-space normal map, as the reference does
+        normal_tex = -1
+        if d.get("type") in ("bumpmap", "normalmap"):
+            for key in ("bumpmap", "normalmap", "texture"):
+                tex = d.get(key)
+                if isinstance(tex, dict) and tex.get("type") in (
+                        "bitmap", "checkerboard"):
+                    normal_tex = self.add_texture(tex)
+        p, twosided = _unwrap_bsdf(d)
         kind_name = p.get("type")
         if kind_name not in bsdf_mod.KIND_NAMES:
             raise NotImplementedError(f"bsdf type '{kind_name}' is not ported")
@@ -313,9 +407,20 @@ class _Builder:
                 f"microfacet distribution '{p['distribution']}': the port "
                 "has GGX only")
         alpha = p.get("alpha", p.get("roughness", bsdf_mod.DEFAULT_ALPHA))
-        if isinstance(alpha, (dict, list)):
+        if isinstance(alpha, dict):
+            # a textured roughness loads as the default, as in the
+            # reference (:514-516)
+            alpha = bsdf_mod.DEFAULT_ALPHA
+        elif isinstance(alpha, (list, tuple)):
             raise NotImplementedError(
-                "a textured roughness is not ported; give alpha as a number")
+                "a roughness given as a list is not ported; give alpha as "
+                "a number")
+        refl = p.get("reflectance", p.get("base_color"))
+        refl_tex = -1
+        if isinstance(refl, dict) and refl.get("type") in \
+                _REFLECTANCE_TEXTURES:
+            refl_tex = self.add_texture(refl)
+            refl = None
         # the relative IOR column: the dielectric's int_ior / ext_ior, any
         # other kind's scalar eta (an rgb eta is the conductor's eta_c)
         if kind == bsdf_mod.KIND_DIELECTRIC:
@@ -328,9 +433,12 @@ class _Builder:
         self.bsdf_rows.append({
             "kind": kind,
             "flags": bsdf_mod.KIND_FLAGS[kind]
-            | (bsdf_mod.BSDFFlags.BackSide if twosided else 0),
+            | (bsdf_mod.BSDFFlags.BackSide if twosided else 0)
+            | (bsdf_mod.BSDFFlags.SpatiallyVarying if refl_tex >= 0 else 0),
             "twosided": twosided,
-            "reflectance": _rgb(p.get("reflectance"), (0.5, 0.5, 0.5)),
+            "reflectance": _rgb(refl, (0.5, 0.5, 0.5)),
+            "reflectance_tex": refl_tex,
+            "normal_tex": normal_tex,
             "specular_reflectance": _rgb(p.get("specular_reflectance")),
             "specular_transmittance": _rgb(p.get("specular_transmittance",
                                                  p.get("transmittance"))),
@@ -347,9 +455,9 @@ class _Builder:
 
     # -- textures (_Builder.add_texture) ------------------------------------
     def add_texture(self, d: dict) -> int:
-        """A texture for an emitter (``_Builder.add_texture``, :308-380):
-        a ``bitmap`` read from its ``filename`` or a ``checkerboard``.
-        Returns its index into ``Scene.textures``."""
+        """A texture (``_Builder.add_texture``, :308-380): a ``bitmap``
+        read from its ``filename``, a ``checkerboard`` or a
+        ``mesh_attribute``.  Returns its index into ``Scene.textures``."""
         t = d.get("type")
         uv = {"uv_scale": _uv2(d, "uv_scale", 1.0),
               "uv_offset": _uv2(d, "uv_offset", 0.0)}
@@ -363,6 +471,13 @@ class _Builder:
                    "data": np.zeros((1, 1, 3), np.float32),
                    "color0": _rgb(d.get("color0"), (0.4, 0.4, 0.4)),
                    "color1": _rgb(d.get("color1"), (0.2, 0.2, 0.2)), **uv}
+        elif t == "mesh_attribute":
+            # the reference's placeholder arrays (no offset): the value
+            # is the hit's vertex colour
+            tex = {"kind": t, "data": np.zeros((1, 1, 3), np.float32),
+                   "color0": np.zeros(3, np.float32),
+                   "color1": np.ones(3, np.float32),
+                   "uv_scale": np.ones(2, np.float32)}
         else:
             raise NotImplementedError(f"texture type '{t}' is not ported")
         self.textures.append(tex)
@@ -629,7 +744,8 @@ class _Builder:
             etable["radiance"][:] = 0.0
         out.update({f"emitters.{k}": v for k, v in etable.items()})
         for i, tex in enumerate(self.textures):
-            out.update({f"textures.{i}.{k}": tex[k] for k in tex_mod.ARRAYS})
+            out.update({f"textures.{i}.{k}": tex[k] for k in tex_mod.ARRAYS
+                        if k in tex})
         for i, s in enumerate(self.sensors):
             for k in SENSOR_ARRAYS:
                 if k in s:
@@ -679,6 +795,11 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
                              env_texture=b.env_texture, device=device)
 
 
+def _named(column: torch.Tensor) -> Tuple[int, ...]:
+    """The texture indices a table column names (-1: none)."""
+    return tuple(int(i) for i in torch.unique(column).tolist() if i >= 0)
+
+
 def scene_from_arrays(arrays: Mapping[str, np.ndarray],
                       sensors: Sequence[Mapping[str, Any]] = (),
                       integrator: Mapping[str, Any] = None,
@@ -694,7 +815,9 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     ``emitters.empty_table``), ``sensors.<i>.to_world`` and, for a batch
     sensor, ``sensors.<i>.sub_to_world``, and each texture's
     ``textures.<i>.data``, ``.color0``, ``.color1``, ``.uv_scale`` and
-    ``.uv_offset``.  BSDF columns the port does not use are ignored.
+    ``.uv_offset``.  BSDF columns the port does not use are ignored;
+    ``bsdfs.reflectance_tex`` and ``bsdfs.normal_tex`` are -1 where they
+    are not given.
 
     ``vertex_colors`` (V, 3) is taken where it is given, zeros
     otherwise.
@@ -702,8 +825,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     ``sensors``: per sensor, the static fields of ``Sensor`` other than
     its arrays (kind, fov_x, near, far, width, height, rfilter,
     aperture_radius, focus_distance, sub_fov_x).
-    ``textures``: per texture its static fields (``kind``: bitmap or
-    checkerboard), beside its arrays.  ``env_texture``: the index of the
+    ``textures``: per texture its static fields (``kind``: bitmap,
+    checkerboard or mesh_attribute), beside its arrays.  ``env_texture``: the index of the
     envmap's bitmap among them, or -1.
     ``integrator``: the scene's integrator properties (type, max_depth,
     rr_depth).  ``shape_names`` / ``vertex_ranges``: per shape its name
@@ -728,6 +851,12 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
         "twosided": t(arrays["bsdfs.twosided"], torch.bool),
         "reflectance": t(arrays["bsdfs.reflectance"], torch.float32),
     }
+    # the texture slots (:152, :178): the reflectance's and the normal or
+    # bump map's texture, -1 for none
+    n_b = len(arrays["bsdfs.kind"])
+    bsdfs.update({k: t(arrays.get(f"bsdfs.{k}", np.full(n_b, -1)),
+                       torch.int32)
+                  for k in ("reflectance_tex", "normal_tex")})
     # the conductors' and the dielectric's columns (``models/scene.py``
     # :501-531)
     bsdfs.update({k: t(arrays[f"bsdfs.{k}"], torch.float32) for k in (
@@ -746,7 +875,7 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
             for k in tex_mod.ARRAYS if f"textures.{i}.{k}" in arrays})
         for i, s in enumerate(textures))
     for tex in texs:
-        if tex.kind not in ("bitmap", "checkerboard"):
+        if tex.kind not in ("bitmap", "checkerboard", "mesh_attribute"):
             raise NotImplementedError(
                 f"texture kind '{tex.kind}' is not ported")
     bsdf_kinds = tuple(sorted({int(k) for k in arrays["bsdfs.kind"]}))
@@ -764,7 +893,10 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
         bsdf_kinds=bsdf_kinds, emitter_kinds=emitter_kinds,
         integrator=tuple(sorted(dict(integrator or {}).items())),
         spp=int(spp), sampler_kind=sampler_kind,
-        env_texture=int(env_texture))
+        env_texture=int(env_texture),
+        bsdf_textures=_named(bsdfs["reflectance_tex"]),
+        normal_textures=_named(bsdfs["normal_tex"]),
+        has_vertex_colors=any(x.kind == "mesh_attribute" for x in texs))
     bvh = nodes = tris = tris_k = None
     if geo["faces"].shape[0] > accel.BRUTE_FORCE_MAX_TRIS:
         if "bvh.order" in arrays:

@@ -1,16 +1,21 @@
 """Textures (counterpart of ``models/textures.py``, the reference's
-src/textures/{bitmap,checkerboard}.cpp): the bitmap, looked up with
-bilinear filtering and wrapped at its edges, and the checkerboard.
+src/textures/{bitmap,checkerboard}.cpp and the ``mesh_attribute``
+texture): the bitmap, looked up with bilinear filtering and wrapped at
+its edges, the checkerboard, and ``mesh_attribute``, whose value is the
+hit's interpolated vertex colour.
 
 A scene carries a tuple of ``Texture`` records whose tensors are
 differentiable leaves (``textures.<i>.data`` and the rest), so an
-envmap's texels take a gradient.  ``eval_select`` evaluates every
-texture and selects per lane, as the reference does.  The volume texture
-and ``register_texture`` are not ported and raise by name."""
+envmap's texels and a BSDF's take a gradient.  ``eval_select`` evaluates
+the textures it is given and selects per lane; the reference evaluates
+every texture of the scene, and the BSDFs and normal maps here pass only
+those their slots name (``Scene.bsdf_textures``, ``normal_textures``),
+which gives every lane the same value.  The volume texture and
+``register_texture`` are not ported and raise by name."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 
@@ -22,7 +27,8 @@ ARRAYS = ("data", "color0", "color1", "uv_scale", "uv_offset")
 
 @dataclass(frozen=True)
 class Texture:
-    kind: str = "bitmap"                  # bitmap | checkerboard
+    kind: str = "bitmap"                  # bitmap | checkerboard |
+    #                                       mesh_attribute
     data: torch.Tensor = None             # (H, W, C) linear RGB (bitmap)
     color0: torch.Tensor = None           # (3,) checkerboard
     color1: torch.Tensor = None
@@ -31,6 +37,10 @@ class Texture:
 
     def replace(self, **kw) -> "Texture":
         return replace(self, **kw)
+
+    def detach(self) -> "Texture":
+        return replace(self, **{k: getattr(self, k).detach() for k in ARRAYS
+                                if getattr(self, k) is not None})
 
 
 def _t(x, device):
@@ -107,11 +117,21 @@ def eval_one(tex: Texture, uv: torch.Tensor) -> torch.Tensor:
 
 
 def eval_select(textures, tex_idx: torch.Tensor, uv: torch.Tensor,
-                fallback: torch.Tensor) -> torch.Tensor:
-    """Texture ``tex_idx`` of each lane (-1: ``fallback``)."""
+                fallback: torch.Tensor,
+                vcolor: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Texture ``tex_idx`` of each lane (-1: ``fallback``).  ``textures``:
+    a sequence (index = position) or a mapping of index to texture.  A
+    ``mesh_attribute`` texture's value is ``vcolor``, the hit's vertex
+    colour (``bsdf.py`` ``_apply_textures``, :1157-1160); without one
+    its lanes keep ``fallback`` (only a BSDF slot names such a texture,
+    and the BSDFs always pass the colour)."""
+    items = (textures.items() if isinstance(textures, Mapping)
+             else enumerate(textures))
     out = fallback
-    for i, tex in enumerate(textures):
-        if tex.kind == "measured_brdf":   # BRDF tables, not colours
+    for i, tex in items:
+        if tex.kind == "mesh_attribute":
+            if vcolor is not None:
+                out = torch.where((tex_idx == i)[..., None], vcolor, out)
             continue
         out = torch.where((tex_idx == i)[..., None], eval_one(tex, uv), out)
     return out

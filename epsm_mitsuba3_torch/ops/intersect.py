@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..core import math as m
+from ..models import textures as tex_mod
 from ..models.records import (PreliminaryIntersection, Ray, RayFlags,
                               SurfaceInteraction)
 from .gather import take_rows
@@ -134,7 +135,14 @@ def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
 
     The re-derivation runs only where a gradient can reach the vertices;
     its value is the hit search's either way.  Per-face quantities are
-    gathered by ``take_rows``."""
+    gathered by ``take_rows``.
+
+    Where a BSDF slot carries a normal or bump map (``has_normal_maps``)
+    the shading normal is perturbed by its texture at the hit's uv before
+    the frame is built (normalmap.cpp, JAX ``ops/intersect.py:287-300``):
+    ``tn = 2 tex - 1`` in the tangent frame ``coordinate_system(ns)``.
+    Where a texture is a ``mesh_attribute`` (``has_vertex_colors``) the
+    record carries the interpolated vertex colour ``vcolor``."""
     fidx = pi.prim_index.long()
     f = scene.faces[fidx].long()                               # (N, 3)
     p0, p1, p2 = (take_rows(scene.vertices, f[:, k]) for k in range(3))
@@ -173,11 +181,28 @@ def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
     uvt = [take_rows(scene.uvs, f[:, k]) for k in range(3)]
     uv = uvt[0] * b0[:, None] + uvt[1] * u[:, None] + uvt[2] * v[:, None]
 
-    sh_s, sh_t = m.coordinate_system(ns)
-
     shape_idx = scene.face_shape[fidx]
     bsdf_idx = scene.shape_bsdf[shape_idx.long()]
     emitter_idx = scene.shape_emitter[shape_idx.long()]
+
+    if scene.static.has_normal_maps:
+        ntex = scene.bsdfs["normal_tex"][bsdf_idx.long()]
+        s0, t0 = m.coordinate_system(ns)
+        flat = torch.cat([torch.full_like(ns[:, :2], 0.5),
+                          torch.ones_like(ns[:, 2:])], -1)
+        tn = tex_mod.eval_select(scene.normal_textures(), ntex, uv,
+                                 flat) * 2.0 - 1.0
+        ns_pert = m.normalize(s0 * tn[:, 0:1] + t0 * tn[:, 1:2]
+                              + ns * tn[:, 2:3])
+        ns = torch.where((ntex >= 0)[:, None], ns_pert, ns)
+
+    vcolor = None
+    if scene.static.has_vertex_colors:
+        vc = [take_rows(scene.vertex_colors, f[:, k]) for k in range(3)]
+        vcolor = (vc[0] * b0[:, None] + vc[1] * u[:, None]
+                  + vc[2] * v[:, None])
+
+    sh_s, sh_t = m.coordinate_system(ns)
     wi = m.to_local(ns, sh_s, sh_t, -ray.d)
 
     valid = pi.valid
@@ -188,4 +213,4 @@ def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
         bsdf_index=torch.where(valid, bsdf_idx, -1),
         emitter_index=torch.where(valid, emitter_idx, -1),
         valid=valid, b0=b0, b1=u, p0=p0, p1=p1, p2=p2, n0=n0, n1=n1, n2=n2,
-        ismesh=valid.to(p.dtype))
+        ismesh=valid.to(p.dtype), vcolor=vcolor)

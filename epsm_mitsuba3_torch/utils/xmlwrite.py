@@ -1,6 +1,12 @@
 """Scene dict -> Mitsuba XML (counterpart of ``utils/xmlwrite.py``, the
 reference's src/python/python/xml.py): a scene built in code, written
-out as scene XML."""
+out as scene XML.
+
+Beyond the reference's writer, a ``mesh_attribute`` texture is written
+as a texture, the ``normalmap`` and ``bumpmap`` wrappers as BSDFs, and a
+``regular`` or ``irregular`` spectrum as a ``<spectrum>`` value tag of
+``lam:v`` pairs (its ``scale`` multiplied into the values), which the
+parser reads back as an ``irregular`` spectrum."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,7 +32,9 @@ _PLUGIN_CATEGORY = {
     "dielectric": "bsdf", "thindielectric": "bsdf",
     "roughdielectric": "bsdf", "plastic": "bsdf", "roughplastic": "bsdf",
     "twosided": "bsdf", "null": "bsdf", "principled": "bsdf",
-    "blendbsdf": "bsdf", "bitmap": "texture", "checkerboard": "texture",
+    "blendbsdf": "bsdf", "normalmap": "bsdf", "bumpmap": "bsdf",
+    "bitmap": "texture", "checkerboard": "texture",
+    "mesh_attribute": "texture",
     "homogeneous": "medium", "heterogeneous": "medium",
     "isotropic": "phase", "hg": "phase",
 }
@@ -45,6 +53,15 @@ def _emit(name, value, indent):
     raise ValueError(f"cannot serialize {name}={value!r}")
 
 
+def _spectrum_pairs(d) -> str:
+    """A tabulated spectrum as the ``lam:v, ...`` text of a
+    ``<spectrum>`` tag."""
+    from ..models.scene import _parse_spd
+    lams, vals = _parse_spd(d)
+    vals = vals * float(d.get("scale", 1.0))
+    return ", ".join(f"{float(a)!r}:{float(b)!r}" for a, b in zip(lams, vals))
+
+
 def _emit_dict(name, d, indent, lines):
     pad = "    " * indent
     t = d.get("type")
@@ -56,6 +73,10 @@ def _emit_dict(name, d, indent, lines):
         return
     if t == "ref":
         lines.append(f'{pad}<ref id="{d["id"]}"/>')
+        return
+    if t in ("regular", "irregular"):
+        lines.append(f'{pad}<spectrum name="{name}" '
+                     f'value="{_spectrum_pairs(d)}"/>')
         return
     cat = _PLUGIN_CATEGORY.get(t, "bsdf")
     attrs = f' name="{name}"' if cat == "texture" else ""

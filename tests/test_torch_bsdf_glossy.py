@@ -273,15 +273,16 @@ def test_loader_columns_equal_jax(bsdf):
 @pytest.mark.parametrize("bsdf,shape_kw,match", [
     ({"type": "roughconductor", "distribution": "beckmann"}, {},
      "beckmann"),
-    ({"type": "roughconductor", "alpha": {"type": "bitmap"}}, {},
-     "roughness"),
+    ({"type": "roughconductor", "alpha": [0.1, 0.3]}, {}, "roughness"),
     ({"type": "dielectric", "int_ior": "unobtainium"}, {}, "unobtainium"),
     ({"type": "roughconductor", "material": "Au"}, {}, "Au"),
     ({"type": "diffuse"}, {"analytic": True}, "analytic"),
 ])
 def test_loader_refuses_what_is_not_ported(bsdf, shape_kw, match):
-    """No silent stand-in: Beckmann, a textured roughness, an unknown IOR
-    name, a named conductor and the analytic sphere raise."""
+    """No silent stand-in: Beckmann, a roughness given as a list, an
+    unknown IOR name, a named conductor and the analytic sphere raise (a
+    textured roughness loads as 0.1, as in the reference:
+    ``tests/test_torch_textures.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         mt.load_dict(_ball_scene(bsdf, **shape_kw), device="cpu")
 

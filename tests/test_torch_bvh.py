@@ -43,6 +43,7 @@ from epsm_mitsuba3_torch.ops import traverse as TT
 from epsm_mitsuba3_torch.scenes import bumpy_sphere, cornell_box_mesh
 
 from test_torch_render import assert_images_close, jax_arrays, port_scene_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 SUBDIV = 46            # cornell_box_mesh at 4,244 triangles
 ATOL = 1e-5

@@ -47,7 +47,7 @@ from epsm_mitsuba3_torch.models import bsdf as BT
 from epsm_mitsuba3_torch.models import samplers as ST
 
 from test_torch_render import port_scene_of
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP, DEPTH = 16, 4, 4
 

@@ -25,7 +25,7 @@ from test_epsm import lightblob_scene
 from epsm_mitsuba3_torch.integrators import epsm as ET
 
 from test_torch_render import port_scene_of
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("vertices", "normals", "bsdfs.reflectance", "emitters.radiance")
 

@@ -28,7 +28,7 @@ from epsm_mitsuba3_torch.integrators import epsm as ET
 
 from test_torch_epsm import (DEPTH, INT_FIELDS, NEE_FIELDS, RES, SPP,
                              _grazing_nee, _logged_case, _on_emitter)
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 from test_torch_render import assert_images_close
 
 

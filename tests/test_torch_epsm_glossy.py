@@ -28,7 +28,7 @@ from epsm_mitsuba3_torch.models import samplers as ST
 
 from test_torch_epsm import _close_to_max
 from test_torch_render import port_scene_of
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP = 16, 4
 

@@ -20,7 +20,7 @@ from epsm_mitsuba3_torch.core.transform import ScalarTransform4f as T
 from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
 
 import test_epsm_oracle as oracle
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _port_scene():

@@ -34,19 +34,9 @@ from epsm_mitsuba3_torch.ops.linalg import inv_small as inv_small_t
 
 import test_epsm_oracle as oracle
 from test_torch_render import assert_images_close, jax_arrays, port_scene_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU work here is small tensors over many operations; one
-    intra-op thread a test process keeps parallel test workers from
-    oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -23,7 +23,7 @@ from epsm_mitsuba3_torch.models import scene as scene_t
 from epsm_mitsuba3_torch.models.scene import GEOMETRY_FIELDS
 
 from test_torch_render import jax_arrays
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(resolution=16, spp=2, match_res=8)
 CONFIGS = {"egg": {}, "glossyball": {}, "highlight": {},

@@ -28,6 +28,7 @@ from epsm_mitsuba3_torch.ops import cuda_intersect as CI
 from epsm_mitsuba3_torch.ops import intersect as IT
 
 from test_torch_render import port_scene_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_RAYS = 4096 + 37     # a ragged edge past one 4,096-ray Pallas block
 ATOL = 1e-5

@@ -34,6 +34,7 @@ from epsm_mitsuba3_torch.scenes import bumpy_sphere, cornell_box_mesh
 from test_torch_bvh import (SUBDIV, UV_ATOL_XLA, _GeomOnly,
                             _assert_hits_close, _camera_rays, _grazing,
                             _random_rays)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -43,7 +43,7 @@ from epsm_mitsuba3_torch.ops import sinkhorn as sinkhorn_t
 import epsm_mitsuba3_torch as mt
 
 from test_torch_render import port_scene_of
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _grads(step, mask_zero):

@@ -14,6 +14,7 @@ from scenes import cornell_box as cornell_box_jax
 from epsm_mitsuba3_torch.app import optim as optim_t
 
 from test_torch_optim import _box_case
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_run_gaussian_stratified_tracks_jax():

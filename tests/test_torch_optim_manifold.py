@@ -11,7 +11,7 @@ import pytest
 
 from test_torch_optim import (  # noqa: F401  (fixtures)
     _assert_tracks, _cornellbox_runs, fixed_matchers, ot_field)
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("method,thres", [("manifold", 10 ** 9),

@@ -34,6 +34,7 @@ from epsm_mitsuba3_torch.ops import accel
 from epsm_mitsuba3_torch.scenes import cornell_box
 
 from test_torch_render import assert_images_close, port_scene_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP, DEPTH = 16, 4, 4
 WALLS = ("floor", "ceiling", "back", "left", "right")
@@ -247,11 +248,12 @@ def test_cached_bounce_replays_the_recorded_pass(monkeypatch):
 def test_leaves_are_leaf_tensors():
     """scene_from_arrays gives leaf tensors, each of which can be made to
     require grad; with_leaves puts them back by name.  Every float column
-    of the emitter table is a leaf (a scene with a texture adds its
-    tensors, ``tests/test_torch_prb_emitters.py``)."""
+    of the emitter table is a leaf, and the vertex colours (a scene with
+    a texture adds its tensors, ``tests/test_torch_prb_emitters.py``)."""
     st = mt.load_dict(cornell_box(res=8, spp=1), device="cpu")
     leaves = st.leaves()
-    assert set(leaves) == {"vertices", "normals", "uvs", "bsdfs.reflectance",
+    assert set(leaves) == {"vertices", "normals", "uvs", "vertex_colors",
+                           "bsdfs.reflectance",
                            "bsdfs.specular_reflectance",
                            "bsdfs.specular_transmittance", "bsdfs.alpha",
                            "bsdfs.eta_c", "bsdfs.k_c", "bsdfs.eta",

@@ -27,6 +27,7 @@ import epsm_mitsuba3_torch as mt
 from test_torch_prb import WALLS, _assert_grad_close, _weights
 from test_torch_render import port_scene_of
 from test_torch_render_filters import camera_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPP, DEPTH = 4, 2
 NAMES = ("vertices", "bsdfs.reflectance", "emitters.radiance")

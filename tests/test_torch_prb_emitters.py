@@ -33,6 +33,7 @@ from epsm_mitsuba3_torch.models import emitters as ET
 from test_torch_emitters import all_kinds_scene
 from test_torch_render import assert_images_close, port_scene_of
 from test_torch_render_emitters import plain
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP, DEPTH = 16, 4, 3
 WALLS = ("floor", "ceiling", "back", "left", "right")

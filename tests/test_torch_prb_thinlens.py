@@ -8,6 +8,7 @@ Tolerance: each gradient within 1e-4 of its largest entry, the loss
 within 1e-5 relative.
 """
 from test_torch_prb_camera import gradients_match_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_thinlens_tent_stratified_gradients_match_jax():

@@ -26,6 +26,7 @@ from epsm_mitsuba3_torch.models import textures as tex_t
 from epsm_mitsuba3_torch.models.scene import GEOMETRY_FIELDS
 from epsm_mitsuba3_torch.ops.bvh import ARRAY_FIELDS as BVH_FIELDS
 from epsm_mitsuba3_torch.scenes import cornell_box
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: a Sensor's static fields, the same in both packages
 SENSOR_STATIC = ("kind", "fov_x", "near", "far", "width", "height",
@@ -37,6 +38,8 @@ RES, SPP, DEPTH = 32, 4, 4
 def jax_arrays(sj) -> dict:
     """The JAX Scene's state as numpy arrays under its field names."""
     out = {k: np.asarray(getattr(sj, k)) for k in GEOMETRY_FIELDS}
+    if sj.vertex_colors is not None:
+        out["vertex_colors"] = np.asarray(sj.vertex_colors)
     out.update({f"bsdfs.{k}": np.asarray(v) for k, v in sj.bsdfs.items()})
     out.update({f"emitters.{k}": np.asarray(v)
                 for k, v in sj.emitters.items()})

@@ -28,6 +28,7 @@ from epsm_mitsuba3_torch.models import textures as TT
 from epsm_mitsuba3_torch.models.scene import GEOMETRY_FIELDS
 
 from test_torch_render import assert_images_close, jax_arrays, port_scene_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP, DEPTH = 16, 4, 3
 

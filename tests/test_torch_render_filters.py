@@ -22,6 +22,7 @@ import epsm_mitsuba3_torch as mt
 from epsm_mitsuba3_torch.scenes import cornell_box
 
 from test_torch_render import assert_images_close, port_scene_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP = 16, 4
 

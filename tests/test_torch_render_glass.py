@@ -35,7 +35,7 @@ from epsm_mitsuba3_torch.ops import accel
 
 from test_torch_render import assert_images_close, port_scene_of
 from test_torch_prb import _assert_grad_close
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 RES, SPP = 16, 4

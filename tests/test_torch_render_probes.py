@@ -12,6 +12,7 @@ from epsm_mitsuba3_torch.core.transform import ScalarTransform4f as T
 
 from test_torch_render import assert_images_close
 from test_torch_render_filters import render_both
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: a probe inside the box, looking at the back wall and the floor
 PROBE = T.look_at(origin=[0.1, 1.2, 1.5], target=[0, 0.6, -1],

@@ -13,6 +13,7 @@ from epsm_mitsuba3_torch.core.transform import ScalarTransform4f as T
 
 from test_torch_render import assert_images_close
 from test_torch_render_filters import render_both
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _batch():

@@ -41,6 +41,7 @@ from epsm_mitsuba3_torch.utils.xmlwrite import dict_to_xml
 
 from test_torch_exp import _assert_scene_equal
 from test_torch_render import assert_images_close, jax_arrays
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP, DEPTH = 16, 4, 3
 
@@ -206,16 +207,19 @@ def test_load_dict_equals_jax(files, case):
      "my_plugin_light"),
     ({"type": "rectangle", "emitter": {"type": "area", "radiance": {
         "type": "volume"}}}, "volume"),
-    ({"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": {
-        "type": "checkerboard"}}}, "checkerboard"),
-    ({"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": {
-        "type": "bitmap", "filename": "t.png"}}}, "bitmap"),
+    ({"type": "rectangle", "bsdf": {"type": "conductor",
+                                    "specular_reflectance": {
+                                        "type": "checkerboard"}}},
+     "checkerboard"),
+    ({"type": "rectangle", "bsdf": {"type": "dielectric",
+                                    "specular_transmittance": {
+                                        "type": "bitmap",
+                                        "filename": "t.png"}}}, "bitmap"),
     ({"type": "rectangle", "interior": {"type": "homogeneous"}},
      "homogeneous"),
     ({"type": "sphere", "analytic": True}, "analytic sphere"),
     ({"type": "rectangle", "emitter": {"type": "area", "radiance": {
-        "type": "regular", "values": [1, 2], "wavelength_min": 400,
-        "wavelength_max": 700}}}, "regular"),
+        "type": "spectrum", "filename": "d65.spd"}}}, "spectrum"),
     ({"type": "my_plugin_shape"}, "my_plugin_shape"),
     ({"type": "rectangle", "bsdf": {"type": "plastic"}}, "plastic"),
 ])

@@ -31,7 +31,7 @@ from epsm_mitsuba3_tpu.ops import sinkhorn as SJ
 
 from epsm_mitsuba3_torch.app import optim as optim_t
 from epsm_mitsuba3_torch.ops import sinkhorn as ST
-from test_torch_epsm_support import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _points(seed, n, d=5):

@@ -8,7 +8,8 @@ dicts must be equal, recursively, arrays exactly.  The scenes the port
 renders must load to JAX's ``Scene`` fields exactly (the emitter kinds
 too: an envmap named by ``filename``, point, spot, directional and
 constant lights with ``<point>``, ``<vector>`` and ``<transform>``, a
-projector with a checkerboard); the others (a texture on a BSDF, a
+projector with a checkerboard, and the uv legacy scene's checkerboard
+reflectance); the others (a texture where only a colour is read, a
 volume texture, an emitter plugin's kind) raise ``NotImplementedError``
 with the plugin's name.  ``dict_to_xml`` writes
 JAX's text and round-trips through ``load_string``.
@@ -203,6 +204,16 @@ VOLUME_TEX = """
     </shape>
 </scene>"""
 
+#: a texture where the port reads only a colour
+TEX_ELSEWHERE = """
+<scene version="3.0.0">
+    <shape type="rectangle">
+        <bsdf type="conductor">
+            <texture name="specular_reflectance" type="checkerboard"/>
+        </bsdf>
+    </shape>
+</scene>"""
+
 PLUGIN_EMITTER = """
 <scene version="3.0.0">
     <shape type="rectangle">
@@ -253,7 +264,7 @@ def _jax_dict(monkeypatch, fn, *args, **kw):
 
 TEXTS = {"full": XML, "legacy": LEGACY, "uv_legacy": UV_LEGACY,
          "refs": REFS, "emitters": EMITTERS, "volume_tex": VOLUME_TEX,
-         "plugin_emitter": PLUGIN_EMITTER}
+         "tex_elsewhere": TEX_ELSEWHERE, "plugin_emitter": PLUGIN_EMITTER}
 PARAMS = {"refs": {"depth": "3"}}
 
 
@@ -273,7 +284,7 @@ def test_plugin_root_equals_jax(tmp_path):
     assert got["eta"]["type"] == "irregular"
 
 
-@pytest.mark.parametrize("name", ["full", "refs", "legacy"])
+@pytest.mark.parametrize("name", ["full", "refs", "legacy", "uv_legacy"])
 def test_load_string_equals_jax(name):
     text, params = TEXTS[name], PARAMS.get(name)
     st = XT.load_string(text, params, device="cpu")
@@ -310,13 +321,13 @@ def test_transform_chain_matches_dict_loader():
 
 
 @pytest.mark.parametrize("name,plugin", [("volume_tex", "volume"),
-                                         ("uv_legacy", "checkerboard"),
+                                         ("tex_elsewhere", "checkerboard"),
                                          ("plugin_emitter",
                                           "my_plugin_light")])
 def test_unported_plugins_raise(name, plugin):
-    """A texture on a BSDF (the uv legacy scene of ``tests/test_xml.py``
-    holds a checkerboard reflectance), a volume texture and an emitter
-    plugin's kind: the port names them and raises."""
+    """A texture where only a colour is read (a conductor's specular
+    reflectance), a volume texture and an emitter plugin's kind: the port
+    names them and raises."""
     with pytest.raises(NotImplementedError, match=plugin):
         XT.load_string(TEXTS[name], device="cpu")
 
