@@ -152,7 +152,24 @@ Phases (any failed check raises, and the script exits non-zero):
     and non-zero; Mrays/s, peak memory); one manifold iteration of the
     epsm-mesh cell with the bitmap and the normal map (ms by phase); the
     card against the CPU at 64^2: both scenes' images and PRB gradients
-    and the textured box's manifold backward.
+    and the textured box's manifold backward;
+20. [bsdfs]: the remaining scalar BSDFs, ``mask`` and Beckmann: the box
+    (K1, 20 triangles) at 512^2 x 64 spp with a Beckmann rough plastic
+    floor, a principled back wall under a mask of textured opacity, a
+    blend of a textured plastic and a Beckmann rough dielectric, a
+    two-sided principledthin wall and thin-dielectric, null, pplastic and
+    rough-dielectric quads (a warm-up pass and one timed render, K1
+    launches exact, the image finite and not flat, one profiled pass); the
+    mesh's fwd+bwd cell (a warm-up pass and one timed run) with a
+    Beckmann rough dielectric sphere, a rough plastic floor and a blend
+    wall (K2/K3 exact, none in the backward;
+    the gradients of the vertices, alpha, diffuse_reflectance,
+    reflectance, blend_weight and eta finite and non-zero; one profiled
+    pass); one manifold iteration of the epsm-mesh cell with a rough
+    plastic sphere and a mask (K2/K3 25 / 18, the theta and alpha
+    gradients); the card against the CPU at 64^2: both scenes' images
+    and PRB gradients, and the manifold backward of the box without its
+    null-lobe quads.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -3774,6 +3791,397 @@ def textures_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# [bsdfs]: the remaining scalar BSDFs, mask and Beckmann on every path
+# ---------------------------------------------------------------------------
+
+#: [bsdfs]: texels a side of the albedo and opacity bitmaps.  A box render
+#: takes 14-19 s (85,000 launches a pass) and a mesh fwd+bwd run 7-8 s:
+#: each cell times one after a warm-up of one pass, so that the phase
+#: stays within 120 s
+BS_TEX = 256
+#: [bsdfs]: the BSDF columns held as leaves beside the vertices
+BS_LEAVES = ("bsdfs.alpha", "bsdfs.diffuse_reflectance", "bsdfs.reflectance",
+             "bsdfs.blend_weight", "bsdfs.eta")
+
+
+def bsdf_files(tmp):
+    """The textures of [bsdfs], smooth fields (``smooth_field``) from the
+    script's seed written as EXR: an albedo in [0.1, 0.9] (a plastic's
+    ``reflectance``, which serves its diffuse reflectance) and an opacity
+    in [0.3, 0.9] (the back wall's mask)."""
+    import os
+    import numpy as np
+    from epsm_mitsuba3_torch.core.bitmap import write_image
+    r = np.random.default_rng(14)
+    out = {"albedo": os.path.join(tmp, "albedo.exr"),
+           "opacity": os.path.join(tmp, "opacity.exr")}
+    write_image(out["albedo"], 0.1 + 0.8 * smooth_field(r, BS_TEX, 3))
+    write_image(out["opacity"], 0.3 + 0.6 * smooth_field(r, BS_TEX, 3))
+    return out
+
+
+def _quad(center, scale, bsdf, rot):
+    from epsm_mitsuba3_torch.core.transform import ScalarTransform4f as T
+    return {"type": "rectangle", "bsdf": bsdf,
+            "to_world": T.translate(center).rotate([0, 1, 0], rot)
+            .scale(scale)}
+
+
+def bsdf_box(files, res, spp, null_quads=True):
+    """bsdfs-box: ``cornell_box(res, spp, DEPTH)`` with a Beckmann rough
+    plastic floor, a principled back wall under a mask of textured
+    opacity, a left wall blending a plastic of textured albedo with a
+    Beckmann rough dielectric, a two-sided principledthin right wall, and
+    quads: a thin dielectric and a null (``null_quads``), a pplastic and
+    a GGX rough dielectric; 20 triangles, K1."""
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    d = cornell_box(res=res, spp=spp, max_depth=DEPTH)
+    d["floor"]["bsdf"] = {"type": "roughplastic", "distribution": "beckmann",
+                          "alpha": 0.2, "int_ior": 1.6,
+                          "diffuse_reflectance": [0.6, 0.55, 0.45]}
+    d["back"]["bsdf"] = {
+        "type": "mask", "opacity": {"type": "bitmap",
+                                    "filename": files["opacity"]},
+        "bsdf": {"type": "principled", "base_color": [0.7, 0.35, 0.2],
+                 "metallic": 0.3, "roughness": 0.4, "clearcoat": 0.5,
+                 "sheen": 0.3}}
+    d["left"]["bsdf"] = {
+        "type": "blendbsdf", "weight": 0.35,
+        "a": {"type": "plastic", "reflectance": {
+            "type": "bitmap", "filename": files["albedo"]}},
+        "b": {"type": "roughdielectric", "alpha": 0.2,
+              "distribution": "beckmann"}}
+    d["right"]["bsdf"] = {"type": "twosided", "bsdf": {
+        "type": "principledthin", "base_color": [0.2, 0.6, 0.25],
+        "spec_trans": 0.3, "diff_trans": 0.8, "eta": 1.45,
+        "roughness": 0.3}}
+    if null_quads:
+        d["sheet"] = _quad([-0.45, 0.6, 0.2], 0.3,
+                           {"type": "thindielectric", "int_ior": 1.5}, 20.0)
+        d["ghost"] = _quad([0.4, 0.5, 0.3], 0.25, {"type": "null"}, -30.0)
+    d["panel"] = _quad([0.25, 1.25, -0.45], 0.3,
+                       {"type": "pplastic", "alpha": 0.15,
+                        "diffuse_reflectance": [0.3, 0.4, 0.7]}, 15.0)
+    d["pane"] = _quad([-0.2, 1.3, 0.4], 0.2,
+                      {"type": "twosided", "bsdf": {
+                          "type": "roughdielectric", "alpha": 0.1}}, -10.0)
+    return d
+
+
+def bsdf_mesh(res, spp):
+    """bsdfs-mesh: ``cornell_box_mesh(res, spp, DEPTH)`` with the sphere a
+    Beckmann rough dielectric (outward normals, ``blob_normals``), a GGX
+    rough plastic floor and a left wall blending a diffuse red with a
+    rough conductor."""
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    d = blob_normals(cornell_box_mesh(res=res, spp=spp, max_depth=DEPTH))
+    d["blob"]["bsdf"] = {"type": "roughdielectric", "alpha": 0.15,
+                         "distribution": "beckmann", "int_ior": 1.5}
+    d["floor"]["bsdf"] = {"type": "roughplastic", "alpha": 0.25,
+                          "diffuse_reflectance": [0.6, 0.55, 0.45]}
+    d["left"]["bsdf"] = {"type": "blendbsdf", "weight": 0.4,
+                         "a": {"type": "diffuse",
+                               "reflectance": [0.57, 0.043, 0.044]},
+                         "b": {"type": "roughconductor", "alpha": 0.2}}
+    return d
+
+
+def bsdf_epsm_mesh(res, spp):
+    """bsdfs-epsm: ``cornell_box_mesh(res, spp, DEPTH)`` with a rough
+    plastic sphere (outward normals, ``blob_normals``; a glossy slot, so
+    the alpha branch runs) and the back wall a mask of opacity 0.7 over
+    the diffuse white."""
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    d = blob_normals(cornell_box_mesh(res=res, spp=spp, max_depth=DEPTH))
+    d["blob"]["bsdf"] = {"type": "roughplastic", "alpha": 0.2,
+                         "diffuse_reflectance": [0.55, 0.45, 0.3]}
+    d["back"]["bsdf"] = {"type": "mask", "opacity": 0.7,
+                         "bsdf": d["back"]["bsdf"]}
+    return d
+
+
+def bsdf_leaves(scene):
+    """Copies that require grad of the BSDF columns BS_LEAVES."""
+    return {k: v.clone().requires_grad_(True)
+            for k, v in scene.leaves().items() if k in BS_LEAVES}
+
+
+def bsdfs_box_cell(files, res=RES, spp=SPP, chunk=SPP_CHUNK):
+    """bsdfs-box-512-64spp: the box with the new kinds at the box render
+    cell's size (K1): a warm-up pass and one timed render, K1 launches of
+    each exact, the image finite and not flat, one profiled pass, the
+    peak memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.models import bsdf as B
+    n_passes = spp // chunk
+    expect = {"mt_closest_hit": DEPTH * n_passes,
+              "mt_any_hit": DEPTH * n_passes, "bvh4_closest_hit": 0,
+              "bvh4_any_hit": 0}
+    scene = mt.load_dict(bsdf_box(files, res, chunk))
+    kinds = scene.static.bsdf_kinds
+    check(kinds == (0, 4, 5, 6, 7, 8, 9, 10, 11, 17,
+                    B.KIND_SENTINEL_BECKMANN)
+          and scene.faces.shape[0] <= 4096, f"bsdfs box: kinds {kinds}, "
+          f"{scene.faces.shape[0]} triangles")
+    torch.cuda.reset_peak_memory_stats()
+    for run, n_spp in (("warm-up pass", chunk), ("timed render", spp)):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = mt.render(scene, spp=n_spp, spp_chunk=chunk, seed=0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        for k, n in expect.items():
+            n = n * n_spp // spp
+            check(counts[k] == n, f"bsdfs box: {k} launched {counts[k]} "
+                  f"times in the {run}, expected {n}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean, std = float(img.mean()), float(img.std())
+    check(tuple(img.shape) == (res, res, 3)
+          and bool(torch.isfinite(img).all()) and mean > 0
+          and std > 0.05 * mean, f"bsdfs box: image shape "
+          f"{tuple(img.shape)}, mean {mean}, std {std}")
+    prof = profile_pass(f"bsdfs box, one {chunk}-spp pass",
+                        lambda: mt.render(scene, spp=chunk, seed=7),
+                        ("mt_closest", "mt_any"), cpu=False, table=False)
+    say(f"[bsdfs box] {res}^2 x {spp} spp in passes of {chunk}, kinds "
+        f"{kinds}: wall {wall:.1f} ms; launches {counts}; image mean "
+        f"{mean:.5f}, std {std:.5f}; peak device memory {peak:.2f} GiB; "
+        "busy of a pass "
+        + (f"{prof['busy']:.1f} of {prof['wall']:.1f} ms "
+           f"({100 * prof['busy'] / prof['wall']:.1f} %), "
+           f"{prof['launches']} launches" if prof else "not measured"))
+    return dict(wall_ms=wall, counts=counts, mean=mean, peak_gib=peak,
+                profile=prof)
+
+
+def bsdfs_mesh_cell(res=RES, spp=MESH_CHUNK, passes=MESH_PASSES):
+    """bsdfs-mesh-512-8spp-fwdbwd: the mesh with a Beckmann rough
+    dielectric sphere and rough plastic and blend walls, a warm-up pass
+    and one timed run of ``passes`` fwd+bwd passes (the loss
+    ``mean(img^2)``): K2/K3 launches exact in each forward, none in the
+    backward; the gradients of the vertices (through ``set_vertices``)
+    and of BS_LEAVES finite and non-zero; one profiled pass."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    scene = mt.load_dict(bsdf_mesh(res, spp))
+    expect = {"bvh4_closest_hit": DEPTH, "bvh4_any_hit": DEPTH,
+              "bvh4_closest_hit_mp": 0, "mt_closest_hit": 0,
+              "mt_any_hit": 0}
+
+    def one_pass(seed):
+        v = scene.vertices.clone().requires_grad_(True)
+        lv = bsdf_leaves(scene)
+        sc = scene.set_vertices(v).with_leaves(lv)
+        zero_counts()
+        img = mt.render(sc, spp=spp, seed=seed)
+        loss = torch.mean(img ** 2)
+        fwd = read_counts()
+        zero_counts()
+        grads = torch.autograd.grad(loss, [v, *lv.values()])
+        return loss, dict(zip(("vertices", *lv), grads)), fwd, read_counts()
+
+    torch.cuda.reset_peak_memory_stats()
+    for run, n_passes in (("warm-up pass", 1), ("timed run", passes)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(n_passes):
+            loss, grads, fwd, bwd = one_pass(p + 1)
+            for k, n in expect.items():
+                check(fwd[k] == n, f"bsdfs mesh: {k} launched {fwd[k]} "
+                      f"times in a forward, expected {n}")
+            check(sum(bwd.values()) == 0,
+                  f"bsdfs mesh: the replay launched kernels: {bwd}")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        norms = {k: float(g.norm()) for k, g in grads.items()}
+        say(f"[bsdfs mesh] {run}: {wall:.1f} ms for {n_passes} passes, "
+            f"loss {float(loss):.6g}; |grad| "
+            + ", ".join(f"{k} {n:.4g}" for k, n in norms.items()))
+        check(len(norms) == 1 + len(BS_LEAVES),
+              f"bsdfs mesh: leaves {list(norms)}")
+        for k, g in grads.items():
+            check(bool(torch.isfinite(g).all()) and norms[k] > 0,
+                  f"bsdfs mesh: the gradient of {k} is not finite and "
+                  "non-zero")
+    CT.raise_on_overflow(scene.device)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_pass(f"bsdfs mesh, one {spp}-spp fwd+bwd pass",
+                        lambda: one_pass(99), ("bvh4_closest", "bvh4_any"),
+                        cpu=False, table=False)
+    rays = res * res * spp * DEPTH * 2 * passes
+    mrays = rays / (wall / 1e3) / 1e6
+    say(f"[bsdfs mesh] cornell_box_mesh with the new kinds, {res}^2 x {spp} "
+        f"spp, {passes} fwd+bwd passes: wall {wall:.1f} ms; {mrays:.2f} "
+        f"physical Mrays/s fwd+bwd; forward launches {fwd}; peak device "
+        f"memory {peak:.2f} GiB")
+    return dict(wall_ms=wall, mrays=mrays, counts=fwd, peak_gib=peak,
+                profile=prof)
+
+
+def bsdfs_epsm_cell(res=EPSM_RES, spp=EPSM_SPP):
+    """bsdfs-epsm-mesh-128-8spp: the epsm-mesh cell with a rough plastic
+    sphere and a masked back wall: a warm-up and one timed ``manifold``
+    iteration, ms by phase (CUDA events), K2/K3 launches exact (25 /
+    18), the theta gradient and the alpha branch's gradient finite and
+    non-zero, the peak memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
+    scene = mt.load_dict(bsdf_epsm_mesh(res, spp))
+    dev = scene.device
+    with torch.no_grad():
+        gt = mt.render(scene, spp=spp, seed=123,
+                       integrator={"type": "path", "max_depth": DEPTH})
+    gt_low = gt.reshape(-1, 3)
+    matcher = Matcher(res)
+    v0 = scene.vertices
+    ex = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    integ = {"type": "manifold", "max_depth": DEPTH}
+    timer = epsm_backward_timer()
+
+    def iteration(seed):
+        theta = torch.tensor(0.01, device=dev, requires_grad=True)
+        alpha = scene.bsdfs["alpha"].clone().requires_grad_(True)
+        sc = scene.set_vertices(v0 + theta * ex).with_leaves(
+            {"bsdfs.alpha": alpha})
+        img = timer.wrap_call("forward render", lambda: mt.render(
+            sc, spp=spp, seed=seed, integrator=integ))
+        with torch.no_grad():
+            g5 = timer.wrap_call("Sinkhorn match", lambda: (
+                matcher.match_Sinkhorn(img[..., :3].reshape(-1, 3),
+                                       gt_low))).reshape(res, res, 5)
+        g, ga = timer.wrap_call("backward", lambda: torch.autograd.grad(
+            torch.sum(img * g5), [theta, alpha]))
+        return float(g), ga
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for i, run in enumerate(("warm-up", "timed")):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, ga = iteration(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            ms = split_phases(timer.read())
+            say(f"[bsdfs epsm] {run}: {wall:.1f} ms, dL/dtheta {g:.6g}, "
+                f"|dL/dalpha| {float(ga.norm()):.6g}; "
+                + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+                + f" ms; launches {counts}")
+            check(math.isfinite(g) and g != 0.0
+                  and bool(torch.isfinite(ga).all())
+                  and float(ga.norm()) > 0,
+                  f"bsdfs epsm: gradients {g}, {ga}")
+            for k, n in {"bvh4_closest_hit": 4 * DEPTH + 1,
+                         "bvh4_any_hit": 3 * DEPTH, "mt_closest_hit": 0,
+                         "mt_any_hit": 0}.items():
+                check(counts[k] == n, f"bsdfs epsm: {k} launched "
+                      f"{counts[k]} times, expected {n}")
+            CT.raise_on_overflow(dev)
+    finally:
+        timer.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"[bsdfs epsm] cornell_box_mesh, rough plastic sphere and a mask, "
+        f"{res}^2 x {spp} spp, one manifold iteration: {wall:.1f} ms; peak "
+        f"device memory {peak:.2f} GiB")
+    return dict(wall_ms=wall, phases=ms, counts=counts, peak_gib=peak)
+
+
+def bsdfs_card_vs_cpu(files, res=64, spp=4):
+    """[bsdfs card vs cpu] at 64^2 x 4 spp, depth 6, with the camera
+    phase's gates: the box's and the mesh's images (<= 1e-3 of the mean,
+    99 % of pixels within 1e-3) and PRB gradients (the vertices and
+    BS_LEAVES, relative L2 <= 1e-3), and the manifold backward of the
+    box without its thin-dielectric and null quads (the vertices and
+    alpha).  A path through a null lobe puts a singular half-vector
+    constraint into the manifold solve: with those quads a 1e-7 change
+    of the vertices moves the vertices' manifold gradient by 3-8 %
+    (``ROADMAP.md`` queue 3), the card and the CPU then 4.8e-2 apart."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.integrators import epsm as ET
+    for label, d in (("box", bsdf_box(files, res, spp)),
+                     ("mesh", bsdf_mesh(res, spp))):
+        got, imgs = {}, {}
+        for dev in ("cuda", "cpu"):
+            sc = mt.load_dict(d, device=dev)
+            v = sc.vertices.clone().requires_grad_(True)
+            lv = bsdf_leaves(sc)
+            img = mt.render(sc.set_vertices(v).with_leaves(lv), spp=spp,
+                            seed=0, device=dev)
+            gs = torch.autograd.grad((img ** 2).mean(), [v, *lv.values()])
+            imgs[dev] = img.detach().cpu()
+            got[dev] = dict(zip(("vertices", *lv), gs))
+        diff = (imgs["cuda"] - imgs["cpu"]).abs()
+        mad, mean = float(diff.mean()), float(imgs["cpu"].mean())
+        within = float((diff.amax(-1) <= 1e-3).float().mean())
+        errs = {k: rel_l2(got["cuda"][k].cpu(), g)
+                for k, g in got["cpu"].items()}
+        say(f"[bsdfs card vs cpu] {label} {res}^2 x {spp} spp: mean "
+            f"|gpu - cpu| {mad:.3g} (limit {1e-3 * mean:.3g} = 1e-3 x mean "
+            f"{mean:.4f}); {100 * within:.2f} % of pixels within 1e-3 (limit "
+            "99 %); PRB gradients |g_gpu - g_cpu| / |g_cpu| "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + "  [limit 1e-3 each]")
+        check(mad <= 1e-3 * mean and within >= 0.99,
+              f"bsdfs {label}: card and CPU renders disagree")
+        for k, e in errs.items():
+            check(e <= 1e-3 and float(got["cpu"][k].abs().max()) > 0,
+                  f"bsdfs {label}: card and CPU gradients of {k} differ "
+                  f"by {e} relative")
+    d = bsdf_box(files, res, spp, null_quads=False)
+    g = torch.randn(res, res, 5, generator=torch.Generator().manual_seed(4))
+    names = ("vertices", "bsdfs.alpha")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sc = mt.load_dict(d, device=dev)
+        got[dev] = ET.render_backward(sc, names, g.to(sc.device) * 0.05, 3,
+                                      DEPTH, 5, False, -1, spp)
+    errs = {k: rel_l2(got["cuda"][k].cpu(), got["cpu"][k]) for k in names}
+    say(f"[bsdfs card vs cpu] manifold backward, bsdfs box without the null "
+        f"quads {res}^2 x {spp} spp: |g_gpu - g_cpu| / |g_cpu| "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + "  [limit 1e-3 each]")
+    for k, e in errs.items():
+        check(e <= 1e-3 and float(got["cpu"][k].abs().max()) > 0,
+              f"bsdfs: manifold backward {k} card vs cpu {e}")
+
+
+def bsdfs_phase():
+    """[bsdfs]: the remaining scalar BSDFs, mask and Beckmann on every
+    render path (K1 on the box, K2/K3 on the mesh and in the EPSM
+    iteration), then the card against the CPU.  Returns the numbers and
+    the K1-K4 launches of the phase."""
+    global _TALLY
+    import tempfile
+    zero_counts()
+    _TALLY = {}
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            files = bsdf_files(tmp)
+            for label, fn in (("box", lambda: bsdfs_box_cell(files)),
+                              ("mesh", bsdfs_mesh_cell),
+                              ("epsm", bsdfs_epsm_cell),
+                              ("card vs cpu",
+                               lambda: bsdfs_card_vs_cpu(files))):
+                t0 = time.perf_counter()
+                out[label] = fn()
+                say(f"[bsdfs] {label}: {time.perf_counter() - t0:.1f} s")
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4021,6 +4429,15 @@ def main() -> int:
         f"{tx['total']}")
 
     lap("19 textures")
+
+    # -- 20. [bsdfs]: the remaining scalar BSDFs, mask, Beckmann -------------
+    t0 = time.perf_counter()
+    bs = bsdfs_phase()
+    epsm_launches["launches_bsdfs_phase"] = bs["total"]
+    say(f"[bsdfs] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{bs['total']}")
+
+    lap("20 bsdfs")
 
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []

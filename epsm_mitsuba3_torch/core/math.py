@@ -177,6 +177,11 @@ def safe_div(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-20):
     return _SafeDiv.apply(x, y, eps)
 
 
+def lerp(a, b, t):
+    """``a (1 - t) + b t``."""
+    return a * (1.0 - t) + b * t
+
+
 def mulsign(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """x * sign(s) with sign(0) == +1 (drjit ``mulsign``)."""
     return torch.where(s >= 0.0, x, -x)

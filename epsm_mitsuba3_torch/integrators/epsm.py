@@ -559,7 +559,8 @@ def inject_gradients(scene, logs: PathLog, path_grad, light_grad,
     g_n = grads["normals"].clone()
     g_alpha = grads["alpha"].clone()
     # the alpha branch has work only where a kind of the scene is glossy
-    glossy = any(B.KIND_FLAGS[kind] & B.BSDFFlags.Glossy
+    # (the Beckmann sentinel is no kind)
+    glossy = any(B.KIND_FLAGS.get(kind, 0) & B.BSDFFlags.Glossy
                  for kind in scene.static.bsdf_kinds)
 
     def scatter(acc, idx, val):

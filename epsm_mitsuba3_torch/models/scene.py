@@ -7,13 +7,16 @@ Geometry is one flat set of arrays (all meshes concatenated); structure
 renders: ``rectangle``/``cube``/``disk``/``sphere``/``cylinder`` shapes
 (the sphere tessellated), in-memory ``mesh`` shapes and mesh files
 (``obj``, ``ply``, ``serialized``, through ``mesh_io``), ``shapegroup``
-and ``instance`` (flattened at load) and ``merge``; ``diffuse``, the
-smooth ``conductor``, the GGX ``roughconductor`` and the smooth
-``dielectric`` (optionally ``twosided``, ``normalmap`` or ``bumpmap``),
-also stand-alone with an ``id`` and referenced by ``{"type": "ref"}``,
-their reflectance a colour, a tabulated ``regular`` or ``irregular``
-spectrum or a ``bitmap``, ``checkerboard`` or ``mesh_attribute``
-texture; the eight emitter kinds of
+and ``instance`` (flattened at load) and ``merge``; every scalar BSDF of
+``models/bsdf.py`` (all of the reference's but ``measured``,
+``polarizer``, ``retarder``, ``circular`` and ``measured_polarized``),
+its rough kinds with the GGX or the Beckmann distribution, a
+``blendbsdf`` with a scalar or textured weight and ``mask`` (a blend of
+``null`` and its material), optionally ``twosided``, ``normalmap`` or
+``bumpmap``, also stand-alone with an ``id`` and referenced by
+``{"type": "ref"}``, their reflectance a colour, a tabulated
+``regular`` or ``irregular`` spectrum or a ``bitmap``, ``checkerboard``
+or ``mesh_attribute`` texture; the eight emitter kinds of
 ``models/emitters.py``, on a shape (area, directionalarea) or on their
 own (point, spot, directional, constant, envmap from a bitmap file,
 projector with a bitmap or checkerboard irradiance), and a scene with no
@@ -83,8 +86,8 @@ class SceneStatic:
     #: index into ``Scene.textures`` of the (single) envmap bitmap, or -1
     env_texture: int = -1
     #: the textures the BSDF table's ``reflectance_tex`` and
-    #: ``normal_tex`` columns name (``Scene.bsdf_textures``,
-    #: ``Scene.normal_textures``)
+    #: ``blend_weight_tex`` columns name, and its ``normal_tex`` column
+    #: (``Scene.bsdf_textures``, ``Scene.normal_textures``)
     bsdf_textures: Tuple[int, ...] = ()
     normal_textures: Tuple[int, ...] = ()
     #: a texture is a ``mesh_attribute`` (the hit reads vertex colours)
@@ -181,8 +184,8 @@ class Scene:
         return replace(self, **kw)
 
     def bsdf_textures(self) -> Dict[int, tex_mod.Texture]:
-        """The textures of the BSDF slots' reflectance, by index: what
-        ``bsdf.sample`` and ``bsdf.eval_pdf`` evaluate."""
+        """The textures of the BSDF slots' reflectance and blend weight,
+        by index: what ``bsdf.sample`` and ``bsdf.eval_pdf`` evaluate."""
         return {i: self.textures[i] for i in self.static.bsdf_textures}
 
     def normal_textures(self) -> Dict[int, tex_mod.Texture]:
@@ -319,7 +322,8 @@ def _transform(value) -> np.ndarray:
 
 
 #: the reference's BSDF plugin names (its ``KIND_NAMES``); the port has
-#: the first four (``bsdf.KIND_NAMES``)
+#: all but the last five (``bsdf.KIND_NAMES``): ``measured`` and the
+#: polarization elements raise by name
 _BSDF_PLUGINS = ("diffuse", "conductor", "roughconductor", "dielectric",
                  "thindielectric", "roughdielectric", "plastic",
                  "roughplastic", "null", "principled", "principledthin",
@@ -332,13 +336,14 @@ _REFLECTANCE_TEXTURES = ("bitmap", "checkerboard", "mesh_attribute",
 
 def _unwrap_bsdf(d: dict):
     """(the nested BSDF, twosided) of ``d`` under its ``twosided``,
-    ``normalmap`` and ``bumpmap`` wrappers (``_parse_bsdf``, :224-249): a
-    wrapper's child is its ``material``, ``bsdf`` or ``nested`` entry,
-    else its first entry that is a BSDF or a twosided wrapper."""
+    ``mask``, ``normalmap`` and ``bumpmap`` wrappers (``_parse_bsdf``,
+    :224-249): a wrapper's child is its ``material``, ``bsdf`` or
+    ``nested`` entry, else its first entry that is a BSDF or a twosided
+    wrapper.  A ``mask`` under another wrapper is unwrapped like them, its
+    opacity dropped, as in the reference (``add_bsdf`` turns a mask on
+    the outside into a blend)."""
     twosided = False
     while d.get("type") in ("twosided", "mask", "bumpmap", "normalmap"):
-        if d["type"] == "mask":
-            raise NotImplementedError("bsdf type 'mask' is not ported")
         twosided = twosided or d["type"] == "twosided"
         child = next((d[k] for k in ("material", "bsdf", "nested")
                       if isinstance(d.get(k), dict)), None)
@@ -375,12 +380,25 @@ class _Builder:
     # -- BSDFs (_Builder.add_bsdf) ------------------------------------------
     def add_bsdf(self, d: dict) -> int:
         """A row of the BSDF table for ``d`` (a ``ref`` is the row of its
-        ``id``); a BSDF with an ``id`` is registered under it."""
+        ``id``); a BSDF with an ``id`` is registered under it.  A blend's
+        two children get their rows first; a ``mask`` is a blend of
+        ``null`` and its material with the opacity as the weight
+        (:386-399)."""
         if d.get("type") == "ref":
             if d["id"] not in self.bsdf_by_id:
                 raise KeyError(f"bsdf reference to an unknown id "
                                f"'{d['id']}'")
             return self.bsdf_by_id[d["id"]]
+        if d.get("type") == "mask":
+            nested = next((v for k, v in d.items() if isinstance(v, dict)
+                           and k != "opacity"
+                           and v.get("type") not in ("bitmap", "checkerboard",
+                                                     "mesh_attribute")), None)
+            if nested is None:
+                raise ValueError("mask bsdf without nested material")
+            d = {"type": "blendbsdf", "weight": d.get("opacity", 0.5),
+                 "a": {"type": "null"}, "b": nested,
+                 **({"id": d["id"]} if "id" in d else {})}
         # a normal or bump map wrapper's texture, recorded before the
         # unwrapping (:402-415); a bump map's texture is read as a
         # tangent-space normal map, as the reference does
@@ -402,10 +420,6 @@ class _Builder:
             raise NotImplementedError(
                 f"conductor material '{p['material']}': the spectral "
                 "tables of named materials are not ported; give eta and k")
-        if str(p.get("distribution", "ggx")) != "ggx":
-            raise NotImplementedError(
-                f"microfacet distribution '{p['distribution']}': the port "
-                "has GGX only")
         alpha = p.get("alpha", p.get("roughness", bsdf_mod.DEFAULT_ALPHA))
         if isinstance(alpha, dict):
             # a textured roughness loads as the default, as in the
@@ -415,22 +429,44 @@ class _Builder:
             raise NotImplementedError(
                 "a roughness given as a list is not ported; give alpha as "
                 "a number")
+        # a blend's children first (:454-464): BSDFs, twosided wrappers and
+        # references among its entries, in order
+        blend_a = blend_b = 0
+        if kind == bsdf_mod.KIND_BLEND:
+            children = [v for v in p.values() if isinstance(v, dict)
+                        and v.get("type") in _BSDF_PLUGINS
+                        + ("twosided", "ref")]
+            if len(children) < 2:
+                raise ValueError("blendbsdf needs two nested BSDFs")
+            blend_a = self.add_bsdf(children[0])
+            blend_b = self.add_bsdf(children[1])
         refl = p.get("reflectance", p.get("base_color"))
         refl_tex = -1
         if isinstance(refl, dict) and refl.get("type") in \
                 _REFLECTANCE_TEXTURES:
             refl_tex = self.add_texture(refl)
             refl = None
-        # the relative IOR column: the dielectric's int_ior / ext_ior, any
-        # other kind's scalar eta (an rgb eta is the conductor's eta_c)
-        if kind == bsdf_mod.KIND_DIELECTRIC:
+        diffuse = p.get("diffuse_reflectance")
+        if isinstance(diffuse, dict) and diffuse.get("type") in \
+                _REFLECTANCE_TEXTURES:
+            # as the reference's ``_rgb`` (:185-208): a plastic's textured
+            # diffuse reflectance is refused; its ``reflectance`` texture
+            # serves it
+            raise ValueError(f"unsupported spectrum type {diffuse['type']}")
+        # the relative IOR column: int_ior / ext_ior for the dielectrics and
+        # the plastics but pplastic (:526-530), any other kind's scalar eta
+        # (an rgb eta is the conductor's eta_c)
+        if kind in (bsdf_mod.KIND_DIELECTRIC, bsdf_mod.KIND_THINDIELECTRIC,
+                    bsdf_mod.KIND_ROUGHDIELECTRIC, bsdf_mod.KIND_PLASTIC,
+                    bsdf_mod.KIND_ROUGHPLASTIC):
             eta = (_ior(p.get("int_ior"), 1.5046)
                    / _ior(p.get("ext_ior"), 1.000277))
         elif isinstance(p.get("eta"), (dict, list)):
             eta = bsdf_mod.DEFAULT_ETA
         else:
             eta = float(p.get("eta", bsdf_mod.DEFAULT_ETA))
-        self.bsdf_rows.append({
+        weight = p.get("weight")
+        row = {
             "kind": kind,
             "flags": bsdf_mod.KIND_FLAGS[kind]
             | (bsdf_mod.BSDFFlags.BackSide if twosided else 0)
@@ -442,12 +478,28 @@ class _Builder:
             "specular_reflectance": _rgb(p.get("specular_reflectance")),
             "specular_transmittance": _rgb(p.get("specular_transmittance",
                                                  p.get("transmittance"))),
+            "diffuse_reflectance": _rgb(diffuse, (0.5, 0.5, 0.5)),
             "alpha": float(alpha),
+            # the microfacet distribution (:517-521): GGX unless the slot
+            # names Beckmann, as the reference's loader defaults
+            "beckmann": str(p.get("distribution", "ggx")) == "beckmann",
             "eta_c": _rgb(p.get("eta"), (0.0, 0.0, 0.0)) if conductor
             else np.zeros(3, np.float32),
             "k_c": _rgb(p.get("k"), (1.0, 1.0, 1.0)),
             "eta": eta,
-        })
+            # the principled and principledthin parameters (:477-488)
+            **{k: float(p.get(k, v))
+               for k, v in bsdf_mod.SCALAR_DEFAULTS.items()
+               if k not in ("alpha", "eta", "blend_weight")},
+            "blend_a": blend_a,
+            "blend_b": blend_b,
+            # a scalar or textured weight (a mask's opacity, :489-492)
+            "blend_weight": 0.5 if isinstance(weight, dict)
+            else float(p.get("weight", 0.5)),
+            "blend_weight_tex": self.add_texture(weight)
+            if isinstance(weight, dict) else -1,
+        }
+        self.bsdf_rows.append(row)
         idx = len(self.bsdf_rows) - 1
         if "id" in d:
             self.bsdf_by_id[d["id"]] = idx
@@ -623,7 +675,7 @@ class _Builder:
             if not isinstance(val, dict):
                 continue
             vt = val.get("type")
-            if vt == "ref" or key == "bsdf" or vt == "twosided" \
+            if vt == "ref" or key == "bsdf" or vt in ("twosided", "mask") \
                     or vt in bsdf_mod.KIND_NAMES:
                 bsdf_idx = self.add_bsdf(val)
             elif key == "emitter" or vt in em_mod.KIND_NAMES:
@@ -770,7 +822,7 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
             b.integrator = dict(val)
         elif t in _SHAPE_TYPES:
             b.add_shape(val, key)
-        elif t in bsdf_mod.KIND_NAMES or t == "twosided":
+        elif t in bsdf_mod.KIND_NAMES or t in ("twosided", "mask"):
             b.add_bsdf(val)          # stand-alone, referenced by its id
         elif t in em_mod.KIND_NAMES:
             b.add_emitter(val)       # a light without a shape
@@ -816,8 +868,9 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     sensor, ``sensors.<i>.sub_to_world``, and each texture's
     ``textures.<i>.data``, ``.color0``, ``.color1``, ``.uv_scale`` and
     ``.uv_offset``.  BSDF columns the port does not use are ignored;
-    ``bsdfs.reflectance_tex`` and ``bsdfs.normal_tex`` are -1 where they
-    are not given.
+    its columns that are not given take ``bsdf.empty_table``'s defaults
+    (the texture columns -1).  A ``bsdfs.beckmann`` slot adds
+    ``bsdf.KIND_SENTINEL_BECKMANN`` to the scene's kinds.
 
     ``vertex_colors`` (V, 3) is taken where it is given, zeros
     otherwise.
@@ -851,20 +904,27 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
         "twosided": t(arrays["bsdfs.twosided"], torch.bool),
         "reflectance": t(arrays["bsdfs.reflectance"], torch.float32),
     }
-    # the texture slots (:152, :178): the reflectance's and the normal or
-    # bump map's texture, -1 for none
+    # the texture slots (:152, :176, :178): the reflectance's, the blend
+    # weight's and the normal or bump map's texture, -1 for none; the
+    # blends' children
     n_b = len(arrays["bsdfs.kind"])
-    bsdfs.update({k: t(arrays.get(f"bsdfs.{k}", np.full(n_b, -1)),
-                       torch.int32)
-                  for k in ("reflectance_tex", "normal_tex")})
-    # the conductors' and the dielectric's columns (``models/scene.py``
-    # :501-531)
+
+    def col(k, default, dtype):
+        return t(arrays.get(f"bsdfs.{k}", default), dtype)
+
+    bsdfs.update({k: col(k, np.full(n_b, -1), torch.int32) for k in (
+        "reflectance_tex", "normal_tex", "blend_weight_tex")})
+    bsdfs.update({k: col(k, np.zeros(n_b), torch.int32)
+                  for k in ("blend_a", "blend_b")})
+    # the colour and scalar columns of the other kinds (``models/scene.py``
+    # :477-531), at ``empty_table``'s defaults where not given
     bsdfs.update({k: t(arrays[f"bsdfs.{k}"], torch.float32) for k in (
-        "specular_reflectance", "specular_transmittance", "alpha", "eta_c",
-        "k_c", "eta")})
-    if np.any(np.asarray(arrays.get("bsdfs.beckmann", False))):
-        raise NotImplementedError(
-            "the Beckmann microfacet distribution is not ported")
+        "specular_reflectance", "specular_transmittance", "eta_c", "k_c")})
+    bsdfs["diffuse_reflectance"] = col("diffuse_reflectance",
+                                       np.full((n_b, 3), 0.5), torch.float32)
+    bsdfs.update({k: col(k, np.full(n_b, v), torch.float32)
+                  for k, v in bsdf_mod.SCALAR_DEFAULTS.items()})
+    bsdfs["beckmann"] = col("beckmann", np.zeros(n_b, bool), torch.bool)
     emitters = {
         k: t(arrays[f"emitters.{k}"],
              torch.int32 if k in em_mod.INT_COLUMNS else torch.float32)
@@ -879,6 +939,10 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
             raise NotImplementedError(
                 f"texture kind '{tex.kind}' is not ported")
     bsdf_kinds = tuple(sorted({int(k) for k in arrays["bsdfs.kind"]}))
+    if bool(bsdfs["beckmann"].any()):
+        # the Beckmann branch is evaluated only where a slot takes it
+        # (``build``, :947-951)
+        bsdf_kinds += (bsdf_mod.KIND_SENTINEL_BECKMANN,)
     emitter_kinds = tuple(sorted({int(k) for k in arrays["emitters.kind"]}))
     bsdf_mod.check_kinds(bsdf_kinds)
     em_mod.check_kinds(emitter_kinds)
@@ -894,7 +958,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
         integrator=tuple(sorted(dict(integrator or {}).items())),
         spp=int(spp), sampler_kind=sampler_kind,
         env_texture=int(env_texture),
-        bsdf_textures=_named(bsdfs["reflectance_tex"]),
+        bsdf_textures=_named(torch.cat([bsdfs["reflectance_tex"],
+                                        bsdfs["blend_weight_tex"]])),
         normal_textures=_named(bsdfs["normal_tex"]),
         has_vertex_colors=any(x.kind == "mesh_attribute" for x in texs))
     bvh = nodes = tris = tris_k = None

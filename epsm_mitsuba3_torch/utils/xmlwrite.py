@@ -32,7 +32,8 @@ _PLUGIN_CATEGORY = {
     "dielectric": "bsdf", "thindielectric": "bsdf",
     "roughdielectric": "bsdf", "plastic": "bsdf", "roughplastic": "bsdf",
     "twosided": "bsdf", "null": "bsdf", "principled": "bsdf",
-    "blendbsdf": "bsdf", "normalmap": "bsdf", "bumpmap": "bsdf",
+    "blendbsdf": "bsdf", "mask": "bsdf", "pplastic": "bsdf",
+    "principledthin": "bsdf", "normalmap": "bsdf", "bumpmap": "bsdf",
     "bitmap": "texture", "checkerboard": "texture",
     "mesh_attribute": "texture",
     "homogeneous": "medium", "heterogeneous": "medium",

@@ -271,25 +271,33 @@ def test_loader_columns_equal_jax(bsdf):
 
 
 @pytest.mark.parametrize("bsdf,shape_kw,match", [
-    ({"type": "roughconductor", "distribution": "beckmann"}, {},
-     "beckmann"),
+    ({"type": "polarizer", "theta": 30.0}, {}, "polarizer"),
     ({"type": "roughconductor", "alpha": [0.1, 0.3]}, {}, "roughness"),
     ({"type": "dielectric", "int_ior": "unobtainium"}, {}, "unobtainium"),
     ({"type": "roughconductor", "material": "Au"}, {}, "Au"),
     ({"type": "diffuse"}, {"analytic": True}, "analytic"),
 ])
 def test_loader_refuses_what_is_not_ported(bsdf, shape_kw, match):
-    """No silent stand-in: Beckmann, a roughness given as a list, an
-    unknown IOR name, a named conductor and the analytic sphere raise (a
-    textured roughness loads as 0.1, as in the reference:
+    """No silent stand-in: a BSDF kind the port does not have (the
+    polarizer; Beckmann loads since the port has it), a roughness given
+    as a list, an unknown IOR name, a named conductor and the analytic
+    sphere raise (a textured roughness loads as 0.1, as in the reference:
     ``tests/test_torch_textures.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         mt.load_dict(_ball_scene(bsdf, **shape_kw), device="cpu")
 
 
 def test_scene_from_arrays_refuses_beckmann():
+    """Once refused, the Beckmann distribution is ported: the arrays of a
+    Beckmann rough conductor load through ``scene_from_arrays`` equal to
+    JAX's, the ``beckmann`` column and the kinds' sentinel included."""
     d = _ball_scene({"type": "roughconductor", "distribution": "beckmann"})
-    arrays = jax_arrays(mi.load_dict(d))
+    sj = mi.load_dict(d)
+    arrays = jax_arrays(sj)
     assert arrays["bsdfs.beckmann"].any()
-    with pytest.raises(NotImplementedError, match="Beckmann"):
-        mt.scene_from_arrays(arrays, device="cpu")
+    st = mt.scene_from_arrays(arrays, device="cpu")
+    for k, v in st.bsdfs.items():
+        np.testing.assert_array_equal(
+            v.numpy(), arrays[f"bsdfs.{k}"].astype(v.numpy().dtype), k)
+    assert st.static.bsdf_kinds == sj.static.bsdf_kinds == (
+        BT.KIND_DIFFUSE, BT.KIND_ROUGHCONDUCTOR, BT.KIND_SENTINEL_BECKMANN)

@@ -248,8 +248,9 @@ def test_cached_bounce_replays_the_recorded_pass(monkeypatch):
 def test_leaves_are_leaf_tensors():
     """scene_from_arrays gives leaf tensors, each of which can be made to
     require grad; with_leaves puts them back by name.  Every float column
-    of the emitter table is a leaf, and the vertex colours (a scene with
-    a texture adds its tensors, ``tests/test_torch_prb_emitters.py``)."""
+    of the BSDF and emitter tables is a leaf, and the vertex colours (a
+    scene with a texture adds its tensors,
+    ``tests/test_torch_prb_emitters.py``)."""
     st = mt.load_dict(cornell_box(res=8, spp=1), device="cpu")
     leaves = st.leaves()
     assert set(leaves) == {"vertices", "normals", "uvs", "vertex_colors",
@@ -257,6 +258,12 @@ def test_leaves_are_leaf_tensors():
                            "bsdfs.specular_reflectance",
                            "bsdfs.specular_transmittance", "bsdfs.alpha",
                            "bsdfs.eta_c", "bsdfs.k_c", "bsdfs.eta",
+                           "bsdfs.diffuse_reflectance", "bsdfs.metallic",
+                           "bsdfs.spec_tint", "bsdfs.sheen",
+                           "bsdfs.sheen_tint", "bsdfs.clearcoat",
+                           "bsdfs.clearcoat_gloss", "bsdfs.specular",
+                           "bsdfs.spec_trans", "bsdfs.diff_trans",
+                           "bsdfs.flatness", "bsdfs.blend_weight",
                            "emitters.radiance", "emitters.intensity",
                            "emitters.irradiance", "emitters.position",
                            "emitters.direction", "emitters.cutoff_cos",

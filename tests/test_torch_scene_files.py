@@ -221,7 +221,8 @@ def test_load_dict_equals_jax(files, case):
     ({"type": "rectangle", "emitter": {"type": "area", "radiance": {
         "type": "spectrum", "filename": "d65.spd"}}}, "spectrum"),
     ({"type": "my_plugin_shape"}, "my_plugin_shape"),
-    ({"type": "rectangle", "bsdf": {"type": "plastic"}}, "plastic"),
+    ({"type": "rectangle", "bsdf": {"type": "measured",
+                                    "filename": "brdf.bsdf"}}, "measured"),
 ])
 def test_unported_elements_raise(element, name):
     d, _ = _box("t")
