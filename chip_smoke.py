@@ -169,7 +169,25 @@ Phases (any failed check raises, and the script exits non-zero):
     plastic sphere and a mask (K2/K3 25 / 18, the theta and alpha
     gradients); the card against the CPU at 64^2: both scenes' images
     and PRB gradients, and the manifold backward of the box without its
-    null-lobe quads.
+    null-lobe quads;
+21. [human]: ``optim_human.run("manifold")`` on ``human.make()`` at the
+    published 512^2, spp 64 (one pass), depth 3, match_res 256 and 72-d
+    pose, ground truth at 256 spp, 2 iterations (of 1,000): ms an
+    iteration and by phase (ground truth, stage-1 render, match, stage-2
+    render and backward, the skinning's forward and VJP, Adam), K1
+    launches an iteration (each count exact), peak memory, the busy share
+    and K1's share of the second iteration under the profiler, each pose
+    gradient finite, non-zero on joints 16-19 and zero on the leaf joints
+    10, 11, 22, 23; K1 on one 8-spp pass of the body's rays, held bit for
+    bit and timed beside its bound; a synthetic release-sized SMPL file
+    (7,200 vertices, 13,824 faces) through ``load_npz``: one
+    ``pose_gradient`` with K2/K3 launches exact and one BVH refit, then K2
+    on the posed body against K1's brute force;
+    ``run_experiments.main(["manifold", "human", "--small"])`` in a
+    temporary directory (launches exact, the logger's files), then
+    ``optim.run`` with ``checkpoint_every`` 1 stopped after 2 iterations
+    and resumed (the loaded optimizer bit for bit the saved one, on the
+    card); the pose gradient on the card against the CPU at 64^2 x 4 spp.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -250,6 +268,26 @@ SF_SPP, SF_CHUNK = 16, 8
 #: (published 512), GS_ITERS iterations of run("manifold_caustic") of the
 #: published 1,000
 GS_SPP, GS_MATCH, GS_ITERS = 64, 256, 2
+
+#: [human]: app/exp/human.make at its published widths (512^2, spp 64,
+#: depth 3, match_res 256, the 72-d pose; the procedural body's 3,844
+#: triangles with the floor and the light go to K1), HU_ITERS iterations
+#: of optim_human.run("manifold") of the published 1,000, its ground truth
+#: at min(4 x 64, 256) = 256 spp as the reference's; one render of the 64
+#: spp a pass (the reference does not split it; 9.52 GiB at most), the
+#: second iteration profiled
+HU_SPP, HU_MATCH, HU_ITERS = 64, 256, 2
+#: K1 held and timed on the rays of one HU_RAYS_SPP-spp pass of the body
+#: (2,097,152 lanes): the 64-spp pass cut, for the time limit (the
+#: any-hit bound counts each live ray's tests)
+HU_RAYS_SPP = 8
+#: the synthetic release-sized body: one capsule a bone of HU_SEG rings of
+#: HU_RING vertices (7,200 vertices, 13,824 faces; the SMPL release has
+#: 6,890 and 13,776), its radii scaled by a draw from HU_SEED, rendered at
+#: 512^2 x HU_BODY_SPP spp through the BVH (K2/K3)
+HU_SEG, HU_RING, HU_SEED, HU_BODY_SPP = 24, 12, 15, 8
+#: the leaf joints no bone has as parent: no vertex weights them
+HU_LEAVES = (10, 11, 22, 23)
 
 
 class CheckFailed(AssertionError):
@@ -2091,27 +2129,29 @@ def _record_rays(module, names, fn):
     return rec
 
 
-def exp_rays_k1(exp, subset=2 ** 18):
-    """K1 at egg's 3,972 triangles on the rays one EXP_RES^2 forward pass
-    of its manifold render hands to ``closest_hit`` / ``any_hit``: each
-    depth's launches held bit for bit against the plain versions on the
-    first ``subset`` rays, timed on the device alone beside the bound
-    (closest hit: every live ray tests every triangle; any hit: each live
-    ray's tests up to its first hit) and the plain versions on the
-    subset."""
+def exp_rays_k1(exp, subset=2 ** 18, name="egg", chunk=None):
+    """K1 at egg's 3,972 triangles (or experiment ``name``'s) on the rays
+    one EXP_RES^2 forward pass of its manifold render hands to
+    ``closest_hit`` / ``any_hit`` (a pass of ``chunk`` spp, by default
+    ``run``'s): each depth's launches held bit for bit against the plain
+    versions on the first ``subset`` rays, timed on the device alone
+    beside the bound (closest hit: every live ray tests every triangle;
+    any hit: each live ray's tests up to its first hit) and the plain
+    versions on the subset."""
     import torch
     import epsm_mitsuba3_torch as mt
     from epsm_mitsuba3_torch.ops import cuda_intersect as CI
     from epsm_mitsuba3_torch.ops import intersect as I
     scene = exp["apply"](exp["scene"], exp["init_theta"])
-    _, chunk = _pass_count(exp["spp"], EXP_RES)
+    if chunk is None:
+        _, chunk = _pass_count(exp["spp"], EXP_RES)
     with torch.no_grad():
         rec = _record_rays(CI, ("closest_hit", "any_hit"), lambda: mt.render(
             scene, spp=chunk, seed=5, sensor=1))
     torch.cuda.synchronize()
     depth = exp["max_depth"]
     check(len(rec["closest_hit"]) == depth and len(rec["any_hit"]) == depth,
-          f"an egg pass made {len(rec['closest_hit'])} closest-hit and "
+          f"a {name} pass made {len(rec['closest_hit'])} closest-hit and "
           f"{len(rec['any_hit'])} any-hit calls, expected {depth} each")
     out = []
     for d, (c, a) in enumerate(zip(rec["closest_hit"], rec["any_hit"])):
@@ -2127,8 +2167,8 @@ def exp_rays_k1(exp, subset=2 ** 18):
         ref = (*ref_c, ref_a)
         diff = {nm: int((x[k] != y).sum()) for nm, x, y in
                 zip(K1_FIELDS, got, ref)}
-        check(sum(diff.values()) == 0, f"egg depth {d}: K1 differs from "
-              f"the plain versions on {diff}")
+        check(sum(diff.values()) == 0, f"{name} depth {d}: K1 differs "
+              f"from the plain versions on {diff}")
         ms_c = device_ms(lambda: CI.closest_hit(tri, o, dd, maxt), 10)
         ms_a = device_ms(lambda: CI.any_hit(tri_a, oa, da, ma), 10)
         live_c = int((maxt > 1e-6).sum())
@@ -2141,7 +2181,7 @@ def exp_rays_k1(exp, subset=2 ** 18):
                    any_bound_by=by_a, plain_rays=min(n, subset),
                    closest_plain_ms=plain_c_ms, any_plain_ms=plain_a_ms)
         out.append(row)
-        say(f"[egg rays K1] depth {d}: {f} tris x {n} rays ({live_c} live; "
+        say(f"[{name} rays K1] depth {d}: {f} tris x {n} rays ({live_c} live; "
             f"{int((got[1] >= 0).sum())} hits): closest {ms_c:.4f} ms "
             f"(bound {b_c:.4f} by {by_c}, {b_c / ms_c:.1%}); {live_a} live "
             f"shadow rays ({int(got[4].sum())} occluded): any {ms_a:.4f} ms "
@@ -4182,6 +4222,413 @@ def bsdfs_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# [human]: the SMPL pose experiment, its two-stage bridge, the launcher,
+# checkpoints and resume
+# ---------------------------------------------------------------------------
+
+def check_pose_gradient(label, pg):
+    """The pose gradient finite, non-zero on the perturbed joints 16-19
+    and exactly zero on the leaf joints."""
+    import torch
+    by_joint = pg.detach().abs().reshape(24, 3).sum(1).cpu()
+    say(f"[human] {label}: |dL/dpose| by joint "
+        + ", ".join(f"{j} {float(x):.4g}" for j, x in enumerate(by_joint))
+        + f"; non-zero on {int((by_joint > 0).sum())} joints")
+    check(bool(torch.isfinite(pg).all()), f"{label}: pose gradient not "
+          "finite")
+    check(bool((by_joint[16:20] > 0).all()), f"{label}: zero gradient on "
+          "a perturbed joint (16-19)")
+    check(float(by_joint[list(HU_LEAVES)].max()) == 0, f"{label}: "
+          "non-zero gradient on a leaf joint (10, 11, 22, 23)")
+
+
+def human_run():
+    """``optim_human.run("manifold")`` on ``human.make()`` at HU_SPP spp,
+    512^2, match_res HU_MATCH, HU_ITERS iterations: ms an iteration and by
+    phase (CUDA events: the ground truth, the stage-1 render, the match,
+    the stage-2 render and backward, the skinning's forward and VJP,
+    Adam), K1 launches an iteration (each count exact), the peak memory of
+    each phase (each pass unsplit), the busy share of the second iteration
+    under the profiler, each pose gradient finite, non-zero on joints
+    16-19 and zero on the leaf joints.  Returns the rows, the launch
+    totals and the experiment."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from epsm_mitsuba3_torch.app import optim_human as OH
+    from epsm_mitsuba3_torch.app.exp import human
+    depth = 3
+    timer = PhaseTimer()
+    timer.wrap(OH.Matcher, "match_Sinkhorn", "match")
+    timer.wrap(OH, "vertex_gradient", "stage-2 render and backward")
+    timer.wrap(OH, "pose_gradient", "pose_gradient")
+    orig_render, orig_step, orig_make = OH.render, OH.Adam.step, human.make
+    exps, rows, grads, total, peaks = [], [], [], {}, {}
+    mark, prof = [None], [None]
+
+    def peak_of(label, fn):
+        """fn() with the peak device memory it reaches kept in peaks."""
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        peaks[label] = max(peaks.get(label, 0.0),
+                           torch.cuda.max_memory_allocated() / 2 ** 30)
+        return out
+
+    match, vertex_gradient = OH.Matcher.match_Sinkhorn, OH.vertex_gradient
+    OH.Matcher.match_Sinkhorn = lambda *a, **kw: peak_of(
+        "match", lambda: match(*a, **kw))
+    OH.vertex_gradient = lambda *a, **kw: peak_of(
+        "stage-2 render and backward", lambda: vertex_gradient(*a, **kw))
+
+    def make(**kw):
+        t0 = time.perf_counter()
+        exps.append(orig_make(**kw))
+        torch.cuda.synchronize()
+        say(f"[human] human.make: {exps[-1]['scene'].faces.shape[0]} "
+            f"triangles (K1), loaded in {time.perf_counter() - t0:.2f} s")
+        zero_counts()
+        mark[0] = time.perf_counter()
+        return exps[-1]
+
+    def render(*a, **kw):
+        if kw["integrator"]["type"] == "path":
+            label = "ground truth"
+        elif not torch.is_grad_enabled():
+            label = "stage-1 render"
+        else:
+            return orig_render(*a, **kw)
+        return peak_of(label, lambda: timer.wrap_call(
+            label, lambda: orig_render(*a, **kw)))
+
+    def step(self, g):
+        grads.append(g["pose"].detach().clone())
+        out = timer.wrap_call("Adam", lambda: orig_step(self, g))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - mark[0]) * 1e3
+        counts = read_counts()
+        zero_counts()
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        rows.append(dict(it=len(rows), wall=wall, counts=counts,
+                         phases=timer.read(), pose=self["pose"].clone()))
+        if len(rows) == 1:
+            prof[0] = profile(activities=[ProfilerActivity.CUDA])
+            prof[0].__enter__()
+        elif prof[0] is not None and len(rows) == 2:
+            prof[0].__exit__(None, None, None)
+        mark[0] = time.perf_counter()
+        return out
+
+    OH.render, OH.Adam.step, human.make = render, step, make
+    try:
+        t0 = time.perf_counter()
+        pose, losses = OH.run("manifold", iters=HU_ITERS, resolution=RES,
+                              spp=HU_SPP, match_res=HU_MATCH, verbose=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        OH.render, OH.Adam.step, human.make = orig_render, orig_step, \
+            orig_make
+        OH.Matcher.match_Sinkhorn, OH.vertex_gradient = match, \
+            vertex_gradient
+        timer.close()
+    # every large allocation of the run is made inside one of the phases
+    peak = max(peaks.values())
+    kernels = _device_events(prof[0]) if prof[0] is not None else []
+    busy = sum(ms for _, ms, _ in kernels)
+    k1_ms = sum(ms for k, ms, _ in kernels if "mt_closest" in k
+                or "mt_any" in k)
+    n_launch = sum(n for _, _, n in kernels)
+    for r, g, loss in zip(rows, grads, losses):
+        ph = r["phases"]
+        ph["LBS forward and VJP"] = ph.pop("pose_gradient", 0.0) - ph.get(
+            "stage-2 render and backward", 0.0)
+        ph["other"] = r["wall"] - sum(ph.values())
+        gt = depth if r["it"] == 0 else 0
+        expect = {"mt_closest_hit": gt + depth + 4 * depth + 1,
+                  "mt_any_hit": gt + depth + 3 * depth,
+                  "bvh4_closest_hit": 0, "bvh4_any_hit": 0,
+                  "bvh4_closest_hit_mp": 0}
+        say(f"[human] iteration {r['it']}"
+            + (" (with the ground truth)" if r["it"] == 0
+               else " (under the profiler)")
+            + f": {r['wall']:.1f} ms; loss {loss:.6g}; ms by phase "
+            + ", ".join(f"{k} {v:.1f}" for k, v in ph.items())
+            + f"; launches {r['counts']}")
+        for k, n in expect.items():
+            check(r["counts"][k] == n, f"human: {k} launched "
+                  f"{r['counts'][k]} times in iteration {r['it']}, "
+                  f"expected {n}")
+        check(math.isfinite(loss), "human: loss not finite")
+        check_pose_gradient(f"run, iteration {r['it']}", g)
+    exp = exps[0]
+    moved = float((pose - exp["init_theta"]["pose"]).abs().max())
+    check(bool(torch.isfinite(pose).all()) and moved > 0,
+          "human: the pose did not move or is not finite")
+    walls = [r["wall"] - r["phases"].get("ground truth", 0.0) for r in rows]
+    say(f"[human] {RES}^2 x {HU_SPP} spp (one pass), depth {depth}, "
+        f"match_res {HU_MATCH}, {HU_ITERS} iterations in {run_s:.1f} s "
+        "(the ground truth and the experiment's load included): ms an "
+        "iteration without the ground truth "
+        + ", ".join(f"{w:.1f}" for w in walls)
+        + f"; peak device memory {peak:.2f} GiB (by phase: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+        + "); iteration 1 under the profiler: "
+        + (f"device busy {busy:.1f} of {rows[1]['wall']:.1f} ms "
+           f"({100 * busy / rows[1]['wall']:.1f} %), K1 {k1_ms:.1f} ms "
+           f"({100 * k1_ms / rows[1]['wall']:.1f} % of the iteration), "
+           f"{n_launch} launches" if kernels
+           else "the profiler saw no device time (not measured)")
+        + f"; max |pose - init| {moved:.6g}; launches in all {total}")
+    return dict(rows=rows, walls=walls, peak_gib=peak, peaks=peaks,
+                total=total,
+                busy=busy if kernels else None, k1_ms=k1_ms,
+                launches=n_launch, exp=exp, run_s=run_s)
+
+
+def synthetic_body(path):
+    """A release-sized SMPL file at ``path``: a capsule a bone of HU_SEG
+    rings of HU_RING vertices (the port's ``_capsule``), radii scaled by a
+    draw from HU_SEED, the port's ``_blend_weights``, the rest joints and
+    the tree, under the release's field names."""
+    import numpy as np
+    from epsm_mitsuba3_torch.models import smpl
+    rng = np.random.default_rng(HU_SEED)
+    verts, faces, off = [], [], 0
+    for pj, a, b in smpl._bones():
+        r = smpl._HEAD_RADIUS if pj == 15 else smpl._BONE_RADIUS.get(pj, 0.05)
+        v, f = smpl._capsule(a, b, r * rng.uniform(0.9, 1.1), HU_SEG,
+                             HU_RING)
+        verts.append(v)
+        faces.append(f + off)
+        off += len(v)
+    v = np.concatenate(verts)
+    np.savez(path, v_template=v, f=np.concatenate(faces),
+             weights=smpl._blend_weights(v), J=smpl.rest_joints(),
+             kintree_table=np.stack([np.asarray(smpl.SMPL_PARENTS),
+                                     np.arange(24)]))
+    return v.shape[0]
+
+
+def human_release_body(gen):
+    """One ``pose_gradient`` on the synthetic release-sized body through
+    ``load_npz`` (a BVH scene): K2/K3 launches exact (a manifold pass of
+    depth 3: 13 closest, 9 any hits), one refit in ``set_vertices``, the
+    gradient's pattern; then K2 on the posed body against K1's brute
+    force over the moved vertices."""
+    import tempfile
+    import torch
+    from epsm_mitsuba3_torch.app import optim_human as OH
+    from epsm_mitsuba3_torch.app.exp import human
+    from epsm_mitsuba3_torch.ops import bvh as bvh_mod
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import intersect as I
+    depth = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/body.npz"
+        n_v = synthetic_body(path)
+        t0 = time.perf_counter()
+        exp = human.make(resolution=RES, spp=HU_BODY_SPP,
+                         match_res=HU_MATCH, smpl_npz=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    scene, model = exp["scene"], exp["model"]
+    check(scene.bvh is not None, "release-sized body: no BVH")
+    say(f"[human body] synthetic release-sized body: {n_v} vertices, "
+        f"{model.faces.shape[0]} faces; the scene {scene.faces.shape[0]} "
+        f"triangles, {scene.bvh_nodes.shape[0]} BVH4 records; loaded "
+        f"through load_npz and built in {load_s:.2f} s")
+    refits = []
+    orig_refit = bvh_mod.refit
+
+    def refit(*a, **kw):
+        refits.append(1)
+        return orig_refit(*a, **kw)
+
+    g5 = torch.randn((RES, RES, 5), generator=gen, device=gen.device) * 1e-3
+    bvh_mod.refit = refit
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        pg, img = OH.pose_gradient(exp, exp["init_theta"]["pose"], g5,
+                                   HU_BODY_SPP, depth, 1, 1, "manifold")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+    finally:
+        bvh_mod.refit = orig_refit
+    say(f"[human body] pose_gradient at {RES}^2 x {HU_BODY_SPP} spp: "
+        f"{ms:.1f} ms; launches {counts}; refits {len(refits)}")
+    expect = {"bvh4_closest_hit": 4 * depth + 1, "bvh4_any_hit": 3 * depth,
+              "mt_closest_hit": 0, "mt_any_hit": 0, "bvh4_closest_hit_mp": 0}
+    for k, n in expect.items():
+        check(counts[k] == n, f"release-sized body: {k} launched "
+              f"{counts[k]} times, expected {n}")
+    check(len(refits) == 1, f"release-sized body: {len(refits)} refits in "
+          "one pose_gradient, expected 1")
+    check(bool(torch.isfinite(img).all()), "release-sized body: image not "
+          "finite")
+    check_pose_gradient("release-sized body", pg)
+    posed = exp["set_verts"](scene, OH.smpl.lbs(model,
+                                                exp["init_theta"]["pose"]))
+    o, d, maxt = main_path_rays(posed, gen, 1)
+    k = slice(0, 65536)
+    t, slot, u, v = CT.closest_hit(posed.bvh_nodes, posed.bvh_tris, o[k],
+                                   d[k], maxt[k])
+    CT.raise_on_overflow(posed.device)
+    prim = torch.where(slot >= 0, posed.bvh.order[slot.clamp(min=0).long()],
+                       -1)
+    tri = CI.pack_tris(posed.vertices, posed.faces)
+    ref = I.ray_intersect_brute(tri, o[k], d[k], maxt[k])
+    err = hold("human body: K2 on the posed, refit body vs K1 brute "
+               "force", (t, prim, u, v, slot >= 0),
+               (ref[0], ref[1].long(), ref[2], ref[3], ref[1] >= 0))
+    return dict(ms=ms, counts=counts, err=err)
+
+
+def human_launcher():
+    """``run_experiments.main(["manifold", "human", "--small"])`` in a
+    temporary directory (64^2, spp 8, 20 iterations, match 64; the
+    ground truth at run's default 512 spp, in passes of 8): K1 launches
+    exact, the logger's parameter dumps and metrics file; then
+    ``optim.run`` with ``checkpoint_every`` 1 stopped after 2 iterations
+    and resumed: the loaded variables, moments and t equal the saved ones
+    bit for bit, on the card."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from epsm_mitsuba3_torch.ad.optimizers import Adam
+    from epsm_mitsuba3_torch.app import optim
+    from epsm_mitsuba3_torch.app import run_experiments as RX
+    from epsm_mitsuba3_torch.app.exp import human
+    from epsm_mitsuba3_torch.utils import checkpoint as ckpt
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            rc = RX.main(["manifold", "human", "--small"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            log = os.path.join(tmp, "results", "human", "manifold")
+            params = sorted(os.listdir(os.path.join(log, "params")))
+            last = np.load(os.path.join(log, "params", "param19.npy"),
+                           allow_pickle=True).item()["pose"]
+            has_metrics = os.path.exists(os.path.join(log, "metrics.jsonl"))
+        finally:
+            os.chdir(cwd)
+        say(f"[human launcher] run_experiments manifold human --small: rc "
+            f"{rc}, {secs:.1f} s; launches {counts}; {len(params)} "
+            f"parameter dumps; metrics.jsonl {has_metrics}; final |pose| "
+            f"{float(np.abs(last).mean()):.6g}")
+        check(rc == 0, "run_experiments: non-zero return")
+        check(params == sorted(f"param{i}.npy" for i in range(20))
+              and has_metrics, "run_experiments: the logger's files")
+        check(last.shape == (72,) and np.isfinite(last).all(),
+              "run_experiments: the last pose dump")
+        n_gt = -(-512 // 8)
+        expect = {"mt_closest_hit": 20 * 13 + n_gt * 3,
+                  "mt_any_hit": 20 * 9 + n_gt * 3}
+        for k, n in expect.items():
+            check(counts[k] == n, f"run_experiments: {k} launched "
+                  f"{counts[k]} times, expected {n}")
+
+        exp = human.make(resolution=64, spp=8, match_res=64)
+        exp["gt_spp"] = 8
+        log_dir = os.path.join(tmp, "resume")
+        opt2, _ = optim.run("manifold", exp, iters=2, log_dir=log_dir,
+                            checkpoint_every=1, verbose=False)
+        fresh = Adam(lr=0.01)
+        fresh["pose"] = exp["init_theta"]["pose"]
+        start = ckpt.load_optimizer(os.path.join(log_dir, "ckpt"), fresh)
+        same = (torch.equal(fresh["pose"], opt2["pose"])
+                and all(torch.equal(a, b) for a, b in
+                        zip(fresh.state["pose"], opt2.state["pose"]))
+                and fresh.t == opt2.t)
+        on_card = all(x.device.type == "cuda" for x in
+                      (fresh["pose"], *fresh.state["pose"]))
+        _, hist = optim.run("manifold", exp, iters=3, log_dir=log_dir,
+                            resume=True, checkpoint_every=1, verbose=False)
+        latest = ckpt.latest_step(os.path.join(log_dir, "ckpt"))
+    say(f"[human resume] stopped after 2 iterations: resume at {start}; "
+        f"variables, moments and t equal to the saved ones: {same}; on "
+        f"the card: {on_card}; the resumed run ran {len(hist)} iteration, "
+        f"latest checkpoint {latest}")
+    check(start == 2 and same and on_card, "resume: the loaded optimizer "
+          "is not the saved one")
+    check(len(hist) == 1 and latest == 2, "resume: the run did not go on "
+          "from its checkpoint")
+    return dict(secs=secs, counts=counts)
+
+
+def human_card_vs_cpu(res=64, spp=4):
+    """``pose_gradient`` at 64^2 x 4 spp, depth 3, match_res 32, for one
+    fixed 5-channel cotangent (seeded), on the card and on the CPU:
+    relative L2 <= 1e-3."""
+    import torch
+    from epsm_mitsuba3_torch.app import optim_human as OH
+    from epsm_mitsuba3_torch.app.exp import human
+    g5 = torch.randn((res, res, 5), generator=torch.Generator().manual_seed(
+        13)) * 0.05
+    pgs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        exp = human.make(resolution=res, spp=spp, match_res=32, device=dev)
+        pg, _ = OH.pose_gradient(exp, exp["init_theta"]["pose"], g5.to(dev),
+                                 spp, 3, 1, 0, "manifold")
+        pgs[dev] = pg.detach().cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    a, b = pgs["cuda"], pgs["cpu"]
+    err = rel_l2(a, b)
+    say(f"[human, card vs cpu] dL/dpose at {res}^2 x {spp} spp, depth 3: "
+        f"|g| {float(b.norm()):.6g}, joints 16-17 card "
+        f"{[round(float(x), 7) for x in a[48:54]]} cpu "
+        f"{[round(float(x), 7) for x in b[48:54]]}; |g_gpu - g_cpu| / "
+        f"|g_cpu| {err:.3g}  [limit 1e-3]; card {secs['cuda']:.1f} s, cpu "
+        f"{secs['cpu']:.1f} s")
+    check_pose_gradient("card vs cpu, the card's", a)
+    check(err <= 1e-3, f"human: card and CPU pose gradients differ by {err}")
+    return err
+
+
+def human_phase(gen):
+    """[human]: the run at the published widths, K1 on a pass of the
+    body's rays, the release-sized body through K2/K3, the launcher with
+    its logs and a resumed run, the card against the CPU.  Returns the
+    numbers and the K1-K4 launches of the phase."""
+    global _TALLY
+    secs, out = {}, {}
+    zero_counts()
+    _TALLY = {}
+    try:
+        for label, fn in (
+                ("run", human_run),
+                ("K1 on the body's rays", lambda: exp_rays_k1(
+                    out["run"]["exp"], name="human", chunk=HU_RAYS_SPP)),
+                ("release-sized body", lambda: human_release_body(gen)),
+                ("launcher and resume", human_launcher),
+                ("card vs cpu", human_card_vs_cpu)):
+            t0 = time.perf_counter()
+            out[label] = fn()
+            secs[label] = time.perf_counter() - t0
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    out["run"].pop("exp")
+    say("[human] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} s in all")
+    out["secs"] = secs
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4439,6 +4886,15 @@ def main() -> int:
 
     lap("20 bsdfs")
 
+    # -- 21. [human]: SMPL skinning, the pose bridge, the application layer --
+    t0 = time.perf_counter()
+    hu = human_phase(gen)
+    epsm_launches["launches_human_phase"] = hu["total"]
+    say(f"[human] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{hu['total']}")
+
+    lap("21 human")
+
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []
     for i, k in enumerate(("mt_closest_hit", "mt_any_hit")):
@@ -4523,6 +4979,17 @@ def main() -> int:
     for entry in kernels:
         for key, counts in epsm_launches.items():
             entry[key] = counts.get(entry["name"], 0)
+    for entry, kind in ((kernels[0], "closest"), (kernels[1], "any")):
+        entry["human_rays"] = [
+            {"depth": r["depth"], "rays": r["rays"],
+             "live": r[f"live_{kind}"], "ms": r[f"{kind}_ms"],
+             "bound_ms": r[f"{kind}_bound_ms"],
+             "bound_by": r[f"{kind}_bound_by"],
+             "plain_ms": r[f"{kind}_plain_ms"],
+             "plain_rays": r["plain_rays"]}
+            for r in hu["K1 on the body's rays"]]
+        entry["human_iteration_launches"] = [
+            r["counts"][entry["name"]] for r in hu["run"]["rows"]]
     # each kernel on the experiments' own rays: K1 at egg's 3,972
     # triangles, K2/K3 on shadow's 1,587,204
     for entry, rows, kind in ((kernels[0], epsm_exp["k1"], "closest"),

@@ -2,9 +2,10 @@
 ``EPSM/optim.py``).
 
 ``run`` optimizes with one of ``METHODS`` -- ``manifold``,
-``manifold_caustic``, ``prb`` and ``path`` -- or with its ``_hybrid``
-form: the method until iteration ``thres``, then PRB with a fresh Adam
-state (optim.py:87-119).  An experiment is a dict (see ``app/exp``) with:
+``manifold_caustic``, ``prb``, ``prb_reparam`` (refused, below) and
+``path`` -- or with its ``_hybrid`` form: the method until iteration
+``thres``, then PRB with a fresh Adam state (optim.py:87-119).  An
+experiment is a dict (see ``app/exp``) with:
 
 - ``scene``: the port's Scene; the reference's sensor conventions hold:
   PRB renders sensor 0, the manifold methods sensor 1, and the manifold
@@ -20,8 +21,7 @@ with the method's integrator and takes the 5-channel optimal-transport
 loss: the Sinkhorn matcher's gradient at ``match_res`` is tiled over the
 image and held fixed, and the loss is sum(image * g5) (optim.py:130-136).
 From ``thres`` on it takes the PRB render's mean squared error.  Each
-gradient is cleared of NaNs before Adam steps.  The logger, checkpoints
-and progress reporter of the reference are not ported.
+gradient is cleared of NaNs before Adam steps.
 """
 from __future__ import annotations
 
@@ -31,9 +31,12 @@ import torch
 
 from ..ad.optimizers import Adam
 from ..ad.render import render
+from ..core.logger import ProgressReporter
 from ..ops.sinkhorn import Matcher, full_f32_matmul
+from ..utils import checkpoint as ckpt
+from ..utils.logger import Logger
 
-METHODS = ("manifold", "manifold_caustic", "prb", "path")
+METHODS = ("manifold", "manifold_caustic", "prb", "prb_reparam", "path")
 
 
 def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -72,19 +75,29 @@ def _resize(img: torch.Tensor, res: int) -> torch.Tensor:
     return img
 
 
-def run(method: str, exp: Dict, adam_lr: float = 0.01, iters: int = None,
+def run(method: str, exp: Dict, log_dir: str = None, verbose: bool = True,
+        adam_lr: float = 0.01, iters: int = None,
+        checkpoint_every: int = 0, resume: bool = False,
         max_wavefront: int = 2_000_000,
         log: Optional[Callable[[int, float, Dict], None]] = None):
     """Optimize ``exp["init_theta"]`` for ``iters`` (default ``exp["it"]``)
     iterations of ``method`` (``run``, :37-134).  Returns (the optimizer,
-    the history: one dict of numpy values of theta after each iteration).
-    Renders run on the scene's device.  ``log(it, loss, theta)`` is called
-    after each step (it waits for the device).
+    the history: one dict of numpy values of theta after each iteration
+    this call ran).  Renders run on the scene's device.  ``log(it, loss,
+    theta)`` is called after each step (it waits for the device).
 
-    ``prb`` and ``path`` without ``_hybrid`` take the OT loss as the
-    reference's ``run`` does, whose 5-channel gradient does not fit their
-    3-channel image: the reference raises there (``img * g_full``,
-    :100), and so does this ``run``, before any render."""
+    With ``log_dir``, a ``Logger`` there dumps theta after each iteration
+    (``params/param{it}.npy``), every ``checkpoint_every`` iterations
+    ``save_optimizer`` writes the optimizer into ``{log_dir}/ckpt``, and
+    ``resume`` restarts from its latest checkpoint, at the iteration after
+    it.  ``verbose`` writes a progress bar to standard error.
+
+    ``prb``, ``prb_reparam`` and ``path`` without ``_hybrid`` take the OT
+    loss as the reference's ``run`` does, whose 5-channel gradient does
+    not fit their 3-channel image: the reference raises there (``img *
+    g_full``, :100), and so does this ``run``, before any render.  The
+    ``prb_reparam`` integrator (``ad/reparam.py``) is not ported:
+    ``prb_reparam_hybrid`` raises NotImplementedError."""
     hybrid = method.endswith("_hybrid")
     base = method[: -len("_hybrid")] if hybrid else method
     if base not in METHODS:
@@ -95,6 +108,10 @@ def run(method: str, exp: Dict, adam_lr: float = 0.01, iters: int = None,
             f"5-channel OT loss, and the '{base}' integrator renders 3 "
             "channels (the reference fails at img * g_full); use "
             f"'{base}_hybrid'")
+    if base == "prb_reparam":
+        raise NotImplementedError(
+            "the prb_reparam integrator (ad/reparam.py) is not ported yet: "
+            "ROADMAP.md queue 1 item 5")
     scene = exp["scene"]
     device = scene.device
     it_total = iters if iters is not None else exp["it"]
@@ -127,6 +144,9 @@ def run(method: str, exp: Dict, adam_lr: float = 0.01, iters: int = None,
     opt = Adam(lr=adam_lr)
     for k, v in exp["init_theta"].items():
         opt[k] = torch.as_tensor(v, dtype=torch.float32, device=device)
+    start_it = 0
+    if resume and log_dir:
+        start_it = ckpt.load_optimizer(f"{log_dir}/ckpt", opt)
     integrator1 = {"type": base, "max_depth": max_depth}
     integrator2 = {"type": "prb", "max_depth": max_depth}
 
@@ -150,19 +170,34 @@ def run(method: str, exp: Dict, adam_lr: float = 0.01, iters: int = None,
                      device=device)[..., :3]
         return torch.sum((img - img_ref) ** 2) / img.numel()
 
+    logger = Logger(log_dir) if log_dir else None
+    progress = ProgressReporter(base, it_total) if verbose else None
     history = []
-    for it in range(it_total):
-        if it == thres:
-            for k in list(opt.keys()):
-                opt.reset(k)
-        theta = {k: v.clone().requires_grad_(True) for k, v in opt.items()}
-        loss = (loss_manifold if it < thres else loss_prb)(theta, it)
-        grads = torch.autograd.grad(loss, list(theta.values()),
-                                    allow_unused=True)
-        opt.step({k: torch.zeros_like(theta[k]) if g is None
-                  else torch.nan_to_num(g) for k, g in zip(theta, grads)})
-        history.append({k: v.detach().cpu().numpy().copy()
-                        for k, v in opt.items()})
-        if log is not None:
-            log(it, float(loss.detach()), history[-1])
+    try:
+        for it in range(start_it, it_total):
+            if it == thres:
+                for k in list(opt.keys()):
+                    opt.reset(k)
+            theta = {k: v.clone().requires_grad_(True)
+                     for k, v in opt.items()}
+            loss = (loss_manifold if it < thres else loss_prb)(theta, it)
+            grads = torch.autograd.grad(loss, list(theta.values()),
+                                        allow_unused=True)
+            opt.step({k: torch.zeros_like(theta[k]) if g is None
+                      else torch.nan_to_num(g)
+                      for k, g in zip(theta, grads)})
+            if progress:
+                progress.update(it + 1, exp["output"](dict(opt.items()))[:40])
+            history.append({k: v.detach().cpu().numpy().copy()
+                            for k, v in opt.items()})
+            if logger:
+                logger.add_params(it, history[-1])
+            if checkpoint_every and log_dir \
+                    and (it + 1) % checkpoint_every == 0:
+                ckpt.save_optimizer(f"{log_dir}/ckpt", it, opt)
+            if log is not None:
+                log(it, float(loss.detach()), history[-1])
+    finally:
+        if logger:
+            logger.close()
     return opt, history

@@ -1,9 +1,10 @@
 """Colour utilities (counterpart of ``core/spectrum.py``).
 
-The port renders in RGB.  ``luminance``, ``srgb_to_linear`` and
-``linear_to_srgb`` take a tensor or a numpy array and return the same
-kind, computed in its dtype; ``blackbody_rgb`` is numpy, as the scene
-loader calls it before any tensor exists.
+The port renders in RGB.  ``luminance``, ``srgb_to_linear``,
+``linear_to_srgb`` and ``to_bitmap_u8`` (the logger's encoder) take a
+tensor or a numpy array and return the same kind, computed in its dtype;
+``blackbody_rgb`` is numpy, as the scene loader calls it before any
+tensor exists.
 """
 from __future__ import annotations
 
@@ -39,6 +40,13 @@ def linear_to_srgb(c):
     c = torch.clamp(c, 0.0, 1.0)
     return torch.where(c <= 0.0031308, c * 12.92,
                        1.055 * c ** (1.0 / 2.4) - 0.055)
+
+
+@_elementwise
+def to_bitmap_u8(img):
+    """HDR linear -> clipped sRGB uint8 (mi.util.convert_to_bitmap)."""
+    return (linear_to_srgb(torch.clamp(img, 0.0, 1.0)) * 255.0
+            + 0.5).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -113,3 +113,35 @@ def test_scene_file_entry_points_without_device_raise(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         glassslab.make(resolution=8, match_res=8)
     assert mt.load_file(str(path), device="cpu").faces.shape == (12, 3)
+
+
+def test_human_slice_entry_points_without_device_raise(tmp_path,
+                                                       monkeypatch):
+    """The human slice's entry points default to the GPU too:
+    ``procedural_template``, ``load_npz``, ``human.make``,
+    ``optim_human.run`` and ``run_experiments.main``; none falls back to
+    the CPU or writes a log."""
+    _require_no_cuda()
+    import numpy as np
+    from epsm_mitsuba3_torch.app import optim_human, run_experiments
+    from epsm_mitsuba3_torch.app.exp import human
+    from epsm_mitsuba3_torch.models import smpl
+    m = smpl.procedural_template(device="cpu")
+    path = str(tmp_path / "body.npz")
+    np.savez(path, v_template=m.template.numpy(), f=m.faces,
+             weights=m.weights.numpy(), J=m.joints.numpy())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smpl.procedural_template()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smpl.load_npz(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        human.make(resolution=8, match_res=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        human.make(resolution=8, match_res=8, smpl_npz=path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optim_human.run(iters=1, resolution=8, match_res=8)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_experiments.main(["manifold", "human", "--small"])
+    assert not (tmp_path / "results").exists()
+    assert smpl.load_npz(path, device="cpu").template.shape == (2112, 3)

@@ -138,18 +138,30 @@ def test_run_prb_tracks_jax():
     assert np.isfinite(losses).all()
 
 
-@pytest.mark.parametrize("method", ["prb", "path"])
+@pytest.mark.parametrize("method", ["prb", "path", "prb_reparam"])
 def test_run_prb_without_hybrid_refused_as_jax(method):
     """Without ``_hybrid`` the reference's ``run`` takes the 5-channel OT
-    loss for every method; for ``prb`` and ``path``, whose image has 3
-    channels, it fails at ``img * g_full`` (``app/optim.py:100``).  The
-    port refuses the same methods, before rendering anything."""
+    loss for every method; for ``prb``, ``prb_reparam`` and ``path``,
+    whose image has 3 channels, it fails at ``img * g_full``
+    (``app/optim.py:100``).  The port refuses the same methods, before
+    rendering anything."""
     exp_j, exp_t, _ = _box_case()
     exp_j["gt_spp"] = 1
     with pytest.raises(TypeError, match="broadcast"):
         optim_j.run(method, exp_j, verbose=False, iters=1)
     with pytest.raises(ValueError, match="OT loss"):
         optim_t.run(method, exp_t, iters=1)
+
+
+def test_run_prb_reparam_hybrid_not_ported():
+    """The ``prb_reparam`` integrator (``ad/reparam.py``) is not ported:
+    its ``_hybrid`` form raises by name, before rendering anything."""
+    _, exp_t, _ = _box_case()
+    with pytest.raises(NotImplementedError, match="prb_reparam.*queue 1 "
+                       "item 5"):
+        optim_t.run("prb_reparam_hybrid", exp_t, iters=1)
+    with pytest.raises(ValueError, match="unknown method"):
+        optim_t.run("reparam", exp_t, iters=1)
 
 
 CORNELL = dict(resolution=32, spp=4, match_res=32, max_depth=4)
