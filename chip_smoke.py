@@ -24,7 +24,7 @@ Phases (any failed check raises, and the script exits non-zero):
    then every step at 12 to 4,096 triangles and 2^16 to 2^21 rays, held
    bit for bit and timed beside the launch ``launch_rule`` picks;
 3. the Cornell box's primal render at full width: ``render(load_dict(
-   cornell_box(512, 64, 6)), spp=64, spp_chunk=4)``: a warm-up and five
+   cornell_box(512, 64, 6)), spp=64, spp_chunk=4)``: a warm-up and three
    timed renders, with the launch counts set to 0 before and read after
    each;
 4. K2/K3 against their plain versions on ``cornell_box_mesh``'s 2^21
@@ -85,7 +85,7 @@ Phases (any failed check raises, and the script exits non-zero):
     manifold_caustic, depth 6), glossyball (a GGX rough-conductor sphere,
     theta its translation and roughness), highlight (a rough-conductor
     floor) and shadow (400 spheres, 1,587,204 triangles in a BVH) at
-    512^2, match_res 128, 3 iterations each (spp and ground truth cut,
+    512^2, match_res 128, 2 iterations each (spp and ground truth cut,
     ``EXP_CELLS``): ms an iteration and by phase, launches (each count
     exact), theta and its gradients finite and non-zero, peak memory,
     device busy share of one profiled iteration, shadow's BVH build and
@@ -106,7 +106,7 @@ Phases (any failed check raises, and the script exits non-zero):
     then K2 on the re-packed tree against K1's brute force;
 16. [glassslab]: ``run("manifold_caustic", glassslab.make(...))`` at the
     published widths (512^2, spp 64, depth 4, match_res 256, grid 16),
-    ground truth 64 spp, 2 iterations (of 1,000): ms an iteration and by
+    ground truth 64 spp, 1 iteration (of 1,000): ms an iteration and by
     phase, K1 launches (each count exact), the normal field and its
     gradient finite and non-zero, peak memory, the busy share of one
     profiled iteration; the normal-field gradient on the card against the
@@ -129,7 +129,7 @@ Phases (any failed check raises, and the script exits non-zero):
     beside its area light (point, spot, directional, constant, a 512 x
     1024 envmap written as EXR and loaded by file name, a projector with
     a checkerboard, directionalarea on the ceiling light), the constant
-    light alone and no emitter (exactly 0): a warm-up and 3 timed renders
+    light alone and no emitter (exactly 0): a warm-up and 1 timed render
     each, K1 launches exact, one profiled pass, peak memory; the mesh's
     fwd+bwd cell with the envmap and a point light (K2/K3 exact, the
     gradients of the vertices through set_vertices, of radiance,
@@ -143,8 +143,8 @@ Phases (any failed check raises, and the script exits non-zero):
     from the seed (smooth random fields) and written as EXR: the box (K1) at 512^2 x 64 spp with
     the bitmap on the back wall, a checkerboard on the floor, the normal
     map on the left wall, a ``regular`` spectrum on the right wall and an
-    ``irregular`` one as the light's radiance (a warm-up and 3 timed
-    renders, K1 launches exact, the image finite and not flat, one
+    ``irregular`` one as the light's radiance (a warm-up and 1 timed
+    render, K1 launches exact, the image finite and not flat, one
     profiled pass); the mesh's fwd+bwd cell with a ``mesh_attribute``
     sphere (vertex colours from the positions), the bitmap and the normal
     map (K2/K3 exact, none in the backward; the gradients of the
@@ -172,11 +172,12 @@ Phases (any failed check raises, and the script exits non-zero):
     null-lobe quads;
 21. [human]: ``optim_human.run("manifold")`` on ``human.make()`` at the
     published 512^2, spp 64 (one pass), depth 3, match_res 256 and 72-d
-    pose, ground truth at 256 spp, 2 iterations (of 1,000): ms an
+    pose, ground truth at 256 spp, 1 iteration (of 1,000): ms an
     iteration and by phase (ground truth, stage-1 render, match, stage-2
     render and backward, the skinning's forward and VJP, Adam), K1
     launches an iteration (each count exact), peak memory, the busy share
-    and K1's share of the second iteration under the profiler, each pose
+    and K1's share of the iteration under the profiler (from the ground
+    truth's end), each pose
     gradient finite, non-zero on joints 16-19 and zero on the leaf joints
     10, 11, 22, 23; K1 on one 8-spp pass of the body's rays, held bit for
     bit and timed beside its bound; a synthetic release-sized SMPL file
@@ -188,6 +189,20 @@ Phases (any failed check raises, and the script exits non-zero):
     ``optim.run`` with ``checkpoint_every`` 1 stopped after 2 iterations
     and resumed (the loaded optimizer bit for bit the saved one, on the
     card); the pose gradient on the card against the CPU at 64^2 x 4 spp.
+22. [reparam]: ``optim_human.run("prb_reparam")`` on ``human.make()`` at
+    the [human] widths (512^2, spp 64 in one pass, depth 3, the MSE
+    loss), 1 iteration: ms an iteration and by phase, K1 launches an
+    iteration (each count exact: the backward's auxiliary rays, 16 a
+    warp, 6 warps in every lane chunk of ``ad/prb.py`` REPARAM_CHUNK),
+    peak memory by phase, the busy share of the iteration, each
+    pose gradient finite, non-zero on joints 16-19 and zero on the leaf
+    joints; the JAX package's silhouette check (tests/test_reparam.py:
+    44-75) on the blocker scene: detached PRB misses the moving shadow
+    edge, prb_reparam within 0.3-3 times the finite difference; one
+    prb_reparam fwd+bwd pass of cornell_box_mesh at 512^2 x 4 spp, depth
+    3, its auxiliary rays all K2 (exact); the card against the CPU at
+    64^2 (the box with face normals, the blocker scene): images and the
+    gradients of the vertices, reflectances, radiance and sensor pose.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -221,7 +236,8 @@ RES, SPP, SPP_CHUNK, DEPTH = 512, 64, 4, 6
 #: BVH-slice workload (bench.py's ``bvh`` section): cornell_box_mesh at
 #: 512^2, 16 spp in passes of 8, max depth 6
 MESH_SPP, MESH_CHUNK = 16, 8
-TIMED_RENDERS = 5
+#: timed renders of the render cells (cut from 5 for the time limit)
+TIMED_RENDERS = 3
 #: fwd+bwd cells (bench.py's ``_bench_scene``): the box's 16 passes of 4
 #: spp (``sec_toy``) and the mesh's 2 passes of 8 spp (``sec_bvh``)
 BOX_PASSES, MESH_PASSES = 16, 2
@@ -252,7 +268,7 @@ MATCH_CMP_RES = 64
 #: spp, ground-truth spp): spp cut from the published 256 (egg), 64
 #: (highlight, shadow) and a ground truth of the default 512 cut, for the
 #: time limit
-EXP_RES, EXP_MATCH, EXP_ITERS = 512, 128, 3
+EXP_RES, EXP_MATCH, EXP_ITERS = 512, 128, 2
 EXP_CELLS = (("egg", 32, 32), ("glossyball", 32, 32), ("highlight", 32, 32),
              ("shadow", 16, 16))
 #: bunny, bathroom and bedroom (procedural stand-ins): one iteration each
@@ -267,7 +283,7 @@ SF_SPP, SF_CHUNK = 16, 8
 #: spp 64, depth 4, match_res 256, a 16 x 16 grid), ground truth 64 spp
 #: (published 512), GS_ITERS iterations of run("manifold_caustic") of the
 #: published 1,000
-GS_SPP, GS_MATCH, GS_ITERS = 64, 256, 2
+GS_SPP, GS_MATCH, GS_ITERS = 64, 256, 1
 
 #: [human]: app/exp/human.make at its published widths (512^2, spp 64,
 #: depth 3, match_res 256, the 72-d pose; the procedural body's 3,844
@@ -275,8 +291,8 @@ GS_SPP, GS_MATCH, GS_ITERS = 64, 256, 2
 #: of optim_human.run("manifold") of the published 1,000, its ground truth
 #: at min(4 x 64, 256) = 256 spp as the reference's; one render of the 64
 #: spp a pass (the reference does not split it; 9.52 GiB at most), the
-#: second iteration profiled
-HU_SPP, HU_MATCH, HU_ITERS = 64, 256, 2
+#: iteration profiled from the ground truth's end
+HU_SPP, HU_MATCH, HU_ITERS = 64, 256, 1
 #: K1 held and timed on the rays of one HU_RAYS_SPP-spp pass of the body
 #: (2,097,152 lanes): the 64-spp pass cut, for the time limit (the
 #: any-hit bound counts each live ray's tests)
@@ -288,6 +304,21 @@ HU_RAYS_SPP = 8
 HU_SEG, HU_RING, HU_SEED, HU_BODY_SPP = 24, 12, 15, 8
 #: the leaf joints no bone has as parent: no vertex weights them
 HU_LEAVES = (10, 11, 22, 23)
+#: [reparam]: optim_human.run("prb_reparam") on human.make() at the
+#: [human] widths (512^2, spp 64 in one pass, depth 3, the MSE loss, no
+#: match), RP_ITERS iterations of the published 1,000, profiled from the
+#: ground truth's end;
+#: each backward's auxiliary rays (16 a reparameterisation, the default)
+#: go to K1 in lane chunks of ad/prb.py REPARAM_CHUNK
+RP_ITERS = 1
+#: the silhouette check of the JAX package's tests/test_reparam.py:44-75:
+#: blocker_scene at 24^2, depth 2, d/ddx of sum(img * x-ramp) by prb and
+#: prb_reparam at 64 spp against a central difference of path at 256 spp
+RP_SIL_RES, RP_SIL_SPP, RP_SIL_FD_SPP, RP_SIL_EPS = 24, 64, 256, 0.05
+#: one prb_reparam fwd+bwd pass of cornell_box_mesh (sphere normals) at
+#: 512^2 x RP_MESH_SPP spp, depth RP_MESH_DEPTH: its auxiliary rays go to
+#: K2
+RP_MESH_SPP, RP_MESH_DEPTH = 4, 3
 
 
 class CheckFailed(AssertionError):
@@ -3056,7 +3087,7 @@ EM_CASES = ("point", "spot", "directional", "constant", "envmap",
             "projector", "directionalarea", "constant only", "no emitter")
 #: timed renders a case (after a warm-up); the envmap's lat-long size;
 #: lanes of the envmap sampler timed alone
-EM_RENDERS, EM_ENV_HW, EM_SAMPLER_LANES = 3, (512, 1024), 2 ** 20
+EM_RENDERS, EM_ENV_HW, EM_SAMPLER_LANES = 1, (512, 1024), 2 ** 20
 
 
 def emitter_lights(tmp, env_hw=EM_ENV_HW):
@@ -3467,7 +3498,7 @@ def emitters_phase():
 
 #: [textures]: texels a side of the reflectance bitmap and of the normal
 #: map; timed renders of the box (after a warm-up)
-TX_ALBEDO, TX_NORMAL, TX_RENDERS = 1024, 512, 3
+TX_ALBEDO, TX_NORMAL, TX_RENDERS = 1024, 512, 1
 
 
 def smooth_field(rng, n, channels, cells=8):
@@ -4243,21 +4274,35 @@ def check_pose_gradient(label, pg):
           "non-zero gradient on a leaf joint (10, 11, 22, 23)")
 
 
-def human_run():
-    """``optim_human.run("manifold")`` on ``human.make()`` at HU_SPP spp,
-    512^2, match_res HU_MATCH, HU_ITERS iterations: ms an iteration and by
+def human_expect_manifold(it, depth):
+    """K1 launches of one ``run("manifold")`` iteration: the stage-1
+    render (D + D), the EPSM pass (4 D + 1 closest, 3 D any), the ground
+    truth's D + D in iteration 0."""
+    gt = depth if it == 0 else 0
+    return {"mt_closest_hit": gt + depth + 4 * depth + 1,
+            "mt_any_hit": gt + depth + 3 * depth,
+            "bvh4_closest_hit": 0, "bvh4_any_hit": 0,
+            "bvh4_closest_hit_mp": 0}
+
+
+def human_run(method="manifold", iters=HU_ITERS,
+              expect=human_expect_manifold, tag="human"):
+    """``optim_human.run(method)`` on ``human.make()`` at HU_SPP spp,
+    512^2, match_res HU_MATCH, ``iters`` iterations: ms an iteration and by
     phase (CUDA events: the ground truth, the stage-1 render, the match,
     the stage-2 render and backward, the skinning's forward and VJP,
-    Adam), K1 launches an iteration (each count exact), the peak memory of
-    each phase (each pass unsplit), the busy share of the second iteration
-    under the profiler, each pose gradient finite, non-zero on joints
-    16-19 and zero on the leaf joints.  Returns the rows, the launch
-    totals and the experiment."""
+    Adam), K1 launches an iteration (each count exact, ``expect(it,
+    depth)``), the peak memory of each phase (each pass unsplit), the busy
+    share of the last iteration under the profiler (from the ground
+    truth's end where there is one iteration), each pose gradient finite,
+    non-zero on joints 16-19 and zero on the leaf joints.  Returns the
+    rows, the launch totals and the experiment."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from epsm_mitsuba3_torch.app import optim_human as OH
     from epsm_mitsuba3_torch.app.exp import human
     depth = 3
+    prof_it = iters - 1
     timer = PhaseTimer()
     timer.wrap(OH.Matcher, "match_Sinkhorn", "match")
     timer.wrap(OH, "vertex_gradient", "stage-2 render and backward")
@@ -4284,11 +4329,16 @@ def human_run():
         t0 = time.perf_counter()
         exps.append(orig_make(**kw))
         torch.cuda.synchronize()
-        say(f"[human] human.make: {exps[-1]['scene'].faces.shape[0]} "
+        say(f"[{tag}] human.make: {exps[-1]['scene'].faces.shape[0]} "
             f"triangles (K1), loaded in {time.perf_counter() - t0:.2f} s")
         zero_counts()
         mark[0] = time.perf_counter()
         return exps[-1]
+
+    def start_profile():
+        torch.cuda.synchronize()
+        prof[0] = profile(activities=[ProfilerActivity.CUDA])
+        prof[0].__enter__()
 
     def render(*a, **kw):
         if kw["integrator"]["type"] == "path":
@@ -4297,8 +4347,11 @@ def human_run():
             label = "stage-1 render"
         else:
             return orig_render(*a, **kw)
-        return peak_of(label, lambda: timer.wrap_call(
+        out = peak_of(label, lambda: timer.wrap_call(
             label, lambda: orig_render(*a, **kw)))
+        if label == "ground truth" and prof_it == 0:
+            start_profile()
+        return out
 
     def step(self, g):
         grads.append(g["pose"].detach().clone())
@@ -4311,18 +4364,17 @@ def human_run():
             total[k] = total.get(k, 0) + n
         rows.append(dict(it=len(rows), wall=wall, counts=counts,
                          phases=timer.read(), pose=self["pose"].clone()))
-        if len(rows) == 1:
-            prof[0] = profile(activities=[ProfilerActivity.CUDA])
-            prof[0].__enter__()
-        elif prof[0] is not None and len(rows) == 2:
+        if prof[0] is not None and len(rows) == prof_it + 1:
             prof[0].__exit__(None, None, None)
+        elif len(rows) == prof_it:
+            start_profile()
         mark[0] = time.perf_counter()
         return out
 
     OH.render, OH.Adam.step, human.make = render, step, make
     try:
         t0 = time.perf_counter()
-        pose, losses = OH.run("manifold", iters=HU_ITERS, resolution=RES,
+        pose, losses = OH.run(method, iters=iters, resolution=RES,
                               spp=HU_SPP, match_res=HU_MATCH, verbose=True)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
@@ -4344,39 +4396,38 @@ def human_run():
         ph["LBS forward and VJP"] = ph.pop("pose_gradient", 0.0) - ph.get(
             "stage-2 render and backward", 0.0)
         ph["other"] = r["wall"] - sum(ph.values())
-        gt = depth if r["it"] == 0 else 0
-        expect = {"mt_closest_hit": gt + depth + 4 * depth + 1,
-                  "mt_any_hit": gt + depth + 3 * depth,
-                  "bvh4_closest_hit": 0, "bvh4_any_hit": 0,
-                  "bvh4_closest_hit_mp": 0}
-        say(f"[human] iteration {r['it']}"
-            + (" (with the ground truth)" if r["it"] == 0
-               else " (under the profiler)")
+        want = expect(r["it"], depth)
+        notes = [n for n, on in (("with the ground truth", r["it"] == 0),
+                                 ("under the profiler", r["it"] == prof_it))
+                 if on]
+        say(f"[{tag}] iteration {r['it']} ({', '.join(notes) or 'timed'})"
             + f": {r['wall']:.1f} ms; loss {loss:.6g}; ms by phase "
             + ", ".join(f"{k} {v:.1f}" for k, v in ph.items())
             + f"; launches {r['counts']}")
-        for k, n in expect.items():
-            check(r["counts"][k] == n, f"human: {k} launched "
+        for k, n in want.items():
+            check(r["counts"][k] == n, f"{tag}: {k} launched "
                   f"{r['counts'][k]} times in iteration {r['it']}, "
                   f"expected {n}")
-        check(math.isfinite(loss), "human: loss not finite")
-        check_pose_gradient(f"run, iteration {r['it']}", g)
+        check(math.isfinite(loss), f"{tag}: loss not finite")
+        check_pose_gradient(f"{method} run, iteration {r['it']}", g)
     exp = exps[0]
     moved = float((pose - exp["init_theta"]["pose"]).abs().max())
     check(bool(torch.isfinite(pose).all()) and moved > 0,
-          "human: the pose did not move or is not finite")
+          f"{tag}: the pose did not move or is not finite")
     walls = [r["wall"] - r["phases"].get("ground truth", 0.0) for r in rows]
-    say(f"[human] {RES}^2 x {HU_SPP} spp (one pass), depth {depth}, "
-        f"match_res {HU_MATCH}, {HU_ITERS} iterations in {run_s:.1f} s "
+    say(f"[{tag}] {RES}^2 x {HU_SPP} spp (one pass), depth {depth}, "
+        f"match_res {HU_MATCH}, {method}, {iters} iterations in "
+        f"{run_s:.1f} s "
         "(the ground truth and the experiment's load included): ms an "
         "iteration without the ground truth "
         + ", ".join(f"{w:.1f}" for w in walls)
         + f"; peak device memory {peak:.2f} GiB (by phase: "
         + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
-        + "); iteration 1 under the profiler: "
-        + (f"device busy {busy:.1f} of {rows[1]['wall']:.1f} ms "
-           f"({100 * busy / rows[1]['wall']:.1f} %), K1 {k1_ms:.1f} ms "
-           f"({100 * k1_ms / rows[1]['wall']:.1f} % of the iteration), "
+        + f"); iteration {prof_it} under the profiler"
+        + (" (after the ground truth)" if prof_it == 0 else "") + ": "
+        + (f"device busy {busy:.1f} of {walls[prof_it]:.1f} ms "
+           f"({100 * busy / walls[prof_it]:.1f} %), K1 {k1_ms:.1f} ms "
+           f"({100 * k1_ms / walls[prof_it]:.1f} % of the iteration), "
            f"{n_launch} launches" if kernels
            else "the profiler saw no device time (not measured)")
         + f"; max |pose - init| {moved:.6g}; launches in all {total}")
@@ -4623,6 +4674,206 @@ def human_phase(gen):
         _TALLY = None
     out["run"].pop("exp")
     say("[human] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} s in all")
+    out["secs"] = secs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [reparam]: ray reparameterisation (prb_reparam) on the human experiment,
+# the silhouette check, a BVH scene, the card against the CPU
+# ---------------------------------------------------------------------------
+
+def reparam_backward_launches(lanes, depth, num_rays=16):
+    """Closest-hit launches of one prb_reparam backward: a warp of the
+    incident direction at each bounce, of the shadow ray at each bounce
+    but the last, and of the camera ray, ``num_rays`` launches each, in
+    every lane chunk."""
+    from epsm_mitsuba3_torch.ad import prb as PRB
+    chunks = -(-lanes // PRB.REPARAM_CHUNK)
+    return (depth + (depth - 1) + 1) * num_rays * chunks
+
+
+def reparam_expect_human(it, depth):
+    """K1 launches of one ``run("prb_reparam")`` iteration: the stage-1
+    render D + D, the stage-2 recording forward D + D and its backward's
+    auxiliary rays, the ground truth's D + D in iteration 0."""
+    gt = depth if it == 0 else 0
+    back = reparam_backward_launches(RES * RES * HU_SPP, depth)
+    return {"mt_closest_hit": gt + 2 * depth + back,
+            "mt_any_hit": gt + 2 * depth,
+            "bvh4_closest_hit": 0, "bvh4_any_hit": 0,
+            "bvh4_closest_hit_mp": 0}
+
+
+def reparam_silhouette():
+    """The JAX package's silhouette check (tests/test_reparam.py:44-75) on
+    the card: the blocker moved by dx in x, d/ddx of sum(img * ramp) at
+    dx = 0.  Detached PRB misses it (|g_prb| < 0.1 |fd|); prb_reparam has
+    the finite difference's sign and lies within 0.3-3 times it."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import blocker_scene
+    sc0 = mt.load_dict(blocker_scene(res=RP_SIL_RES, spp=RP_SIL_SPP))
+    s, c = sc0.static.vertex_ranges[sc0.static.shape_names.index("blocker")]
+    mask = torch.zeros_like(sc0.vertices)
+    mask[s:s + c, 0] = 1.0
+    ramp = torch.linspace(0, 1, RP_SIL_RES, device=sc0.device)[None, :, None]
+
+    def loss(dx, kind, spp):
+        sc = sc0.with_leaves({"vertices": sc0.vertices + dx * mask})
+        img = mt.render(sc, spp=spp, seed=0,
+                        integrator={"type": kind, "max_depth": 2})
+        return torch.sum(img * ramp)
+
+    with torch.no_grad():
+        fd = float(loss(RP_SIL_EPS, "path", RP_SIL_FD_SPP)
+                   - loss(-RP_SIL_EPS, "path", RP_SIL_FD_SPP)) / (
+            2 * RP_SIL_EPS)
+    g = {}
+    for kind in ("prb", "prb_reparam"):
+        dx = torch.zeros((), device=sc0.device, requires_grad=True)
+        zero_counts()
+        t0 = time.perf_counter()
+        (g[kind],) = torch.autograd.grad(loss(dx, kind, RP_SIL_SPP), dx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        say(f"[reparam] silhouette {kind}: d/ddx {float(g[kind]):.6g}, "
+            f"{ms:.1f} ms, launches {read_counts()}")
+    g_prb, g_rep = float(g["prb"]), float(g["prb_reparam"])
+    ratio = g_rep / fd if fd else float("nan")
+    say(f"[reparam] silhouette {RP_SIL_RES}^2, depth 2: fd (path, "
+        f"{RP_SIL_FD_SPP} spp, eps {RP_SIL_EPS}) {fd:.6g}; prb {g_prb:.6g} "
+        f"(|g| / |fd| {abs(g_prb / fd):.3g}, limit < 0.1); prb_reparam "
+        f"{g_rep:.6g} (g / fd {ratio:.3g}, limits 0.3-3)")
+    check(abs(g_prb) < 0.1 * abs(fd), "silhouette: detached PRB should "
+          "miss the moving shadow edge")
+    check(0.3 <= ratio <= 3.0, "silhouette: prb_reparam's gradient is not "
+          "within 0.3-3 times the finite difference, of its sign")
+    return dict(fd=fd, prb=g_prb, reparam=g_rep)
+
+
+def reparam_mesh_pass():
+    """One prb_reparam fwd+bwd pass of cornell_box_mesh with sphere
+    normals at 512^2 x RP_MESH_SPP spp, depth RP_MESH_DEPTH, after a
+    warm-up pass: K2/K3 D / D in the forward, and the replay's auxiliary
+    rays all K2 (``reparam_backward_launches``), no K3, no K1; the
+    gradients finite and the vertices' non-zero; wall ms and peak
+    memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    depth = RP_MESH_DEPTH
+    scene = mt.load_dict(blob_normals(cornell_box_mesh(
+        res=RES, spp=RP_MESH_SPP, max_depth=depth)))
+    sc, leaves = trainable(scene)
+    integ = {"type": "prb_reparam", "max_depth": depth}
+    lanes = RES * RES * RP_MESH_SPP
+    want_bwd = {"bvh4_closest_hit": reparam_backward_launches(lanes, depth),
+                "bvh4_any_hit": 0, "bvh4_closest_hit_mp": 0,
+                "mt_closest_hit": 0, "mt_any_hit": 0}
+    want_fwd = {"bvh4_closest_hit": depth, "bvh4_any_hit": depth,
+                "bvh4_closest_hit_mp": 0, "mt_closest_hit": 0,
+                "mt_any_hit": 0}
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for run in ("warm-up", "timed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, fwd, bwd = fwd_bwd(sc, leaves, RP_MESH_SPP, 1, integ)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        for want, got, where in ((want_fwd, fwd, "forward"),
+                                 (want_bwd, bwd, "backward")):
+            for k, n in want.items():
+                check(got[k] == n, f"reparam mesh: {k} launched {got[k]} "
+                      f"times in the {where}, expected {n}")
+    CT.raise_on_overflow(scene.device)
+    norms = {k: float(g.norm()) for k, g in zip(leaves, grads)}
+    say(f"[reparam] mesh {RES}^2 x {RP_MESH_SPP} spp, depth {depth}, "
+        f"{scene.faces.shape[0]} triangles: fwd+bwd {walls[0]:.1f} ms "
+        f"(warm-up), {walls[1]:.1f} ms; launches forward {fwd}, backward "
+        f"{bwd}; |grad| " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                      norms.items())
+        + f"; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "reparam mesh: gradients not finite")
+    check(norms["vertices"] > 0, "reparam mesh: no vertex gradient")
+    return dict(wall=walls[1], counts=bwd,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def reparam_card_vs_cpu(res=64, spp=4):
+    """prb_reparam on the card against the CPU at 64^2 x 4 spp, depth 3:
+    the box with face normals and the blocker scene, the image (<= 1e-3
+    x mean) and the gradients of the vertices, reflectances, radiance and
+    sensor pose (relative L2 <= 1e-3 each)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import blocker_scene, cornell_box
+    box = cornell_box(res=res, spp=spp, max_depth=3)
+    for k in ("floor", "ceiling", "back", "left", "right"):
+        box[k]["face_normals"] = True
+    names = ("vertices", "bsdfs.reflectance", "emitters.radiance",
+             "sensors.0.to_world")
+    errs = {}
+    for label, d in (("box", box), ("blocker", blocker_scene(res, spp))):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            sc = mt.load_dict(d, device=dev)
+            lv = {k: v.clone().requires_grad_(True)
+                  for k, v in sc.leaves().items() if k in names}
+            img = mt.render(sc.with_leaves(lv), spp=spp, seed=0, device=dev,
+                            integrator={"type": "prb_reparam",
+                                        "max_depth": 3})
+            w = torch.linspace(0, 1, res, device=dev)[None, :, None]
+            g = torch.autograd.grad((img * w).sum(), list(lv.values()))
+            out[dev] = (img.detach().cpu(), [x.cpu() for x in g],
+                        time.perf_counter() - t0)
+        (ia, ga, ta), (ib, gb, tb) = out["cuda"], out["cpu"]
+        mad, mean = float((ia - ib).abs().mean()), float(ib.mean())
+        errs[label] = {k: rel_l2(a, b) for k, a, b in zip(names, ga, gb)}
+        say(f"[reparam, card vs cpu] {label} {res}^2 x {spp} spp: image "
+            f"mean |gpu - cpu| {mad:.3g} (limit {1e-3 * mean:.3g}); "
+            "|g_gpu - g_cpu| / |g_cpu| "
+            + ", ".join(f"{k} {e:.3g} (|g| {float(b.norm()):.4g})"
+                        for (k, e), b in zip(errs[label].items(), gb))
+            + f"  [limit 1e-3 each]; card {ta:.1f} s, cpu {tb:.1f} s")
+        check(mad <= 1e-3 * mean, f"reparam {label}: card and CPU images "
+              "disagree")
+        for k, e in errs[label].items():
+            check(e <= 1e-3, f"reparam {label}: card and CPU gradients of "
+                  f"{k} differ by {e}")
+    return errs
+
+
+def reparam_phase():
+    """[reparam]: the human run through prb_reparam at full width, the
+    silhouette check, the BVH scene's pass, the card against the CPU.
+    Returns the numbers and the K1-K4 launches of the phase."""
+    global _TALLY
+    secs, out = {}, {}
+    zero_counts()
+    _TALLY = {}
+    try:
+        for label, fn in (
+                ("run", lambda: human_run("prb_reparam", RP_ITERS,
+                                          reparam_expect_human, "reparam")),
+                ("silhouette", reparam_silhouette),
+                ("mesh pass", reparam_mesh_pass),
+                ("card vs cpu", reparam_card_vs_cpu)):
+            t0 = time.perf_counter()
+            out[label] = fn()
+            secs[label] = time.perf_counter() - t0
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    out["run"].pop("exp")
+    say("[reparam] seconds by step: "
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
         + f"; {sum(secs.values()):.1f} s in all")
     out["secs"] = secs
@@ -4895,6 +5146,15 @@ def main() -> int:
 
     lap("21 human")
 
+    # -- 22. [reparam]: prb_reparam on the human run, a silhouette, the BVH --
+    t0 = time.perf_counter()
+    rp = reparam_phase()
+    epsm_launches["launches_reparam_phase"] = rp["total"]
+    say(f"[reparam] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{rp['total']}")
+
+    lap("22 reparam")
+
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []
     for i, k in enumerate(("mt_closest_hit", "mt_any_hit")):
@@ -4990,6 +5250,10 @@ def main() -> int:
             for r in hu["K1 on the body's rays"]]
         entry["human_iteration_launches"] = [
             r["counts"][entry["name"]] for r in hu["run"]["rows"]]
+        entry["reparam_human_iteration_launches"] = [
+            r["counts"][entry["name"]] for r in rp["run"]["rows"]]
+    kernels[2]["reparam_mesh_backward_launches"] = rp["mesh pass"]["counts"][
+        "bvh4_closest_hit"]
     # each kernel on the experiments' own rays: K1 at egg's 3,972
     # triangles, K2/K3 on shadow's 1,587,204
     for entry, rows, kind in ((kernels[0], epsm_exp["k1"], "closest"),

@@ -16,9 +16,21 @@ instead of traversing, and at every bounce takes one
 and, from detached values, the next loop state, drawing from the sampler
 in the primal's order (NEE 2-D, BSDF 1-D and 2-D, roulette 1-D).  No
 graph spans two bounces.
+
+``prb_reparam`` (``reparam=True``) replays the same objective with ray
+reparameterisation (``ad/reparam.py``; JAX ``prb_backward`` :483-529):
+each bounce's incident direction is warped and its contribution
+multiplied by the warp's divergence (1 at the camera vertex), and the NEE
+term by the divergence of a shadow ray from the receiving point; the
+camera vertex's divergence enters through a re-projected film splat
+(:802-850).  Each auxiliary ray set is a closest-hit query (K1 or K2).
+That replay runs in lane chunks of ``REPARAM_CHUNK``: the objective is a
+sum over lanes, each lane's part reading only its own state and sampler
+streams, so the chunks' gradients add up to the whole's.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import replace
 from typing import Dict, Optional, Sequence
 
@@ -29,8 +41,71 @@ from ..integrators import common, path as P
 from ..models import bsdf as B
 from ..models import emitters as E
 from ..models import films, samplers as smp
-from ..models.records import Ray
+from ..models import sensors as S
+from ..models.records import Ray, RayFlags
 from ..ops import intersect as I
+from .reparam import reparameterize_ray
+
+#: lanes of one chunk of the reparameterised replay and camera term: the
+#: graphs of a chunk's auxiliary rays are held at once, a few KiB a lane
+#: at 16 rays a warp and two warps a bounce
+REPARAM_CHUNK = 1 << 21
+#: the seed stride of the auxiliary samplers (JAX ad/prb.py:496, :829)
+_GOLDEN = 0x9E3779B9
+
+
+def reparam_config(items=()) -> dict:
+    """The reparameterisation's settings from ``render``'s items (the
+    reference names mapped by ``ad/render.py`` ``_rp_items``): num_rays,
+    kappa, exponent (defaults 16, 1e5, 3) and the diagnostic knobs
+    ``_salt`` (added to the auxiliary seeds), ``_no_em_det``,
+    ``_no_main_det`` and ``_no_cam`` (detach the NEE divergence, the
+    bounce divergence, or drop the camera-vertex term)."""
+    cfg = dict(items)
+    return {"num_rays": int(cfg.get("num_rays", 16)),
+            "kappa": float(cfg.get("kappa", 1e5)),
+            "exponent": float(cfg.get("exponent", 3.0)),
+            "salt": int(cfg.get("_salt", 0)),
+            "no_em_det": bool(cfg.get("_no_em_det", 0)),
+            "no_main_det": bool(cfg.get("_no_main_det", 0)),
+            "no_cam": bool(cfg.get("_no_cam", 0))}
+
+
+def _warp(sc, rp: dict, seed_value: int, ray: Ray, active, lane0: int):
+    """``reparameterize_ray`` (antithetic, as the reference's integrator
+    calls it) of the rays of lanes [lane0, lane0 + N), drawing from those
+    lanes of the auxiliary stream seeded ``seed_value`` (an independent
+    sampler): (d, det)."""
+    rs = smp.seed(seed_value & smp.M32, ray.o.shape[0], lane_offset=lane0,
+                  device=ray.o.device)
+    _, d, det = reparameterize_ray(
+        sc, rs, ray, active, num_rays=rp["num_rays"], kappa=rp["kappa"],
+        exponent=rp["exponent"])
+    return d, det
+
+
+def _rows(x, a: int, b: int):
+    """Lanes [a, b) of a record: every tensor field sliced on dim 0."""
+    if isinstance(x, torch.Tensor):
+        return x[a:b]
+    if isinstance(x, dict):
+        return {k: _rows(v, a, b) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return replace(x, **{f.name: _rows(getattr(x, f.name), a, b)
+                             for f in dataclasses.fields(x)})
+    return x
+
+
+def _cat(parts):
+    """The inverse of ``_rows``: records of consecutive lanes joined."""
+    x = parts[0]
+    if isinstance(x, torch.Tensor):
+        return torch.cat(parts)
+    if dataclasses.is_dataclass(x):
+        return replace(x, **{f.name: _cat([getattr(p, f.name)
+                                           for p in parts])
+                             for f in dataclasses.fields(x)})
+    return x
 
 
 def _film_fn(values, pos, weight, sensor, spp):
@@ -73,13 +148,31 @@ def _camera(scene, seed, sensor_idx, spp):
 
 
 def _replay_bounce(sc, leaves: Sequence[torch.Tensor], st: P.LoopState,
-                   cached: dict, dL, max_depth: int, rr_depth: int):
+                   cached: dict, dL, max_depth: int, rr_depth: int,
+                   rp: Optional[dict] = None, bounce: int = 0,
+                   lane0: int = 0):
     """One bounce of the fused replay: (the next detached state, the
     gradient of sum(Lo * dL) w.r.t. each of ``leaves``, None where it
-    does not reach one)."""
+    does not reach one).  With ``rp`` (``reparam_config``) the bounce
+    ``bounce`` of lanes [lane0, lane0 + N) is replayed reparameterised
+    (JAX ad/prb.py:483-529, the ``rp_em`` term of ``_local_contrib``)."""
     with torch.enable_grad():
+        det = None
+        st_hit = st
+        if rp is not None:
+            # the incident direction, warped and attached: the recorded
+            # hit is evaluated along it
+            d_in, det = _warp(sc, rp, bounce * _GOLDEN + 17 + rp["salt"],
+                              Ray.make(st.ray_o, st.ray_d), st.active, lane0)
+            st_hit = replace(st, ray_d=d_in)
+            if bounce == 0:
+                # the camera vertex's divergence belongs to the film
+                # integral (``_camera_term``)
+                det = None
+            elif rp["no_main_det"]:
+                det = det.detach()
         # the primal's hit stage, on the recorded hit: no traversal
-        _, si, le, active_next, active_em = P.hit_stage(sc, st, max_depth,
+        _, si, le, active_next, active_em = P.hit_stage(sc, st_hit, max_depth,
                                                         cached=cached)
 
         # NEE, attached: the emitter point and the receiving point carry
@@ -120,6 +213,17 @@ def _replay_bounce(sc, leaves: Sequence[torch.Tensor], st: P.LoopState,
         mis_em = torch.where(ds.delta, 1.0,
                              common.mis_weight(pdf_d, bsdf_pdf_em))
         lr_dir = st.beta * mis_em[..., None] * bsdf_val_em * em_weight
+        if rp is not None and not rp["no_em_det"] and bounce + 1 < max_depth:
+            # the divergence of the shadow ray's warp toward the detached
+            # emitter point, from the receiving point following its shape;
+            # after the last bounce no lane samples an emitter
+            si_f = I.compute_surface_interaction(
+                sc, Ray.make(st_hit.ray_o, st_hit.ray_d), cached["pi"],
+                RayFlags.All | RayFlags.FollowShape)
+            em_ray = Ray.make(si_f.p, m.normalize(ds.p.detach() - si_f.p))
+            _, det_em = _warp(sc, rp, bounce * _GOLDEN + 29 + rp["salt"],
+                              em_ray, active_em, lane0)
+            lr_dir = lr_dir * det_em[..., None]
 
         # the state advance, detached: bitwise the primal bounce's
         si_d = si.detach()
@@ -140,31 +244,116 @@ def _replay_bounce(sc, leaves: Sequence[torch.Tensor], st: P.LoopState,
         inv_det = torch.where(nz, 1.0, 0.0) / torch.where(nz, val_d, 1.0)
         lr_ind = L_remaining * I.replace_grad(torch.ones_like(bsdf_val),
                                               inv_det * bsdf_val)
-        obj = torch.sum((le + lr_dir + lr_ind) * dL)
+        lo = le + lr_dir + lr_ind
+        if det is not None:
+            lo = lo * det[..., None]
+        obj = torch.sum(lo * dL)
         grads = (torch.autograd.grad(obj, leaves, allow_unused=True)
                  if obj.requires_grad else (None,) * len(leaves))
     return replace(st2, L=L_remaining), grads
 
 
-def prb_backward(scene, names: Sequence[str], sampler, ray: Ray, dL,
-                 L_total, max_depth: int, rr_depth: int,
-                 trace: dict) -> Dict[str, torch.Tensor]:
-    """The replay: the gradient of sum(image * cotangent) w.r.t. the
-    scene's leaves ``names``, accumulated over the bounces.  ``trace`` is
-    the recording primal's; the replay traverses nothing."""
+def _attached(scene, names: Sequence[str]):
+    """The scene with its leaves ``names`` replaced by detached copies
+    that require grad, and those copies in order."""
     all_leaves = scene.leaves()
     leaves = {k: all_leaves[k].detach().requires_grad_(True) for k in names}
-    sc = scene.with_leaves(leaves)
-    order = list(leaves.values())
-    grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
-    st = P.init_state(sampler, ray, ray.o.shape[0])
+    return scene.with_leaves(leaves), list(leaves.values())
+
+
+def _add(grads: Dict[str, torch.Tensor], names, g) -> None:
+    for k, gk in zip(names, g):
+        if gk is not None:
+            grads[k] += gk
+
+
+def prb_backward(scene, names: Sequence[str], sampler, ray: Ray, dL,
+                 L_total, max_depth: int, rr_depth: int,
+                 trace: dict, rp: Optional[dict] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """The replay: the gradient of sum(image * cotangent) w.r.t. the
+    scene's leaves ``names``, accumulated over the bounces.  ``trace`` is
+    the recording primal's; the replay traverses nothing.  With ``rp``
+    (``reparam_config``) each bounce is replayed reparameterised, in lane
+    chunks of ``REPARAM_CHUNK``; its auxiliary rays are the only queries
+    of the replay."""
+    sc, order = _attached(scene, names)
+    grads = {k: torch.zeros_like(v) for k, v in zip(names, order)}
+    n = ray.o.shape[0]
+    st = P.init_state(sampler, ray, n)
     st = replace(st, L=L_total)
     for i in range(max_depth):
-        st, g = _replay_bounce(sc, order, st, P.trace_at(trace, i), dL,
-                               max_depth, rr_depth)
-        for k, gk in zip(names, g):
-            if gk is not None:
-                grads[k] += gk
+        cached = P.trace_at(trace, i)
+        if rp is None:
+            st, g = _replay_bounce(sc, order, st, cached, dL, max_depth,
+                                   rr_depth)
+            _add(grads, names, g)
+            continue
+        parts = []
+        for a in range(0, n, REPARAM_CHUNK):
+            b = min(n, a + REPARAM_CHUNK)
+            st_c, g = _replay_bounce(sc, order, _rows(st, a, b),
+                                     _rows(cached, a, b), dL[a:b],
+                                     max_depth, rr_depth, rp, i, a)
+            parts.append(st_c)
+            _add(grads, names, g)
+        st = _cat(parts)
+    return grads
+
+
+def _camera_term(scene, names: Sequence[str], seed: int, sensor_idx: int,
+                 spp: int, L_total, g_img, rp: dict
+                 ) -> Dict[str, torch.Tensor]:
+    """The camera vertex's reparameterisation at the film (JAX
+    ad/prb.py:802-850): the camera rays re-sampled attached from the same
+    stream, warped (auxiliary seed ``seed * 0x9E3779B9 + 23``), re-projected
+    through the attached sensor (``point_to_film(sensor, o + d)``, the
+    detached position where the kind has none) and splatted with the
+    divergence as an extra filter weight, through a gaussian where the
+    sensor's filter is the box.  Returns the gradient of
+    sum(develop(splat) * g_img) w.r.t. the leaves ``names``.
+
+    The developed film divides two sums over all lanes, so the chunks of
+    ``REPARAM_CHUNK`` lanes each take the gradient of its first-order
+    part at the whole film's values: sum(g / w * data_c) - sum(g . data /
+    w^2 * w_c), the chain rule through ``films.develop``."""
+    sc, order = _attached(scene, names)
+    grads = {k: torch.zeros_like(v) for k, v in zip(names, order)}
+    sensor, n, _, ray, weight, pos = _camera(scene, seed, sensor_idx, spp)
+    W, H = sensor.width, sensor.height
+    rfilter = "gaussian" if sensor.rfilter == "box" else sensor.rfilter
+    value = (L_total * weight).detach()
+    with torch.no_grad():
+        pos_p = S.point_to_film(sensor, ray.o + ray.d)
+        if pos_p is None:
+            pos_p = pos
+        data, w = films.splat(pos_p, value, W, H, rfilter)
+        w_pos = w > 0.0
+        w1 = torch.where(w_pos, w, 1.0)
+        coef_data = g_img / w1[..., None]
+        coef_w = torch.where(w_pos, torch.sum(g_img * data, -1) / (w1 * w1),
+                             0.0)
+    sensor_att = sc.sensors[sensor_idx]
+    device = scene.device
+    for a in range(0, n, REPARAM_CHUNK):
+        b = min(n, a + REPARAM_CHUNK)
+        with torch.enable_grad():
+            smp_c = smp.seed(seed, b - a, kind=sc.static.sampler_kind,
+                             spp=spp, lane_offset=a, device=device)
+            _, ray_c, _, _ = common.sample_rays(sensor_att, smp_c, spp,
+                                                lane_offset=a)
+            ones = torch.ones(b - a, dtype=torch.bool, device=device)
+            d0, det0 = _warp(sc, rp, seed * _GOLDEN + 23, ray_c, ones, a)
+            pos_c = S.point_to_film(sensor_att, ray_c.o + d0)
+            if pos_c is None:
+                pos_c = pos[a:b]
+            data_c, w_c = films.splat(pos_c, value[a:b], W, H, rfilter,
+                                      extra_weight=det0)
+            obj = (torch.sum(coef_data * data_c)
+                   - torch.sum(coef_w * w_c))
+            if obj.requires_grad:
+                _add(grads, names, torch.autograd.grad(obj, order,
+                                                       allow_unused=True))
     return grads
 
 
@@ -175,7 +364,7 @@ class _RenderPRB(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, scene, cfg, names, *leaves):
-        seed, sensor_idx, spp, max_depth, rr_depth, multi_pop = cfg
+        seed, sensor_idx, spp, max_depth, rr_depth, multi_pop, _ = cfg
         sensor, _, sampler, ray, weight, pos = _camera(scene, seed,
                                                        sensor_idx, spp)
         L, _, trace = P.sample_primal_recorded(scene, sampler, ray,
@@ -187,14 +376,21 @@ class _RenderPRB(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_img):
-        seed, sensor_idx, spp, max_depth, rr_depth, _ = ctx.cfg
+        seed, sensor_idx, spp, max_depth, rr_depth, _, rp = ctx.cfg
         scene = ctx.scene
         sensor, n, sampler, ray, weight, pos = _camera(scene, seed,
                                                        sensor_idx, spp)
-        dL = film_adjoint(g_img.contiguous(), pos, weight, sensor, spp, n)
+        g_img = g_img.contiguous()
+        dL = film_adjoint(g_img, pos, weight, sensor, spp, n)
         grads = prb_backward(scene, ctx.names, sampler, ray, dL, ctx.L,
-                             max_depth, rr_depth, ctx.trace)
-        ctx.L = ctx.trace = None
+                             max_depth, rr_depth, ctx.trace, rp)
+        ctx.trace = None
+        if rp is not None and not rp["no_cam"]:
+            g_cam = _camera_term(scene, ctx.names, seed, sensor_idx, spp,
+                                 ctx.L, g_img, rp)
+            for k in ctx.names:
+                grads[k] += g_cam[k]
+        ctx.L = None
         return (None, None, None, *(grads[k] for k in ctx.names))
 
 
@@ -202,15 +398,18 @@ def render_prb(scene, seed: int = 0, sensor_idx: int = 0, spp: int = 16,
                max_depth: int = 6, rr_depth: int = 5,
                multi_pop: Optional[int] = None, reparam: bool = False,
                execution: str = "megakernel",
-               compact_chunks: int = 0) -> torch.Tensor:
+               compact_chunks: int = 0, rp_items=()) -> torch.Tensor:
     """One pass (``render_prb``): the (H, W, 3) image.  Where grad mode is
     on and a scene leaf requires grad, the pass records its trace and is
     differentiable through the replay; otherwise it is the detached
     primal.  ``multi_pop``: the BVH closest hit's schedule (K2 or K4;
-    ``None`` leaves it to ``cuda_traverse.closest_hit``)."""
-    if reparam:
-        raise NotImplementedError(
-            "reparam (prb_reparam) comes with a later slice of the port")
+    ``None`` leaves it to ``cuda_traverse.closest_hit``).  ``reparam``:
+    the ``prb_reparam`` backward, with the settings ``rp_items``
+    (``reparam_config``); its primal is the same."""
+    rp = reparam_config(rp_items) if reparam else None
+    if rp is not None and rp["num_rays"] % 2:
+        raise ValueError("antithetic reparameterization requires an even "
+                         f"num_rays (got {rp['num_rays']})")
     if execution != "megakernel":
         raise NotImplementedError(
             f"execution '{execution}': the port runs the megakernel "
@@ -221,7 +420,7 @@ def render_prb(scene, seed: int = 0, sensor_idx: int = 0, spp: int = 16,
     leaves = scene.leaves()
     names = tuple(k for k, v in leaves.items() if v.requires_grad)
     if torch.is_grad_enabled() and names:
-        cfg = (seed, sensor_idx, spp, max_depth, rr_depth, multi_pop)
+        cfg = (seed, sensor_idx, spp, max_depth, rr_depth, multi_pop, rp)
         return _RenderPRB.apply(scene, cfg, names,
                                 *(leaves[k] for k in names))
     with torch.no_grad():

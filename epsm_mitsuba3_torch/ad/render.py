@@ -1,7 +1,8 @@
 """The differentiable ``render`` entry point (counterpart of
 ``ad/render.py``): every float tensor of the scene that requires grad
 receives its gradient through ``torch.autograd``: PRB (``ad/prb.py``)
-for the ``path`` and ``prb`` integrators, the EPSM manifold backward
+for the ``path``, ``prb`` and ``prb_basic`` integrators, reparameterised
+PRB (``ad/reparam.py``) for ``prb_reparam``, the EPSM manifold backward
 (``integrators/epsm.py``) for ``manifold`` and ``manifold_caustic``."""
 from __future__ import annotations
 
@@ -15,12 +16,33 @@ from ..integrators import epsm
 from ..ops import cuda_traverse as CT
 from . import prb
 
-#: integrator types the port renders: the reference runs the same path
-#: tracer and PRB replay for both
-_PATH_TYPES = ("path", "prb")
+#: integrator types the port renders with the path tracer: the reference
+#: runs the same tracer and PRB replay for all of them (``prb_basic`` is
+#: its alias of ``prb``, JAX ad/render.py:163), reparameterised for
+#: ``prb_reparam``
+_PATH_TYPES = ("path", "prb", "prb_basic", "prb_reparam")
 #: the EPSM integrators: a 5-channel image (the last two zero) whose
 #: backward is the manifold solve
 _EPSM_TYPES = ("manifold", "manifold_caustic")
+
+
+#: the reparameterisation's settings under the reference's names and the
+#: short ones (prb_reparam.py:233-250)
+_RP_ALIAS = {"reparam_rays": "num_rays", "reparam_kappa": "kappa",
+             "reparam_exp": "exponent", "num_rays": "num_rays",
+             "kappa": "kappa", "exponent": "exponent"}
+#: diagnostic knobs that isolate a gradient channel or salt the auxiliary
+#: streams (``ad/prb.py`` ``reparam_config``)
+_RP_KNOBS = ("_salt", "_no_em_det", "_no_main_det", "_no_cam")
+
+
+def _rp_items(cfg: dict):
+    """The reparameterisation's settings of an integrator dict as a sorted
+    tuple of (name, float) (``_rp_items``, JAX ad/render.py:34-50)."""
+    out = {k: float(v) for k, v in cfg.items() if k in _RP_KNOBS}
+    out.update({_RP_ALIAS[k]: float(v) for k, v in cfg.items()
+                if k in _RP_ALIAS})
+    return tuple(sorted(out.items()))
 
 
 def _integrator_cfg(scene, integrator: Optional[dict]):
@@ -76,7 +98,9 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
         return prb.render_prb(
             scene, seed=pass_seed, sensor_idx=sensor, spp=pass_spp,
             max_depth=int(cfg["max_depth"]), rr_depth=int(cfg["rr_depth"]),
-            multi_pop=None if multi_pop is None else int(multi_pop))
+            multi_pop=None if multi_pop is None else int(multi_pop),
+            reparam=cfg["type"] == "prb_reparam",
+            rp_items=_rp_items(cfg))
 
     if spp_chunk and spp > spp_chunk:
         n_passes = -(-spp // spp_chunk)

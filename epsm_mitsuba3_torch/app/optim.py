@@ -95,9 +95,10 @@ def run(method: str, exp: Dict, log_dir: str = None, verbose: bool = True,
     ``prb``, ``prb_reparam`` and ``path`` without ``_hybrid`` take the OT
     loss as the reference's ``run`` does, whose 5-channel gradient does
     not fit their 3-channel image: the reference raises there (``img *
-    g_full``, :100), and so does this ``run``, before any render.  The
-    ``prb_reparam`` integrator (``ad/reparam.py``) is not ported:
-    ``prb_reparam_hybrid`` raises NotImplementedError."""
+    g_full``, :100), and so does this ``run``, before any render.  With
+    ``_hybrid``, the iterations before ``thres`` take that loss too, so
+    ``prb_reparam_hybrid`` fails there as the reference does; from
+    ``thres`` on every ``_hybrid`` method is the ``prb`` MSE step."""
     hybrid = method.endswith("_hybrid")
     base = method[: -len("_hybrid")] if hybrid else method
     if base not in METHODS:
@@ -108,10 +109,6 @@ def run(method: str, exp: Dict, log_dir: str = None, verbose: bool = True,
             f"5-channel OT loss, and the '{base}' integrator renders 3 "
             "channels (the reference fails at img * g_full); use "
             f"'{base}_hybrid'")
-    if base == "prb_reparam":
-        raise NotImplementedError(
-            "the prb_reparam integrator (ad/reparam.py) is not ported yet: "
-            "ROADMAP.md queue 1 item 5")
     scene = exp["scene"]
     device = scene.device
     it_total = iters if iters is not None else exp["it"]

@@ -15,6 +15,7 @@ the compensated sum of sequential passes.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -69,7 +70,8 @@ def accumulate_coalesced(values: torch.Tensor, width: int, height: int,
 
 
 def splat(pos: torch.Tensor, values: torch.Tensor, width: int, height: int,
-          rfilter: str = "gaussian"):
+          rfilter: str = "gaussian",
+          extra_weight: Optional[torch.Tensor] = None):
     """ImageBlock::put for samples anywhere on the film
     (imageblock.cpp:119-126).
 
@@ -78,6 +80,8 @@ def splat(pos: torch.Tensor, values: torch.Tensor, width: int, height: int,
     footprint, ``w * value`` to the data and ``w`` to the weight
     channel.  A footprint pixel outside
     the film adds weight 0 to a clamped index, as the reference does.
+    ``extra_weight`` (N,) multiplies each sample's filter weight in both
+    (the camera-vertex reparameterisation's divergence, films.py:65-84).
     Returns (data (H, W, C), weight (H, W)).  On the GPU ``index_add_``
     sums with float atomics, so the last bits vary from run to run."""
     radius = _FILTER_RADIUS[rfilter]
@@ -99,7 +103,8 @@ def splat(pos: torch.Tensor, values: torch.Tensor, width: int, height: int,
             px = x0 + dx
             wx = filter_eval(rfilter, px.to(values.dtype) + 0.5 - x)
             in_b = in_y & (px >= 0) & (px < width)
-            w = torch.where(in_b, wx * wy, 0.0)
+            wxy = wx * wy if extra_weight is None else wx * wy * extra_weight
+            w = torch.where(in_b, wxy, 0.0)
             idx = row + torch.clamp(px, 0, width - 1)
             data = data.index_add(0, idx, w[..., None] * values)
             wsum = wsum.index_add(0, idx, w)

@@ -24,10 +24,10 @@ emitter (one constant-black row, as in the reference); the
 seven sensor kinds of ``models/sensors.py`` (``batch`` with perspective
 children), the five samplers of ``models/samplers.py``, ``hdrfilm``
 with any of the six filters of ``models/films.py`` (``gaussian`` where
-none is named); and the ``path``, ``prb``, ``manifold`` and
-``manifold_caustic`` integrators.  Any other plugin raises
-``NotImplementedError`` with its name.  Shapes keep their names and
-vertex ranges, by which the experiments (``app/exp``) and ``traverse``
+none is named); and the ``path``, ``prb``, ``prb_basic``,
+``prb_reparam``, ``manifold`` and ``manifold_caustic`` integrators.  Any
+other plugin raises ``NotImplementedError`` with its name.  Shapes keep
+their names and vertex ranges, by which the experiments (``app/exp``) and ``traverse``
 move them.  A scene of more than ``ops/accel.py``
 ``BRUTE_FORCE_MAX_TRIS`` triangles gets a BVH at load, packed once into
 the records of kernels K2/K3.
@@ -128,6 +128,11 @@ class Scene:
     bvh_nodes: Optional[torch.Tensor] = None
     bvh_tris: Optional[torch.Tensor] = None
     bvh_tris_k: Optional[torch.Tensor] = None
+    #: (F, 3) int8: the edge opposite face vertex k is open (one adjacent
+    #: triangle), from the geometry at load (``_open_edge_mask``); the
+    #: topology is fixed, so moved vertices keep it.  The reparameterised
+    #: integrators' boundary test reads it (``ad/reparam.py``)
+    face_open: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -229,7 +234,27 @@ class Scene:
 _SHAPE_TYPES = ("obj", "ply", "serialized", "rectangle", "cube", "disk",
                 "sphere", "cylinder", "instance", "shapegroup", "mesh")
 _SENSOR_TYPES = sns_mod.KINDS
-_INTEGRATOR_TYPES = ("path", "prb", "manifold", "manifold_caustic")
+_INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "prb_reparam", "manifold",
+                     "manifold_caustic")
+
+
+def _open_edge_mask(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """(F, 3) int8: 1 where the edge opposite face vertex k has exactly
+    one adjacent triangle (``_open_edge_mask``, :265-281).  Edges are keyed
+    by quantised vertex positions, so the seams of split normals or uvs
+    (duplicated vertex ids) count as shared."""
+    if len(faces) == 0:
+        return np.zeros((0, 3), np.int8)
+    scale = float(np.abs(vertices).max()) or 1.0
+    q = np.round(vertices / (scale * 1e-6)).astype(np.int64)
+    _, vid = np.unique(q, axis=0, return_inverse=True)
+    f = vid.reshape(-1)[faces]                         # (F, 3) position ids
+    e = np.stack([f[:, [1, 2]], f[:, [2, 0]], f[:, [0, 1]]], 1)
+    e = np.sort(e.reshape(-1, 2), axis=1)
+    _, inv, cnt = np.unique(e, axis=0, return_inverse=True,
+                            return_counts=True)
+    return (cnt[inv.reshape(-1)] == 1).reshape(len(faces), 3).astype(
+        np.int8)
 
 
 def _parse_spd(value: dict):
@@ -873,7 +898,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     ``bsdf.KIND_SENTINEL_BECKMANN`` to the scene's kinds.
 
     ``vertex_colors`` (V, 3) is taken where it is given, zeros
-    otherwise.
+    otherwise; ``face_open`` (F, 3) where it is given, else computed from
+    the vertices and faces (``_open_edge_mask``).
 
     ``sensors``: per sensor, the static fields of ``Sensor`` other than
     its arrays (kind, fov_x, near, far, width, height, rfilter,
@@ -975,9 +1001,14 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     vcol = arrays.get("vertex_colors")
     vcol = (torch.zeros_like(geo["vertices"]) if vcol is None
             else t(vcol, torch.float32))
+    face_open = arrays.get("face_open")
+    if face_open is None:
+        face_open = _open_edge_mask(np.asarray(arrays["vertices"]),
+                                    np.asarray(arrays["faces"]))
     return Scene(bsdfs=bsdfs, emitters=emitters, sensors=sensor_objs,
                  static=static, textures=texs, bvh=bvh, bvh_nodes=nodes,
-                 bvh_tris=tris, bvh_tris_k=tris_k, vertex_colors=vcol, **geo)
+                 bvh_tris=tris, bvh_tris_k=tris_k, vertex_colors=vcol,
+                 face_open=t(face_open, torch.int8), **geo)
 
 
 # ===========================================================================

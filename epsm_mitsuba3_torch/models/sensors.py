@@ -6,8 +6,8 @@ side by side on one film).
 ``sample_ray_differential`` turns film positions into the wavefront's
 primary rays with their x/y-offset directions, which the EPSM
 position channel reads (epsm.py:249-257).  ``point_to_film`` and
-``project_to_film`` serve the reparameterised integrators, which the
-port does not have yet: they raise.
+``project_to_film`` map world points and directions back to the film for
+the reparameterised integrators (``ad/reparam.py``).
 """
 from __future__ import annotations
 
@@ -174,15 +174,33 @@ def _sample_batch(sensor: Sensor, pos01: torch.Tensor):
     return Ray.make(o, d, d_x=d_x, d_y=d_y), torch.ones_like(d)
 
 
-def point_to_film(sensor: Sensor, p_world: torch.Tensor) -> torch.Tensor:
-    """World point -> film position (models/sensors.py:212-223): used by
-    the reparameterised integrators only, which are not ported."""
-    raise NotImplementedError(
-        "point_to_film comes with the reparameterised integrators")
+def point_to_film(sensor: Sensor, p_world: torch.Tensor
+                  ) -> Optional[torch.Tensor]:
+    """World point -> continuous film position in pixels
+    (``point_to_film``, models/sensors.py:212-223): the camera-vertex
+    reparameterisation re-projects ``ray.o + d_warped`` through the
+    attached sensor, so the film position is differentiable in the point
+    and in ``to_world`` (the only route of a camera translation's
+    gradient).  None for kinds other than perspective and thin lens."""
+    if sensor.kind not in ("perspective", "thinlens"):
+        return None
+    return project_to_film(sensor, p_world - sensor.to_world[:3, 3])
 
 
-def project_to_film(sensor: Sensor, d_world: torch.Tensor) -> torch.Tensor:
-    """World direction -> film position (models/sensors.py:226-245): used
-    by the reparameterised integrators only, which are not ported."""
-    raise NotImplementedError(
-        "project_to_film comes with the reparameterised integrators")
+def project_to_film(sensor: Sensor, d_world: torch.Tensor
+                    ) -> Optional[torch.Tensor]:
+    """World direction -> continuous film position in pixels, the
+    perspective inverse of ``sample_ray_differential``
+    (``project_to_film``, models/sensors.py:226-245), differentiable in
+    ``d_world`` and ``to_world``.  None for kinds other than perspective
+    and thin lens."""
+    if sensor.kind not in ("perspective", "thinlens"):
+        return None
+    aspect = sensor.width / sensor.height
+    tan_half = _tan_half(sensor.fov_x)
+    R = sensor.to_world[:3, :3]
+    d_cam = d_world @ R                                    # R^T d
+    z = torch.where(torch.abs(d_cam[..., 2]) < 1e-8, 1e-8, d_cam[..., 2])
+    u = 0.5 * (1.0 - d_cam[..., 0] / (z * tan_half))
+    v = 0.5 * (1.0 - d_cam[..., 1] * aspect / (z * tan_half))
+    return torch.stack([u * sensor.width, v * sensor.height], dim=-1)

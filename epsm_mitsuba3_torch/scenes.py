@@ -5,7 +5,11 @@
 wall, red left and green right walls, a small area light under the
 ceiling; 12 triangles.  ``cornell_box_mesh`` adds the displaced sphere
 ``bumpy_sphere`` (64,800 triangles at the default ``subdiv``), so that
-every ray query goes through the BVH.
+every ray query goes through the BVH.  ``blocker_scene`` is the
+reparameterisation's silhouette scene (the JAX package's
+``tests/test_reparam.py`` ``_make``): a floor under a small square
+blocker and an area light, so that the blocker's shadow edge moves with
+it.
 """
 from __future__ import annotations
 
@@ -105,3 +109,34 @@ def cornell_box_mesh(res: int = 64, spp: int = 16, max_depth: int = 4,
                  "reflectance": {"type": "rgb", "value": [0.55, 0.45, 0.3]}},
     }
     return d
+
+
+def blocker_scene(res: int = 24, spp: int = 16):
+    """A 2 x 2 floor, a 0.8 x 0.8 blocker 1 above it and a 0.6 x 0.6
+    light at 2.5, seen from (0, 3, 3) through a box filter; 6
+    triangles."""
+    return {
+        "type": "scene",
+        "sensor": {
+            "type": "perspective", "fov": 45.0,
+            "to_world": T.look_at(origin=[0, 3, 3], target=[0, 0, 0],
+                                  up=[0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": res, "height": res,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "floor": {"type": "rectangle",
+                  "to_world": T.scale(2).rotate([1, 0, 0], -90),
+                  "bsdf": {"type": "diffuse",
+                           "reflectance": {"type": "rgb", "value": 0.8}}},
+        "blocker": {"type": "rectangle",
+                    "to_world": T.translate([0.0, 1.0, 0])
+                    .rotate([1, 0, 0], -90).scale(0.4),
+                    "bsdf": {"type": "diffuse",
+                             "reflectance": {"type": "rgb", "value": 0.3}}},
+        "light": {"type": "rectangle",
+                  "to_world": T.translate([0, 2.5, 0])
+                  .rotate([1, 0, 0], 90).scale(0.3),
+                  "emitter": {"type": "area",
+                              "radiance": {"type": "rgb", "value": 30.0}}},
+    }

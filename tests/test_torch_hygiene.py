@@ -94,6 +94,25 @@ def test_epsm_entry_points_without_device_raise():
         cornellbox.make(resolution=8, match_res=8)
 
 
+def test_reparam_entry_points_without_device_raise():
+    """``prb_reparam`` and ``prb_basic`` default to the GPU too; on the
+    CPU the reparameterised backward's auxiliary rays run K1's plain
+    version and build nothing."""
+    _require_no_cuda()
+    before = dict(CI.launches)
+    scene = mt.load_dict(cornell_box(res=8, spp=1), device="cpu")
+    for kind in ("prb_reparam", "prb_basic"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mt.render(scene, spp=1, integrator={"type": kind})
+    refl = scene.bsdfs["reflectance"].clone().requires_grad_(True)
+    img = mt.render(scene.with_leaves({"bsdfs.reflectance": refl}), spp=1,
+                    device="cpu", integrator={"type": "prb_reparam",
+                                              "reparam_rays": 2})
+    (g,) = torch.autograd.grad(img.sum(), refl)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    assert CI.launches == before and CI._lib is None
+
+
 def test_scene_file_entry_points_without_device_raise(tmp_path):
     """The scene-file slice's entry points default to the GPU too:
     ``load_file``, ``load_string``, the CLI and ``glassslab.make``."""

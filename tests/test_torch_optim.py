@@ -1,7 +1,8 @@
 """The port's optimizers and optimization loop against the JAX
 package's: ``Adam`` (with ``mask_updates`` and ``uniform``) and ``SGD``
 over 10 steps of seeded gradients; ``run("prb_hybrid")`` at ``thres`` 0 on
-a 16^2 Cornell box; ``run("prb")``, which both refuse; and ``run`` on the
+a 16^2 Cornell box; ``run("prb")``, which both refuse (``prb_reparam_hybrid``
+is in ``tests/test_torch_optim_reparam.py``); and ``run`` on the
 ``cornellbox`` light-ring experiment at 32^2: ``manifold_caustic`` for 10
 iterations (``tests/test_torch_optim_manifold.py`` runs ``manifold`` and
 ``manifold_caustic_hybrid`` for 3).
@@ -153,13 +154,10 @@ def test_run_prb_without_hybrid_refused_as_jax(method):
         optim_t.run(method, exp_t, iters=1)
 
 
-def test_run_prb_reparam_hybrid_not_ported():
-    """The ``prb_reparam`` integrator (``ad/reparam.py``) is not ported:
-    its ``_hybrid`` form raises by name, before rendering anything."""
+def test_run_unknown_method_refused():
+    """A method that names no integrator raises before rendering
+    anything."""
     _, exp_t, _ = _box_case()
-    with pytest.raises(NotImplementedError, match="prb_reparam.*queue 1 "
-                       "item 5"):
-        optim_t.run("prb_reparam_hybrid", exp_t, iters=1)
     with pytest.raises(ValueError, match="unknown method"):
         optim_t.run("reparam", exp_t, iters=1)
 

@@ -277,8 +277,7 @@ def test_leaves_are_leaf_tensors():
     assert all(back[k] is new[k] for k in new)
 
 
-@pytest.mark.parametrize("kw", [{"reparam": True},
-                                {"execution": "wavefront"},
+@pytest.mark.parametrize("kw", [{"execution": "wavefront"},
                                 {"compact_chunks": 8}])
 def test_render_prb_options_not_ported_raise(kw):
     st = mt.load_dict(cornell_box(res=8, spp=1), device="cpu")

@@ -153,13 +153,7 @@ def test_sample_rays_matches_jax(kind, rfilter, sampler):
     np.testing.assert_array_equal(pos_s.numpy(), pos_t[off:off + m].numpy())
 
 
-def test_film_projection_raises_by_name():
-    _, s_t = _sensors("perspective")
-    p = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="point_to_film"):
-        sns_t.point_to_film(s_t, p)
-    with pytest.raises(NotImplementedError, match="project_to_film"):
-        sns_t.project_to_film(s_t, p)
+def test_unknown_sensor_kind_raises_by_name():
     bad = sns_t.Sensor(to_world=torch.eye(4), kind="fisheye")
     with pytest.raises(NotImplementedError, match="fisheye"):
         sns_t.sample_ray_differential(bad, torch.zeros(4, 2))
