@@ -108,9 +108,8 @@ Phases (any failed check raises, and the script exits non-zero):
     published widths (512^2, spp 64, depth 4, match_res 256, grid 16),
     ground truth 64 spp, 1 iteration (of 1,000): ms an iteration and by
     phase, K1 launches (each count exact), the normal field and its
-    gradient finite and non-zero, peak memory, the busy share of one
-    profiled iteration; the normal-field gradient on the card against the
-    CPU at 64^2 x 4 spp;
+    gradient finite and non-zero, peak memory; the normal-field gradient
+    on the card against the CPU at 64^2 x 4 spp;
 17. [camera]: the box (K1) and the mesh (K2/K3) rendered at 512^2 with no
     rfilter (the hdrfilm's default gaussian, splatted by the roll-sum
     ``splat_coalesced``) and the stratified sampler, at 64 and 16 spp
@@ -202,7 +201,25 @@ Phases (any failed check raises, and the script exits non-zero):
     prb_reparam fwd+bwd pass of cornell_box_mesh at 512^2 x 4 spp, depth
     3, its auxiliary rays all K2 (exact); the card against the CPU at
     64^2 (the box with face normals, the blocker scene): images and the
-    gradients of the vertices, reflectances, radiance and sensor pose.
+    gradients of the vertices, reflectances, radiance and sensor pose;
+23. [forward]: ``render_forward`` (a warm-up and one timed call) on the
+    box at 512^2 x 4 spp, depth 6 (tangents on the reflectances and the
+    radiance; K1 6 / 6, all the recording primal's: the replay traverses
+    nothing), on ``cornell_box_mesh`` with sphere normals at 512^2 x 8
+    spp (a vertex tangent; K2/K3 6 / 6) and through ``prb_reparam`` on
+    the [reparam] mesh pass's cell (K2 3 + 96 auxiliary, exact); each
+    <dimg, W> against the backward's d/dtheta <img, W> at the same seed
+    (relative 2e-3, 2e-2 under prb_reparam), dimg finite and not zero;
+    the card against the CPU at 64^2 (relative L2 <= 1e-3);
+24. [direct]: ``direct`` on the box at 512^2 x 64 spp (K1) against path
+    at depth 2 (means within 5 %) and on the mesh at 512^2 x 16 spp
+    (K2/K3), launches exact, images not flat; one ``direct_reparam``
+    fwd+bwd pass of the mesh with sphere normals and one
+    ``emission_reparam`` pass of the box at 512^2 x 16 spp, 16 auxiliary
+    rays (launches exact in both directions, the vertex gradients finite
+    and non-zero); the JAX package's silhouette checks
+    (tests/test_reparam.py:78-157) on the blocker scene and a moving
+    light; the card against the CPU at 64^2 (images, gradients).
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -319,6 +336,29 @@ RP_SIL_RES, RP_SIL_SPP, RP_SIL_FD_SPP, RP_SIL_EPS = 24, 64, 256, 0.05
 #: 512^2 x RP_MESH_SPP spp, depth RP_MESH_DEPTH: its auxiliary rays go to
 #: K2
 RP_MESH_SPP, RP_MESH_DEPTH = 4, 3
+#: [forward]: render_forward at the fwd+bwd cells' widths, a warm-up and
+#: one timed call each: the box (cornell_box(512, 4, 6), tangents on the
+#: reflectances and the radiance, K1), the mesh (cornell_box_mesh(512, 8,
+#: 6) with sphere normals, a vertex tangent, K2/K3) and the [reparam]
+#: mesh pass (512^2 x RP_MESH_SPP spp, depth RP_MESH_DEPTH, 16 auxiliary
+#: rays, a vertex tangent, K2); <dimg, W> against the backward's
+#: d/dtheta <img, W> at the same seed FW_SEED within FW_RTOL (FW_RTOL_RP
+#: under prb_reparam), the bars of the JAX package's
+#: tests/test_render_forward.py:52-71 and :147
+FW_SEED, FW_RTOL, FW_RTOL_RP = 3, 2e-3, 2e-2
+#: [direct]: direct on the box at 512^2 x DI_BOX_SPP spp (passes of
+#: SPP_CHUNK) against path at max_depth 2 (means within DI_PATH_REL, the
+#: JAX package's tests/test_integrators.py:17-22), on the mesh at 512^2 x
+#: DI_MESH_SPP (passes of MESH_CHUNK); one direct_reparam fwd+bwd pass of
+#: the mesh with sphere normals and one emission_reparam pass of the box,
+#: 512^2 x DI_MESH_SPP spp in one pass (two lane chunks of REPARAM_CHUNK)
+DI_BOX_SPP, DI_MESH_SPP, DI_PATH_REL = 64, 16, 0.05
+#: the silhouette checks of the JAX package's tests/test_reparam.py:78-157
+#: at 24^2 x 64 spp: the blocker moved in x, d/ddx of sum(img * x-ramp),
+#: direct and direct_reparam against a central difference of direct at
+#: 256 spp; a moving area light seen directly, emission_reparam against a
+#: central difference of its own primal at 64 spp
+DI_SIL_FD_SPP, DI_EM_FD_SPP = 256, 64
 
 
 class CheckFailed(AssertionError):
@@ -2726,11 +2766,11 @@ def glassslab_phase():
     widths), ground truth 64 spp, GS_ITERS iterations (cut from the
     published 1,000, for the time limit): ms an iteration and by phase,
     K1 launches an iteration (exact), normal_field and its gradient
-    finite and non-zero, peak memory, the device's busy share over one
-    profiled iteration; then the normal_field gradient on the card
-    against the CPU's at 64^2 x 4 spp."""
+    finite and non-zero, peak memory (no profiled iteration: cut for the
+    time limit); then the normal_field gradient on the card against the
+    CPU's at 64^2 x 4 spp."""
     run = experiment_run("glassslab", GS_SPP, GS_SPP, GS_ITERS,
-                         match_res=GS_MATCH, profile_table=False)
+                         do_profile=False, match_res=GS_MATCH)
     init = run.pop("exp")["init_theta"]["normal_field"].cpu().numpy()
     last = run["rows"][-1]["theta"]["normal_field"]
     say("[glassslab] dL/dnormal_field an iteration: "
@@ -4880,6 +4920,485 @@ def reparam_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# [forward]: render_forward (forward-mode PRB) at the fwd+bwd cells' widths
+# ---------------------------------------------------------------------------
+
+def seeded_tangents(scene, names, seed):
+    """A seeded normal tangent (made on the CPU, so that every device gets
+    the same) for each leaf of ``names``."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    leaves = scene.leaves()
+    return {k: torch.randn(leaves[k].shape, generator=gen).to(scene.device)
+            for k in names}
+
+
+def x_ramp(scene):
+    """The weight image W of the JAX package's forward-mode checks: a
+    ramp over the columns, 0.25 to 1."""
+    import torch
+    sensor = scene.sensors[0]
+    return (torch.linspace(0.25, 1.0, sensor.width,
+                           device=scene.device)[None, :, None]
+            * torch.ones((sensor.height, sensor.width, 3),
+                         device=scene.device))
+
+
+def forward_vs_backward(scene, tangents, spp, integrator, seed=FW_SEED):
+    """(<dimg, W>, d/dtheta <img, W> of the backward at the same seed,
+    theta moving the leaves along ``tangents``, the backward's ms)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    W = x_ramp(scene)
+    lv = {k: scene.leaves()[k].clone().requires_grad_(True)
+          for k in tangents}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = mt.render(scene.with_leaves(lv), spp=spp, seed=seed,
+                    integrator=integrator)
+    g = torch.autograd.grad((img * W).sum(), list(lv.values()))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (sum(float((gk * tangents[k]).sum()) for k, gk in zip(lv, g)),
+            ms)
+
+
+def forward_cell(label, scene, spp, integrator, tangents, expect, rtol):
+    """One ``render_forward`` cell: a warm-up and a timed call, launches
+    exact (``expect``: the recording primal's, and under prb_reparam the
+    replay's auxiliary rays), the image tangent finite and not all zero,
+    <dimg, W> against the backward's within ``rtol``; wall ms, peak
+    memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for run in ("warm-up", "timed"):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dimg = mt.render_forward(scene, tangents, spp=spp, seed=FW_SEED,
+                                 integrator=integrator)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        for k, n in expect.items():
+            check(counts[k] == n, f"{label}: {k} launched {counts[k]} times "
+                  f"in a render_forward ({run}), expected {n}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    CT.raise_on_overflow(scene.device)
+    check(bool(torch.isfinite(dimg).all()), f"{label}: dimg not finite")
+    check(float(dimg.abs().max()) > 0, f"{label}: dimg all zero")
+    g_fwd = float((dimg * x_ramp(scene)).sum())
+    g_bwd, bwd_ms = forward_vs_backward(scene, tangents, spp, integrator)
+    rel = abs(g_fwd - g_bwd) / max(abs(g_bwd), 1e-30)
+    sensor = scene.sensors[0]
+    say(f"[forward] {label} {sensor.width}^2 x {spp} spp, "
+        f"{integrator['type']}, depth {integrator['max_depth']}, tangents "
+        f"on {', '.join(tangents)}: render_forward {walls[0]:.1f} ms "
+        f"(warm-up), {walls[1]:.1f} ms; peak {peak:.2f} GiB; launches "
+        f"{counts}; <dimg, W> {g_fwd:.8g}, backward d/dtheta <img, W> "
+        f"{g_bwd:.8g} (fwd+bwd {bwd_ms:.1f} ms), relative {rel:.3g} "
+        f"[limit {rtol:g}]; max |dimg| {float(dimg.abs().max()):.6g}")
+    check(rel <= rtol, f"{label}: forward and backward disagree by {rel}")
+    return dict(wall=walls[1], peak=peak, counts=counts, rel=rel,
+                bwd_ms=bwd_ms)
+
+
+def forward_card_vs_cpu(res=64, spp=4):
+    """render_forward on the card against the CPU at 64^2 x 4 spp, depth
+    3: the box through prb (tangents on the reflectances and the
+    radiance) and through prb_reparam with face normals (the vertices and
+    the sensor pose); dimg's relative L2 <= 1e-3."""
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    box = cornell_box(res=res, spp=spp, max_depth=3)
+    rp_box = cornell_box(res=res, spp=spp, max_depth=3)
+    for k in ("floor", "ceiling", "back", "left", "right"):
+        rp_box[k]["face_normals"] = True
+    errs = {}
+    for label, d, kind, names in (
+            ("box prb", box, "prb",
+             ("bsdfs.reflectance", "emitters.radiance")),
+            ("box prb_reparam", rp_box, "prb_reparam",
+             ("vertices", "sensors.0.to_world"))):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            sc = mt.load_dict(d, device=dev)
+            out[dev] = (mt.render_forward(
+                sc, seeded_tangents(sc, names, 11), spp=spp, seed=0,
+                device=dev, integrator={"type": kind, "max_depth": 3}).cpu(),
+                time.perf_counter() - t0)
+        (a, ta), (b, tb) = out["cuda"], out["cpu"]
+        errs[label] = rel_l2(a, b)
+        say(f"[forward, card vs cpu] {label} {res}^2 x {spp} spp: |dimg_gpu "
+            f"- dimg_cpu| / |dimg_cpu| {errs[label]:.3g} (|dimg| "
+            f"{float(b.norm()):.4g}) [limit 1e-3]; card {ta:.1f} s, cpu "
+            f"{tb:.1f} s")
+        check(errs[label] <= 1e-3, f"forward {label}: card and CPU image "
+              "tangents differ")
+    return errs
+
+
+def forward_phase():
+    """[forward]: render_forward on the box (K1), the mesh (K2/K3) and the
+    prb_reparam mesh pass (its auxiliary rays through K2), the card
+    against the CPU.  Returns the numbers and the phase's launches."""
+    global _TALLY
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box, cornell_box_mesh
+    none = {"mt_closest_hit": 0, "mt_any_hit": 0, "bvh4_closest_hit": 0,
+            "bvh4_any_hit": 0, "bvh4_closest_hit_mp": 0}
+    box = mt.load_dict(cornell_box(res=RES, spp=SPP_CHUNK, max_depth=DEPTH))
+    mesh = mt.load_dict(blob_normals(cornell_box_mesh(
+        res=RES, spp=MESH_CHUNK, max_depth=DEPTH)))
+    rp_mesh = mt.load_dict(blob_normals(cornell_box_mesh(
+        res=RES, spp=RP_MESH_SPP, max_depth=RP_MESH_DEPTH)))
+    aux = reparam_backward_launches(RES * RES * RP_MESH_SPP, RP_MESH_DEPTH)
+    cells = (
+        ("box", box, SPP_CHUNK, {"type": "prb", "max_depth": DEPTH},
+         ("bsdfs.reflectance", "emitters.radiance"),
+         {**none, "mt_closest_hit": DEPTH, "mt_any_hit": DEPTH}, FW_RTOL),
+        ("mesh", mesh, MESH_CHUNK, {"type": "prb", "max_depth": DEPTH},
+         ("vertices",),
+         {**none, "bvh4_closest_hit": DEPTH, "bvh4_any_hit": DEPTH},
+         FW_RTOL),
+        ("reparam mesh", rp_mesh, RP_MESH_SPP,
+         {"type": "prb_reparam", "max_depth": RP_MESH_DEPTH}, ("vertices",),
+         {**none, "bvh4_closest_hit": RP_MESH_DEPTH + aux,
+          "bvh4_any_hit": RP_MESH_DEPTH}, FW_RTOL_RP))
+    secs, out = {}, {}
+    zero_counts()
+    _TALLY = {}
+    try:
+        for i, (label, scene, spp, integ, names, expect, rtol) in enumerate(
+                cells):
+            t0 = time.perf_counter()
+            out[label] = forward_cell(label, scene, spp, integ,
+                                      seeded_tangents(scene, names, 7 + i),
+                                      expect, rtol)
+            secs[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["card vs cpu"] = forward_card_vs_cpu()
+        secs["card vs cpu"] = time.perf_counter() - t0
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    say("[forward] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} s in all")
+    out["secs"] = secs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [direct]: direct, direct_reparam and emission_reparam
+# ---------------------------------------------------------------------------
+
+def direct_reparam_launches(lanes, num_rays=16, emitter_samples=1,
+                            bsdf_samples=1, emission=False):
+    """(closest, any) hit launches of one direct_reparam (or, with
+    ``emission``, emission_reparam) backward: in every lane chunk of
+    ``ad/prb.py`` REPARAM_CHUNK, the unwarped pass's camera, BSDF and
+    shadow rays, then the attached pass's, and ``num_rays`` auxiliary
+    rays at each reparameterisation site."""
+    from epsm_mitsuba3_torch.ad import prb as PRB
+    chunks = -(-lanes // PRB.REPARAM_CHUNK)
+    if emission:
+        return chunks * (2 + num_rays), 0
+    sites = 1 + emitter_samples + bsdf_samples
+    return (chunks * (2 * (1 + bsdf_samples) + sites * num_rays),
+            chunks * 2 * emitter_samples)
+
+
+def emitter_quad(res, spp):
+    """The JAX package's moving-emitter scene (tests/test_reparam.py:
+    117-133): a 1 x 1 area light at z = 0 facing a camera at z = 3, a box
+    filter, nothing else."""
+    from epsm_mitsuba3_torch.core.transform import ScalarTransform4f as T
+    return {"type": "scene",
+            "sensor": {"type": "perspective", "fov": 45.0,
+                       "to_world": T.look_at(origin=[0, 0, 3],
+                                             target=[0, 0, 0], up=[0, 1, 0]),
+                       "film": {"type": "hdrfilm", "width": res,
+                                "height": res, "rfilter": {"type": "box"}},
+                       "sampler": {"type": "independent",
+                                   "sample_count": spp}},
+            "light": {"type": "rectangle", "to_world": T.scale(0.5),
+                      "emitter": {"type": "area",
+                                  "radiance": {"type": "rgb", "value": 5.0}}}}
+
+
+def direct_render(label, scene, spp, chunk, integrator, expect):
+    """A warm-up pass and one timed render of ``spp`` in passes of
+    ``chunk``, launches exact; the image finite and not flat.  Returns
+    (image, wall ms)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    zero_counts()
+    mt.render(scene, spp=chunk, seed=99, integrator=integrator)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = mt.render(scene, spp=spp, seed=0, spp_chunk=chunk,
+                    integrator=integrator)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    for k, n in expect.items():
+        check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, "
+              f"expected {n}")
+    check(bool(torch.isfinite(img).all()), f"{label}: image not finite")
+    check(float(img.std()) > 0, f"{label}: image flat")
+    say(f"[direct] {label} {scene.sensors[0].width}^2 x {spp} spp in passes "
+        f"of {chunk}, {integrator['type']}: {ms:.1f} ms; launches {counts}; "
+        f"mean {float(img.mean()):.6g}")
+    return img, ms
+
+
+def direct_pass(label, scene, spp, integrator, names, expect_fwd,
+                expect_bwd):
+    """One fwd+bwd pass of a reparameterised direct integrator at full
+    width, the loss mean(img^2): launches exact in the forward and the
+    backward, the gradients finite and the vertices' non-zero; wall ms
+    and peak memory."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    lv = {k: v.clone().requires_grad_(True)
+          for k, v in scene.leaves().items() if k in names}
+    sc = scene.with_leaves(lv)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = mt.render(sc, spp=spp, seed=1, integrator=integrator)
+    loss = torch.mean(img ** 2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd = read_counts()
+    zero_counts()
+    grads = torch.autograd.grad(loss, list(lv.values()))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bwd = read_counts()
+    CT.raise_on_overflow(scene.device)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for want, got, where in ((expect_fwd, fwd, "forward"),
+                             (expect_bwd, bwd, "backward")):
+        for k, n in want.items():
+            check(got[k] == n, f"{label}: {k} launched {got[k]} times in "
+                  f"the {where}, expected {n}")
+    norms = {k: float(g.norm()) for k, g in zip(lv, grads)}
+    say(f"[direct] {label} {scene.sensors[0].width}^2 x {spp} spp, "
+        f"{integrator['type']}, {scene.faces.shape[0]} triangles: forward "
+        f"{(t1 - t0) * 1e3:.1f} ms, backward {(t2 - t1) * 1e3:.1f} ms; "
+        f"launches forward {fwd}, backward {bwd}; |grad| "
+        + ", ".join(f"{k} {v:.4g}" for k, v in norms.items())
+        + f"; peak {peak:.2f} GiB")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{label}: gradients not finite")
+    check(norms["vertices"] > 0, f"{label}: no vertex gradient")
+    return dict(fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3, peak=peak,
+                fwd=fwd, bwd=bwd)
+
+
+def silhouette(label, d, shape, kinds, fd_kind, fd_spp, spp=64, eps=0.05):
+    """d/ddx of sum(img * ramp) at dx = 0, ``shape`` moved by dx in x, for
+    each integrator of ``kinds`` (autograd) and by a central difference of
+    ``fd_kind`` at ``fd_spp``."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    sc0 = mt.load_dict(d)
+    s, c = sc0.static.vertex_ranges[sc0.static.shape_names.index(shape)]
+    mask = torch.zeros_like(sc0.vertices)
+    mask[s:s + c, 0] = 1.0
+    res = sc0.sensors[0].width
+    ramp = torch.linspace(0, 1, res, device=sc0.device)[None, :, None]
+
+    def loss(dx, kind, n):
+        sc = sc0.with_leaves({"vertices": sc0.vertices + dx * mask})
+        return torch.sum(mt.render(sc, spp=n, seed=0,
+                                   integrator={"type": kind}) * ramp)
+
+    with torch.no_grad():
+        fd = float(loss(eps, fd_kind, fd_spp)
+                   - loss(-eps, fd_kind, fd_spp)) / (2 * eps)
+    g = {}
+    for kind in kinds:
+        dx = torch.zeros((), device=sc0.device, requires_grad=True)
+        zero_counts()
+        t0 = time.perf_counter()
+        (gk,) = torch.autograd.grad(loss(dx, kind, spp), dx)
+        torch.cuda.synchronize()
+        g[kind] = float(gk)
+        say(f"[direct] silhouette {label} {kind}: d/ddx {g[kind]:.6g} "
+            f"(g / fd {g[kind] / fd if fd else float('nan'):.3g}), "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, launches "
+            f"{read_counts()}")
+    say(f"[direct] silhouette {label} {res}^2 x {spp} spp: fd ({fd_kind}, "
+        f"{fd_spp} spp, eps {eps}) {fd:.6g}")
+    return fd, g
+
+
+def direct_silhouettes():
+    """The JAX package's checks (tests/test_reparam.py:78-157) on the
+    card: plain direct misses the blocker's moving shadow edge (|g| < 0.1
+    |fd|), direct_reparam lies within 0.3-3 times the finite difference,
+    of its sign; emission_reparam has the sign of the moving light's
+    finite difference."""
+    from epsm_mitsuba3_torch.scenes import blocker_scene
+    fd, g = silhouette("blocker", blocker_scene(res=24, spp=16), "blocker",
+                       ("direct", "direct_reparam"), "direct",
+                       DI_SIL_FD_SPP)
+    ratio = g["direct_reparam"] / fd
+    say(f"[direct] silhouette blocker: direct {g['direct']:.6g} (|g| / "
+        f"|fd| {abs(g['direct'] / fd):.3g}, limit < 0.1); direct_reparam "
+        f"g / fd {ratio:.3g} (limits 0.3-3)")
+    check(abs(g["direct"]) < 0.1 * abs(fd), "silhouette: plain direct "
+          "should miss the moving shadow edge")
+    check(0.3 <= ratio <= 3.0, "silhouette: direct_reparam's gradient is "
+          "not within 0.3-3 times the finite difference, of its sign")
+    fd_em, g_em = silhouette("light", emitter_quad(24, 16), "light",
+                             ("emission_reparam",), "emission_reparam",
+                             DI_EM_FD_SPP)
+    r_em = g_em["emission_reparam"] / fd_em
+    say(f"[direct] silhouette light: emission_reparam g / fd {r_em:.3g} "
+        "(limit: the sign of fd)")
+    check(r_em > 0, "silhouette: emission_reparam's gradient does not have "
+          "the finite difference's sign")
+    return dict(fd=fd, direct=g["direct"], direct_reparam=g["direct_reparam"],
+                fd_em=fd_em, emission_reparam=g_em["emission_reparam"])
+
+
+def direct_card_vs_cpu(res=64, spp=4):
+    """The card against the CPU at 64^2 x 4 spp on the box with face
+    normals: direct's image, and direct_reparam's and emission_reparam's
+    images and gradients of the vertices, reflectances, radiance and
+    sensor pose (images <= 1e-3 x mean, gradients relative L2 <= 1e-3
+    each; emission_reparam gives the reflectances none)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    box = cornell_box(res=res, spp=spp)
+    for k in ("floor", "ceiling", "back", "left", "right"):
+        box[k]["face_normals"] = True
+    names = ("vertices", "bsdfs.reflectance", "emitters.radiance",
+             "sensors.0.to_world")
+    errs = {}
+    for kind in ("direct", "direct_reparam", "emission_reparam"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            sc = mt.load_dict(box, device=dev)
+            lv = {k: v.clone().requires_grad_(True)
+                  for k, v in sc.leaves().items() if k in names}
+            img = mt.render(sc.with_leaves(lv), spp=spp, seed=0, device=dev,
+                            integrator={"type": kind})
+            w = torch.linspace(0, 1, res, device=dev)[None, :, None]
+            g = ([] if kind == "direct" else torch.autograd.grad(
+                (img * w).sum(), list(lv.values())))
+            out[dev] = (img.detach().cpu(), [x.cpu() for x in g],
+                        time.perf_counter() - t0)
+        (ia, ga, ta), (ib, gb, tb) = out["cuda"], out["cpu"]
+        mad, mean = float((ia - ib).abs().mean()), float(ib.mean())
+        errs[kind] = {k: rel_l2(a, b) for k, a, b in zip(names, ga, gb)
+                      if float(b.norm()) > 0}
+        say(f"[direct, card vs cpu] {kind} {res}^2 x {spp} spp: image mean "
+            f"|gpu - cpu| {mad:.3g} (limit {1e-3 * mean:.3g}); "
+            "|g_gpu - g_cpu| / |g_cpu| "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs[kind].items())
+            + f"  [limit 1e-3 each]; card {ta:.1f} s, cpu {tb:.1f} s")
+        check(mad <= 1e-3 * mean, f"{kind}: card and CPU images disagree")
+        for k, e in errs[kind].items():
+            check(e <= 1e-3, f"{kind}: card and CPU gradients of {k} differ "
+                  f"by {e}")
+        if kind != "direct":
+            check(len(errs[kind]) >= 3, f"{kind}: too few non-zero "
+                  "gradients")
+    return errs
+
+
+def direct_phase():
+    """[direct]: direct on the box (K1) and the mesh (K2/K3) at 512^2, the
+    box against path at depth 2; a direct_reparam fwd+bwd pass of the
+    mesh and an emission_reparam pass of the box at full width; the
+    silhouette checks; the card against the CPU.  Returns the numbers and
+    the phase's launches."""
+    global _TALLY
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box, cornell_box_mesh
+    none = {"mt_closest_hit": 0, "mt_any_hit": 0, "bvh4_closest_hit": 0,
+            "bvh4_any_hit": 0, "bvh4_closest_hit_mp": 0}
+    lanes = RES * RES * DI_MESH_SPP
+    secs, out = {}, {}
+    zero_counts()
+    _TALLY = {}
+    try:
+        t0 = time.perf_counter()
+        box = mt.load_dict(cornell_box(res=RES, spp=DI_BOX_SPP))
+        n_box = DI_BOX_SPP // SPP_CHUNK
+        img_d, ms_d = direct_render(
+            "box", box, DI_BOX_SPP, SPP_CHUNK, {"type": "direct"},
+            {**none, "mt_closest_hit": 2 * n_box, "mt_any_hit": n_box})
+        img_p, ms_p = direct_render(
+            "box", box, DI_BOX_SPP, SPP_CHUNK,
+            {"type": "path", "max_depth": 2},
+            {**none, "mt_closest_hit": 2 * n_box, "mt_any_hit": 2 * n_box})
+        rel = abs(float(img_d.mean() - img_p.mean())) / float(img_p.mean())
+        say(f"[direct] box: mean direct {float(img_d.mean()):.6g}, path at "
+            f"depth 2 {float(img_p.mean()):.6g}: relative {rel:.3g} [limit "
+            f"{DI_PATH_REL}]")
+        check(rel < DI_PATH_REL, "direct and path at depth 2 disagree")
+        mesh = mt.load_dict(blob_normals(cornell_box_mesh(
+            res=RES, spp=MESH_CHUNK)))
+        n_mesh = DI_MESH_SPP // MESH_CHUNK
+        _, ms_m = direct_render(
+            "mesh", mesh, DI_MESH_SPP, MESH_CHUNK, {"type": "direct"},
+            {**none, "bvh4_closest_hit": 2 * n_mesh,
+             "bvh4_any_hit": n_mesh})
+        out["renders"] = dict(box_ms=ms_d, path_ms=ms_p, mesh_ms=ms_m,
+                              rel=rel)
+        secs["renders"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ch, an = direct_reparam_launches(lanes)
+        out["direct_reparam mesh"] = direct_pass(
+            "direct_reparam mesh", mesh, DI_MESH_SPP,
+            {"type": "direct_reparam"}, TRAIN_LEAVES,
+            {**none, "bvh4_closest_hit": 2, "bvh4_any_hit": 1},
+            {**none, "bvh4_closest_hit": ch, "bvh4_any_hit": an})
+        del mesh
+        box_fn = cornell_box(res=RES, spp=DI_MESH_SPP)
+        for k in ("floor", "ceiling", "back", "left", "right"):
+            box_fn[k]["face_normals"] = True
+        ch, _ = direct_reparam_launches(lanes, emission=True)
+        out["emission_reparam box"] = direct_pass(
+            "emission_reparam box", mt.load_dict(box_fn), DI_MESH_SPP,
+            {"type": "emission_reparam"},
+            ("vertices", "emitters.radiance", "sensors.0.to_world"),
+            {**none, "mt_closest_hit": 1}, {**none, "mt_closest_hit": ch})
+        secs["passes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["silhouettes"] = direct_silhouettes()
+        secs["silhouettes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["card vs cpu"] = direct_card_vs_cpu()
+        secs["card vs cpu"] = time.perf_counter() - t0
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    say("[direct] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} s in all")
+    out["secs"] = secs
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5155,6 +5674,24 @@ def main() -> int:
 
     lap("22 reparam")
 
+    # -- 23. [forward]: render_forward on the box, the mesh, prb_reparam -----
+    t0 = time.perf_counter()
+    fw = forward_phase()
+    epsm_launches["launches_forward_phase"] = fw["total"]
+    say(f"[forward] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{fw['total']}")
+
+    lap("23 forward")
+
+    # -- 24. [direct]: direct, direct_reparam, emission_reparam --------------
+    t0 = time.perf_counter()
+    di = direct_phase()
+    epsm_launches["launches_direct_phase"] = di["total"]
+    say(f"[direct] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{di['total']}")
+
+    lap("24 direct")
+
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []
     for i, k in enumerate(("mt_closest_hit", "mt_any_hit")):
@@ -5254,6 +5791,12 @@ def main() -> int:
             r["counts"][entry["name"]] for r in rp["run"]["rows"]]
     kernels[2]["reparam_mesh_backward_launches"] = rp["mesh pass"]["counts"][
         "bvh4_closest_hit"]
+    kernels[2]["forward_reparam_mesh_launches"] = fw["reparam mesh"][
+        "counts"]["bvh4_closest_hit"]
+    kernels[2]["direct_reparam_mesh_backward_launches"] = di[
+        "direct_reparam mesh"]["bwd"]["bvh4_closest_hit"]
+    kernels[0]["emission_reparam_box_backward_launches"] = di[
+        "emission_reparam box"]["bwd"]["mt_closest_hit"]
     # each kernel on the experiments' own rays: K1 at egg's 3,972
     # triangles, K2/K3 on shadow's 1,587,204
     for entry, rows, kind in ((kernels[0], epsm_exp["k1"], "closest"),

@@ -26,6 +26,6 @@ from .models.scene import (Scene, SceneParameters, load_dict,  # noqa: F401
 from .ops.normals import (compute_vertex_normals,  # noqa: F401
                           scene_with_vertices)
 from .models.records import Ray, RayFlags  # noqa: F401
-from .ad.render import render  # noqa: F401
+from .ad.render import render, render_forward  # noqa: F401
 
 __version__ = "0.1.0"

@@ -3,7 +3,11 @@
 receives its gradient through ``torch.autograd``: PRB (``ad/prb.py``)
 for the ``path``, ``prb`` and ``prb_basic`` integrators, reparameterised
 PRB (``ad/reparam.py``) for ``prb_reparam``, the EPSM manifold backward
-(``integrators/epsm.py``) for ``manifold`` and ``manifold_caustic``."""
+(``integrators/epsm.py``) for ``manifold`` and ``manifold_caustic``, the
+attached reparameterised estimators (``ad/direct_reparam.py``) for
+``direct_reparam`` and ``emission_reparam``, and zero for ``direct``
+(``integrators/direct.py``), as the reference detaches its scene.
+``render_forward`` is forward mode for the PRB family."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,9 +16,9 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.films import kahan_add
-from ..integrators import epsm
+from ..integrators import direct, epsm
 from ..ops import cuda_traverse as CT
-from . import prb
+from . import direct_reparam, prb
 
 #: integrator types the port renders with the path tracer: the reference
 #: runs the same tracer and PRB replay for all of them (``prb_basic`` is
@@ -24,6 +28,9 @@ _PATH_TYPES = ("path", "prb", "prb_basic", "prb_reparam")
 #: the EPSM integrators: a 5-channel image (the last two zero) whose
 #: backward is the manifold solve
 _EPSM_TYPES = ("manifold", "manifold_caustic")
+#: the direct-illumination family: ``direct`` (detached) and its two
+#: reparameterised, differentiable forms
+_DIRECT_TYPES = ("direct", "direct_reparam", "emission_reparam")
 
 
 #: the reparameterisation's settings under the reference's names and the
@@ -61,7 +68,10 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
            device=None) -> torch.Tensor:
     """mi.render: the (H, W, 3) image of ``scene`` ((H, W, 5) for the
     EPSM integrators), differentiable w.r.t. the scene's float tensors
-    that require grad.
+    that require grad.  ``direct``, ``direct_reparam`` and
+    ``emission_reparam`` read ``integrator["emitter_samples"]`` and
+    ``["bsdf_samples"]`` (default 1 each); the reparameterised types the
+    settings of ``_rp_items``.
 
     ``spp_chunk``: render in passes of at most this many samples per pixel
     and average them with Kahan-compensated sums, through which the
@@ -80,15 +90,27 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
         raise ValueError(f"scene is on {scene.device}, render was asked "
                          f"to run on {device}")
     cfg = _integrator_cfg(scene, integrator)
-    if cfg["type"] not in _PATH_TYPES + _EPSM_TYPES:
+    if cfg["type"] not in _PATH_TYPES + _EPSM_TYPES + _DIRECT_TYPES:
         raise NotImplementedError(
             f"integrator '{cfg['type']}' is not ported")
     if spp == 0:
         spp = scene.static.spp
 
     multi_pop = cfg["multi_pop"]
+    samples = (int(cfg.get("emitter_samples", 1)),
+               int(cfg.get("bsdf_samples", 1)))
 
     def one_pass(pass_seed, pass_spp):
+        if cfg["type"] == "direct":
+            return direct.render_direct(scene, pass_seed, sensor, pass_spp,
+                                        *samples)
+        if cfg["type"] == "direct_reparam":
+            return direct_reparam.render_direct_reparam(
+                scene, pass_seed, sensor, pass_spp, *samples,
+                rp_items=_rp_items(cfg))
+        if cfg["type"] == "emission_reparam":
+            return direct_reparam.render_emission_reparam(
+                scene, pass_seed, sensor, pass_spp, rp_items=_rp_items(cfg))
         if cfg["type"] in _EPSM_TYPES:
             return epsm.render_epsm(
                 scene, seed=pass_seed, sensor_idx=sensor, spp=pass_spp,
@@ -120,3 +142,41 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
         # wrong image (waits for the device)
         CT.raise_on_overflow(device)
     return img
+
+
+def render_forward(scene, d_scene=None, seed: int = 0, spp: int = 0,
+                   sensor: int = 0, integrator: Optional[dict] = None,
+                   device=None) -> torch.Tensor:
+    """mi.render_forward (JAX ad/render.py:82-120): the (H, W, 3) image
+    tangent d(render)/dθ · θ̇ for the tangents ``d_scene`` of the scene's
+    float leaves, a mapping from a leaf's name (``Scene.leaves``, e.g.
+    ``vertices``, ``bsdfs.reflectance``, ``emitters.radiance``,
+    ``sensors.0.to_world``; ``ad.prb.zero_tangent`` gives them all) to its
+    direction; a leaf it does not name, or ``d_scene=None``, has tangent
+    zero.  Supported for the PRB family (``path``, ``prb``, ``prb_basic``,
+    ``prb_reparam``): the same estimator as ``render``'s backward,
+    transposed, on the same sampler streams (``ad/prb.py``
+    ``render_prb_forward``); any other type raises
+    ``NotImplementedError``.  ``device=None`` means the GPU and raises
+    without CUDA."""
+    device = resolve_device(device)
+    if scene.device != device:
+        raise ValueError(f"scene is on {scene.device}, render_forward was "
+                         f"asked to run on {device}")
+    cfg = _integrator_cfg(scene, integrator)
+    kind = cfg["type"]
+    if kind not in _PATH_TYPES:
+        raise NotImplementedError(
+            f"render_forward: integrator '{kind}' has no forward-mode path "
+            "(the reference implements forward for the PRB family only)")
+    if spp == 0:
+        spp = scene.static.spp
+    multi_pop = cfg["multi_pop"]
+    dimg = prb.render_prb_forward(
+        scene, d_scene, seed=seed, sensor_idx=sensor, spp=spp,
+        max_depth=int(cfg["max_depth"]), rr_depth=int(cfg["rr_depth"]),
+        multi_pop=None if multi_pop is None else int(multi_pop),
+        reparam=kind == "prb_reparam", rp_items=_rp_items(cfg))
+    if scene.bvh is not None and device.type == "cuda":
+        CT.raise_on_overflow(device)
+    return dimg

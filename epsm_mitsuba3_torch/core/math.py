@@ -3,8 +3,10 @@
 Vectors are ``(..., 3)`` tensors.  The guarded functions (``normalize``,
 ``safe_sqrt``, ``safe_rsqrt``, ``safe_acos``, ``safe_rcp``, ``safe_div``)
 are ``torch.autograd.Function``s with the reference's custom tangent
-rules: their primal is the plain clamped formula, and their derivative is
-finite (zero) where the plain formula's would overflow float32, so a zero
+rules, as a ``backward`` for reverse mode and a ``jvp`` for forward mode
+(``torch.autograd.forward_ad``, ``ad/prb.py`` ``prb_forward``): their
+primal is the plain clamped formula, and their derivative is finite
+(zero) where the plain formula's would overflow float32, so a zero
 cotangent on a masked lane never turns into ``0 * inf = NaN``.
 """
 from __future__ import annotations
@@ -48,6 +50,7 @@ class _Normalize(torch.autograd.Function):
         r = _rsqrt(torch.clamp(n2, min=1e-37))
         out = a * r
         ctx.save_for_backward(a, n2, r, out)
+        ctx.save_for_forward(a, n2, r, out)
         return out
 
     @staticmethod
@@ -55,6 +58,12 @@ class _Normalize(torch.autograd.Function):
         a, n2, r, out = ctx.saved_tensors
         w = torch.where(n2 > 1e-24, g, 0.0)
         return w * r - a * (r * r * dot(w, out, keepdim=True))
+
+    @staticmethod
+    def jvp(ctx, da):
+        a, n2, r, out = ctx.saved_tensors
+        dn = dot(a, da, keepdim=True)
+        return torch.where(n2 > 1e-24, da * r - out * (r * r * dn), 0.0)
 
 
 class _SafeSqrt(torch.autograd.Function):
@@ -65,6 +74,7 @@ class _SafeSqrt(torch.autograd.Function):
     def forward(ctx, x):
         out = torch.sqrt(torch.clamp(x, min=0.0))
         ctx.save_for_backward(x, out)
+        ctx.save_for_forward(x, out)
         return out
 
     @staticmethod
@@ -72,6 +82,8 @@ class _SafeSqrt(torch.autograd.Function):
         x, out = ctx.saved_tensors
         return torch.where(x > 0.0, 0.5 * g / torch.clamp(out, min=1e-37),
                            0.0)
+
+    jvp = backward      # elementwise: the tangent rule is the cotangent rule
 
 
 class _SafeRsqrt(torch.autograd.Function):
@@ -82,12 +94,15 @@ class _SafeRsqrt(torch.autograd.Function):
     def forward(ctx, x):
         out = _rsqrt(torch.clamp(x, min=1e-37))
         ctx.save_for_backward(x, out)
+        ctx.save_for_forward(x, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, out = ctx.saved_tensors
         return torch.where(x > 1e-24, -0.5 * out * out * out * g, 0.0)
+
+    jvp = backward      # elementwise: the tangent rule is the cotangent rule
 
 
 class _SafeAcos(torch.autograd.Function):
@@ -97,6 +112,7 @@ class _SafeAcos(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
         return torch.arccos(torch.clamp(x, -1.0, 1.0))
 
     @staticmethod
@@ -105,6 +121,8 @@ class _SafeAcos(torch.autograd.Function):
         xg = torch.clamp(x, -1.0 + 1e-6, 1.0 - 1e-6)
         return torch.where(torch.abs(x) < 1.0 - 1e-6,
                            -g * _rsqrt(1.0 - xg * xg), 0.0)
+
+    jvp = backward      # elementwise: the tangent rule is the cotangent rule
 
 
 class _SafeRcp(torch.autograd.Function):
@@ -116,12 +134,15 @@ class _SafeRcp(torch.autograd.Function):
         nz = x != 0.0
         out = torch.where(nz, 1.0 / torch.where(nz, x, 1.0), 0.0)
         ctx.save_for_backward(out)
+        ctx.save_for_forward(out)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (out,) = ctx.saved_tensors
         return -out * out * g
+
+    jvp = backward      # elementwise: the tangent rule is the cotangent rule
 
 
 class _SafeDiv(torch.autograd.Function):
@@ -131,6 +152,7 @@ class _SafeDiv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, eps):
         ctx.save_for_backward(x, y)
+        ctx.save_for_forward(x, y)
         ctx.eps = eps
         return x / torch.clamp(y, min=eps)
 
@@ -145,6 +167,12 @@ class _SafeDiv(torch.autograd.Function):
             gy = _sum_to(-torch.where(y > 1e-18, x * r * r, 0.0) * g,
                          y.shape)
         return gx, gy, None
+
+    @staticmethod
+    def jvp(ctx, dx, dy, _):
+        x, y = ctx.saved_tensors
+        r = 1.0 / torch.clamp(y, min=ctx.eps)
+        return dx * r - torch.where(y > 1e-18, x * r * r, 0.0) * dy
 
 
 def normalize(a: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Shared integrator machinery (counterpart of ``integrators/common.py``):
-camera rays in the pixel-major lane order (lane = pixel * spp + s) and
-the MIS power heuristic, which is detached as in the reference."""
+camera rays in the pixel-major lane order (lane = pixel * spp + s), the
+film of a pass's lanes, and the MIS power heuristic, which is detached
+as in the reference."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from ..models import films
 from ..models import samplers as smp
 from ..models import sensors as sns
 
@@ -54,3 +56,30 @@ def sample_rays(sensor: sns.Sensor, sampler: smp.Sampler, spp: int,
     if sensor.rfilter == "box":
         return sampler, ray, weight, torch.stack([pos_x, pos_y], dim=-1)
     return sampler, ray, weight, pos_f
+
+
+def camera(scene, seed: int, sensor_idx: int, spp: int):
+    """The pass's sampler (the scene's kind, advanced past the camera
+    draws), camera rays, film weights and splat positions: (sensor, the
+    lane count n, sampler, ray, weight, pos), the same for a render's
+    forward and its replay (JAX ad/prb.py:744-746)."""
+    sensor = scene.sensors[sensor_idx]
+    n = sensor.width * sensor.height * spp
+    sampler = smp.seed(seed, n, kind=scene.static.sampler_kind, spp=spp,
+                       device=scene.device)
+    sampler, ray, weight, pos = sample_rays(sensor, sampler, spp)
+    return sensor, n, sampler, ray, weight, pos
+
+
+def film(sensor: sns.Sensor, value: torch.Tensor, pos: torch.Tensor,
+         spp: int) -> torch.Tensor:
+    """The developed image of the pixel-major lanes' ``value``: the box
+    filter's per-pixel mean, any other filter's general scatter
+    (``films.splat``) at ``pos``, as the reference's ``direct`` and EPSM
+    primals develop theirs."""
+    if sensor.rfilter == "box":
+        return films.accumulate_coalesced(value, sensor.width,
+                                          sensor.height, spp)
+    data, w = films.splat(pos, value, sensor.width, sensor.height,
+                          sensor.rfilter)
+    return films.develop(data, w)

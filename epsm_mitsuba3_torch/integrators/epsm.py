@@ -31,7 +31,7 @@ from ..core import math as m
 from ..core import warp
 from ..integrators import common, path as P
 from ..models import bsdf as B
-from ..models import films, samplers as smp
+from ..models import samplers as smp
 from ..models.records import Ray, RayFlags
 from ..ops import cuda_traverse as CT
 from ..ops import intersect as I
@@ -635,14 +635,7 @@ def _primal(scene, seed, sensor_idx, spp, max_depth, rr_depth):
     sampler = smp.seed(seed, n, device=scene.device)
     sampler, ray, weight, pos = common.sample_rays(sensor, sampler, spp)
     L, _ = P.sample_primal(scene, sampler, ray, max_depth, rr_depth)
-    value = L * weight
-    if sensor.rfilter == "box":
-        img = films.accumulate_coalesced(value, sensor.width, sensor.height,
-                                         spp)
-    else:
-        data, w = films.splat(pos, value, sensor.width, sensor.height,
-                              sensor.rfilter)
-        img = films.develop(data, w)
+    img = common.film(sensor, L * weight, pos, spp)
     zeros = torch.zeros(img.shape[:-1] + (2,), dtype=img.dtype,
                         device=img.device)
     return torch.cat([img, zeros], dim=-1)

@@ -25,7 +25,8 @@ seven sensor kinds of ``models/sensors.py`` (``batch`` with perspective
 children), the five samplers of ``models/samplers.py``, ``hdrfilm``
 with any of the six filters of ``models/films.py`` (``gaussian`` where
 none is named); and the ``path``, ``prb``, ``prb_basic``,
-``prb_reparam``, ``manifold`` and ``manifold_caustic`` integrators.  Any
+``prb_reparam``, ``manifold``, ``manifold_caustic``, ``direct``,
+``direct_reparam`` and ``emission_reparam`` integrators.  Any
 other plugin raises ``NotImplementedError`` with its name.  Shapes keep
 their names and vertex ranges, by which the experiments (``app/exp``) and ``traverse``
 move them.  A scene of more than ``ops/accel.py``
@@ -235,7 +236,8 @@ _SHAPE_TYPES = ("obj", "ply", "serialized", "rectangle", "cube", "disk",
                 "sphere", "cylinder", "instance", "shapegroup", "mesh")
 _SENSOR_TYPES = sns_mod.KINDS
 _INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "prb_reparam", "manifold",
-                     "manifold_caustic")
+                     "manifold_caustic", "direct", "direct_reparam",
+                     "emission_reparam")
 
 
 def _open_edge_mask(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:

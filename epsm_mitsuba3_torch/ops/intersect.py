@@ -18,6 +18,7 @@ for operation.
 from __future__ import annotations
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..core import math as m
 from ..models import textures as tex_mod
@@ -120,6 +121,14 @@ def ray_test_brute(tri, o, d, maxt, chunk: int = 512) -> torch.Tensor:
     return occluded
 
 
+def _carries_derivative(*xs: torch.Tensor) -> bool:
+    """A derivative can reach one of ``xs``: grad mode is on and it
+    requires grad, or it carries a forward-mode tangent."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return True
+    return any(fwAD.unpack_dual(x).tangent is not None for x in xs)
+
+
 def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
                                 ray_flags: int = RayFlags.All
                                 ) -> SurfaceInteraction:
@@ -133,8 +142,9 @@ def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
     - ``FollowShape``: t, u and v are detached, so ``si.p`` follows the
       triangle rigidly, and t is recomputed from it (mesh.cpp:723-725).
 
-    The re-derivation runs only where a gradient can reach the vertices;
-    its value is the hit search's either way.  Per-face quantities are
+    The re-derivation runs only where a derivative (a gradient, or a
+    forward-mode tangent) can reach the vertices or the ray; its value is
+    the hit search's either way.  Per-face quantities are
     gathered by ``take_rows``.
 
     Where a BSDF slot carries a normal or bump map (``has_normal_maps``)
@@ -156,8 +166,7 @@ def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
     v = pi.prim_uv[:, 1]
     if ray_flags & RayFlags.FollowShape:
         t, u, v = t.detach(), u.detach(), v.detach()
-    elif torch.is_grad_enabled() and (p0.requires_grad or ray.o.requires_grad
-                                      or ray.d.requires_grad):
+    elif _carries_derivative(p0, ray.o, ray.d):
         t_d, u_d, v_d, _ = moeller_trumbore(ray.o, ray.d, p0, p1, p2)
         t = replace_grad(t, t_d)
         u = replace_grad(u, u_d)

@@ -9,7 +9,9 @@ every ray query goes through the BVH.  ``blocker_scene`` is the
 reparameterisation's silhouette scene (the JAX package's
 ``tests/test_reparam.py`` ``_make``): a floor under a small square
 blocker and an area light, so that the blocker's shadow edge moves with
-it.
+it.  ``single_quad_direct`` is one diffuse quad under one area light (the
+JAX package's ``tests/scenes.py``), where ``direct`` and ``path`` at
+``max_depth`` 2 estimate the same image.
 """
 from __future__ import annotations
 
@@ -139,4 +141,37 @@ def blocker_scene(res: int = 24, spp: int = 16):
                   .rotate([1, 0, 0], 90).scale(0.3),
                   "emitter": {"type": "area",
                               "radiance": {"type": "rgb", "value": 30.0}}},
+    }
+
+
+def single_quad_direct(res: int = 32, spp: int = 8, albedo=(0.6, 0.4, 0.2)):
+    """One diffuse 2 x 2 quad at z = 0 lit by a 1 x 1 area light at z = 3
+    facing it, seen obliquely from (0, -3, 3) through a box filter; 4
+    triangles."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 2},
+        "sensor": {
+            "type": "perspective",
+            "fov": 45.0,
+            # oblique, so that the light does not hide the quad
+            "to_world": T.look_at(origin=[0, -3, 3], target=[0, 0, 0],
+                                  up=[0, 0, 1]),
+            "film": {"type": "hdrfilm", "width": res, "height": res,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "quad": {
+            "type": "rectangle",
+            "bsdf": {"type": "diffuse",
+                     "reflectance": {"type": "rgb", "value": list(albedo)}},
+        },
+        "light": {
+            "type": "rectangle",
+            "to_world": T.translate([0, 0, 3]).rotate([1, 0, 0], 180)
+            .scale(0.5),
+            "emitter": {"type": "area",
+                        "radiance": {"type": "rgb",
+                                     "value": [10.0, 10.0, 10.0]}},
+        },
     }

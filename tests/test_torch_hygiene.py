@@ -164,3 +164,29 @@ def test_human_slice_entry_points_without_device_raise(tmp_path,
         run_experiments.main(["manifold", "human", "--small"])
     assert not (tmp_path / "results").exists()
     assert smpl.load_npz(path, device="cpu").template.shape == (2112, 3)
+
+
+def test_forward_and_direct_entry_points_without_device_raise():
+    """``render_forward`` and ``render`` with ``direct``,
+    ``direct_reparam`` and ``emission_reparam`` default to the GPU too; on
+    the CPU they run the plain versions and build nothing."""
+    _require_no_cuda()
+    before = dict(CI.launches)
+    scene = mt.load_dict(cornell_box(res=8, spp=1, max_depth=2),
+                         device="cpu")
+    tangent = {"bsdfs.reflectance": torch.ones_like(scene.bsdfs["reflectance"])}
+    for kind in ("prb", "prb_reparam"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mt.render_forward(scene, tangent, spp=1,
+                              integrator={"type": kind})
+        dimg = mt.render_forward(scene, tangent, spp=1, device="cpu",
+                                 integrator={"type": kind,
+                                             "reparam_rays": 2})
+        assert float(dimg.abs().sum()) > 0
+    for kind in ("direct", "direct_reparam", "emission_reparam"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mt.render(scene, spp=1, integrator={"type": kind})
+        img = mt.render(scene, spp=1, device="cpu",
+                        integrator={"type": kind, "reparam_rays": 2})
+        assert img.shape == (8, 8, 3)
+    assert CI.launches == before and CI._lib is None
