@@ -88,7 +88,8 @@ Phases (any failed check raises, and the script exits non-zero):
     512^2, match_res 128, 2 iterations each (spp and ground truth cut,
     ``EXP_CELLS``): ms an iteration and by phase, launches (each count
     exact), theta and its gradients finite and non-zero, peak memory,
-    device busy share of one profiled iteration, shadow's BVH build and
+    egg's device busy share of one profiled iteration (``EXP_PROFILED``),
+    shadow's BVH build and
     refit + re-pack; bunny, bathroom and bedroom one iteration each; K1
     on one egg pass's rays and K2/K3 on one shadow pass's rays, each held
     bit for bit against its plain version and timed beside its bound; the
@@ -219,7 +220,20 @@ Phases (any failed check raises, and the script exits non-zero):
     rays (launches exact in both directions, the vertex gradients finite
     and non-zero); the JAX package's silhouette checks
     (tests/test_reparam.py:78-157) on the blocker scene and a moving
-    light; the card against the CPU at 64^2 (images, gradients).
+    light; the card against the CPU at 64^2 (images, gradients);
+25. [outputs]: ``depth`` and ``aov`` (13 channels, depth 2) on the box at
+    512^2 x 16 spp in passes of 4 (K1), ``depth`` on the mesh (K2, no
+    K3), the centre pixel's depth in 3.0-5.5; ``moment`` at depth 4,
+    512^2 x 64 spp (var >= -1e-4, its mean ``path``'s image at the same
+    seed) and ``render_z_test`` against ``path`` at another seed (fail
+    fraction < 1 %); ``ptracer`` on ``single_quad_direct`` (K1, mean
+    within 5 % of ``path`` at depth 2) and on the mesh (K2/K3), K1 and
+    K3 held against their plain versions on its camera-connection
+    rays; ``spectral`` on the gray box (within 3 % of the RGB render),
+    ``spectral_mono`` (within 5 % of the luminance) and
+    ``spectral_spec`` (the red wall's long bins above its short ones),
+    the fit's share of a profiled pass; launches exact throughout; the
+    card against the CPU at 64^2 x 2 spp for the seven types.
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -288,6 +302,10 @@ MATCH_CMP_RES = 64
 EXP_RES, EXP_MATCH, EXP_ITERS = 512, 128, 2
 EXP_CELLS = (("egg", 32, 32), ("glossyball", 32, 32), ("highlight", 32, 32),
              ("shadow", 16, 16))
+#: the configs whose run ends with a profiled iteration: egg's (K1 a
+#: quarter of its busy time); the others' are left out for the script's
+#: time limit
+EXP_PROFILED = ("egg",)
 #: bunny, bathroom and bedroom (procedural stand-ins): one iteration each
 #: at 512^2 and this spp (ground truth too)
 EXP_ONE, EXP_ONE_SPP = ("bunny", "bathroom", "bedroom"), 4
@@ -359,6 +377,19 @@ DI_BOX_SPP, DI_MESH_SPP, DI_PATH_REL = 64, 16, 0.05
 #: 256 spp; a moving area light seen directly, emission_reparam against a
 #: central difference of its own primal at 64 spp
 DI_SIL_FD_SPP, DI_EM_FD_SPP = 256, 64
+#: [outputs]: depth, aov, ptracer and the spectral types at 512^2 x
+#: OUT_SPP spp in passes of SPP_CHUNK (the mesh's in passes of
+#: MESH_CHUNK), moment at SPP spp; the bars of the JAX package's
+#: tests/test_integrators.py:25-84 and tests/test_spectral.py:46-103:
+#: the centre depth within OUT_DEPTH, ptracer's mean within OUT_PT_REL
+#: of path's, spectral's within OUT_SPEC_REL of the RGB render's,
+#: spectral_mono's within OUT_MONO_REL of the luminance
+OUT_SPP, OUT_DEPTH = 16, (3.0, 5.5)
+OUT_PT_REL, OUT_SPEC_REL, OUT_MONO_REL = 0.05, 0.03, 0.05
+#: K3's plain version on the first OUT_SUBSET of a ptracer pass's
+#: connection rays, at OUT_K3_DEPTHS of its calls (the emitter vertices'
+#: and the first bounce's)
+OUT_SUBSET, OUT_K3_DEPTHS = 2 ** 18, 2
 
 
 class CheckFailed(AssertionError):
@@ -2425,8 +2456,8 @@ def epsm_experiments_phase():
         return out
 
     for name, spp, gt_spp in EXP_CELLS:
-        runs[name] = clock(name, lambda: experiment_run(name, spp, gt_spp,
-                                                        EXP_ITERS))
+        runs[name] = clock(name, lambda: experiment_run(
+            name, spp, gt_spp, EXP_ITERS, do_profile=name in EXP_PROFILED))
         if name == "egg":
             k1_rows = clock("K1 on egg's rays",
                             lambda: exp_rays_k1(runs[name]["exp"]))
@@ -5398,6 +5429,373 @@ def direct_phase():
     out["secs"] = secs
     return out
 
+# ---------------------------------------------------------------------------
+# [outputs]: depth, aov, moment, ptracer and the spectral family
+# ---------------------------------------------------------------------------
+
+def output_render(label, scene, spp, chunk, integrator, expect, seed=0):
+    """A warm-up pass and one timed render of ``spp`` in passes of
+    ``chunk``, launches exact, the image finite.  Returns (image, wall
+    ms, peak GiB)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    zero_counts()
+    mt.render(scene, spp=chunk, seed=99, integrator=integrator)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = mt.render(scene, spp=spp, seed=seed, spp_chunk=chunk,
+                    integrator=integrator)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = read_counts()
+    for k, n in expect.items():
+        check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, "
+              f"expected {n}")
+    check(bool(torch.isfinite(img).all()), f"{label}: image not finite")
+    say(f"[outputs] {label} {scene.sensors[0].width}^2 x {spp} spp in "
+        f"passes of {chunk}, {integrator}: {ms:.1f} ms; peak {peak:.2f} "
+        f"GiB; launches {counts}; image {tuple(img.shape)}, mean "
+        f"{float(img.mean()):.6g}")
+    return img, ms, peak
+
+
+def connection_rays(scene, spp, depth, module):
+    """The arguments of every any-hit call one ptracer pass of ``scene``
+    (``spp`` spp, ``max_depth`` ``depth``) makes through ``module``
+    (cuda_intersect or cuda_traverse): the camera connections of the
+    emitter vertices, then of each bounce's."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    with torch.no_grad():
+        rec = _record_rays(module, ("any_hit",), lambda: mt.render(
+            scene, spp=spp, seed=5,
+            integrator={"type": "ptracer", "max_depth": depth}))
+    torch.cuda.synchronize()
+    check(len(rec["any_hit"]) == depth, f"a ptracer pass made "
+          f"{len(rec['any_hit'])} any-hit calls, expected {depth}")
+    return rec["any_hit"]
+
+
+def _row(d, n, live, ms, bound, by, plain_rays, plain_ms):
+    return dict(depth=d, rays=n, live=live, ms=ms, bound_ms=bound,
+                bound_by=by, plain_rays=plain_rays, plain_ms=plain_ms)
+
+
+def connection_rays_k1(quad):
+    """K1's any hit on the camera-connection rays of one ptracer pass of
+    the quad (512^2 x SPP_CHUNK spp, depth 2): each call bit for bit the
+    plain version on all its rays, timed on the device alone beside its
+    bound (each live ray's tests up to its first hit) and the plain
+    version."""
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import intersect as I
+    out = []
+    for d, (args, _) in enumerate(connection_rays(quad, SPP_CHUNK, 2, CI)):
+        tri, o, dd, maxt = args
+        got = CI.any_hit(tri, o, dd, maxt)
+        ref, plain_ms = timed(lambda: I.ray_test_brute(tri, o, dd, maxt))
+        n_diff = int((got != ref).sum())
+        check(n_diff == 0, f"ptracer connections {d}: K1's any hit differs "
+              f"from the plain version on {n_diff} rays")
+        ms = device_ms(lambda: CI.any_hit(tri, o, dd, maxt), 10)
+        b, by = k1_bound(tri, o, dd, maxt, True)
+        live = int((maxt > 1e-6).sum())
+        out.append(_row(d, o.shape[0], live, ms, b, by, o.shape[0],
+                        plain_ms))
+        say(f"[outputs rays K1] ptracer connections {d}: {tri.shape[0]} "
+            f"tris x {o.shape[0]} rays ({live} live, {int(got.sum())} "
+            f"occluded): any {ms:.4f} ms (bound {b:.4f} by {by}, "
+            f"{b / ms:.1%}); plain {plain_ms:.1f} ms; bit for bit equal")
+    return out
+
+
+def connection_rays_k3(mesh):
+    """K3 on the camera-connection rays of one ptracer pass of the mesh
+    (512^2 x MESH_CHUNK spp, depth 6): the first OUT_K3_DEPTHS calls held
+    bit for bit against the plain version on OUT_SUBSET rays, timed on
+    the device alone beside the bound from the plain version's work on
+    all of them."""
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import traverse as TR
+    calls = connection_rays(mesh, MESH_CHUNK, DEPTH, CT)
+    nodes, tri = mesh.bvh_nodes, mesh.bvh_tris
+    out = []
+    for d, (args, kw) in enumerate(calls[:OUT_K3_DEPTHS]):
+        o, dd, maxt = args[2:5]
+        got = CT.any_hit(nodes, tri, o, dd, maxt, **kw)
+        CT.raise_on_overflow(mesh.device)
+        k = slice(0, OUT_SUBSET)
+        ref, plain_ms = timed(lambda: TR.bvh_ray_test_plain(
+            nodes, tri, o[k], dd[k], maxt[k]))
+        n_diff = int((got[k] != ref).sum())
+        check(n_diff == 0, f"ptracer connections {d}: K3 differs from the "
+              f"plain version on {n_diff} rays")
+        ms = device_ms(lambda: CT.any_hit(nodes, tri, o, dd, maxt, **kw), 10)
+        b, by = bound_ms(*bvh_work(maxt, bvh_plain_work(
+            nodes, tri, o, dd, maxt, True), True))
+        live = int((maxt > 1e-6).sum())
+        out.append(_row(d, o.shape[0], live, ms, b, by, OUT_SUBSET,
+                        plain_ms))
+        say(f"[outputs rays K3] ptracer connections {d}: {tri.shape[0]} "
+            f"tris, {o.shape[0]} rays ({live} live, {int(got.sum())} "
+            f"occluded): K3 {ms:.4f} ms (bound {b:.4f} by {by}, "
+            f"{b / ms:.1%}); plain on {OUT_SUBSET} of them {plain_ms:.1f} "
+            "ms; bit for bit equal there")
+    return out
+
+
+def fit_share(fn):
+    """The sigmoid fit's share of one spectral pass ``fn``: the pass under
+    torch.profiler (device activity only: host events would take the
+    profiler seconds to collect), its ``core/spectral.py``
+    ``fit_reflectance`` inputs kept, then those fits alone under the
+    profiler; the share is their device busy time over the pass's.
+    Returns a dict, or None where the profiler saw no device time."""
+    from epsm_mitsuba3_torch.core import spectral as SP
+    fit, inputs = SP.fit_reflectance, []
+
+    def keep(rgb):
+        inputs.append(rgb.clone())
+        return fit(rgb)
+
+    SP.fit_reflectance = keep
+    try:
+        prof = profile_pass("spectral pass", fn, ("mt_",), cpu=False,
+                            table=False)
+    finally:
+        SP.fit_reflectance = fit
+    alone = profile_pass(f"the pass's {len(inputs)} fits alone",
+                         lambda: [fit(x) for x in inputs], ("gemm",),
+                         cpu=False, table=False)
+    if prof is None or alone is None:
+        return None
+    share = alone["busy"] / prof["busy"]
+    say(f"[outputs] fit share of one spectral pass: {len(inputs)} fits, "
+        f"{alone['busy']:.2f} ms of the pass's {prof['busy']:.2f} ms device "
+        f"busy ({share:.1%}); the pass's wall {prof['wall']:.1f} ms")
+    return dict(fits=len(inputs), fit_ms=alone["busy"],
+                busy_ms=prof["busy"], wall_ms=prof["wall"],
+                launches=prof["launches"], fit_launches=alone["launches"])
+
+
+def gray_box(res, spp):
+    """cornell_box with every wall grey (the JAX package's
+    tests/test_spectral.py:40-46)."""
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    d = cornell_box(res=res, spp=spp, max_depth=4)
+    for v in d.values():
+        if isinstance(v, dict) and "bsdf" in v:
+            v["bsdf"]["reflectance"]["value"] = [0.5, 0.5, 0.5]
+    return d
+
+
+#: the seven types held card against CPU, with their settings
+OUTPUT_KINDS = (("depth", {}), ("aov", {"max_depth": 2}),
+                ("moment", {"max_depth": 4}), ("ptracer", {"max_depth": 3}),
+                ("spectral", {"max_depth": 3}),
+                ("spectral_mono", {"max_depth": 3}),
+                ("spectral_spec", {"max_depth": 3, "n_bins": 8}))
+
+
+def outputs_card_vs_cpu(res=64, spp=2):
+    """The box at 64^2 x 2 spp through each of the seven types on the card
+    and on the CPU: images within 1e-3 x the mean on average, the
+    particle tracer's film within 1e-5 of its largest entry (a
+    scatter-add with float atomics on the card, as ``splat``)."""
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    d = cornell_box(res=res, spp=spp)
+    out = {}
+    for kind, extra in OUTPUT_KINDS:
+        integ = {"type": kind, **extra}
+        ia, ib = (mt.render(mt.load_dict(d, device=dev), spp=spp, seed=0,
+                            device=dev, integrator=integ).cpu()
+                  for dev in ("cuda", "cpu"))
+        diff = (ia - ib).abs()
+        mad, mean, mx = float(diff.mean()), float(ib.abs().mean()), float(
+            diff.max())
+        out[kind] = dict(mean_abs=mad, max_abs=mx)
+        if kind == "ptracer":
+            lim = 1e-5 * float(ib.abs().max())
+            ok = mx <= lim
+            bar = f"max |gpu - cpu| {mx:.3g} (limit {lim:.3g})"
+        else:
+            ok = mad <= 1e-3 * mean
+            bar = f"mean |gpu - cpu| {mad:.3g} (limit {1e-3 * mean:.3g})"
+        say(f"[outputs, card vs cpu] {kind} {res}^2 x {spp} spp "
+            f"{tuple(ia.shape)}: {bar}")
+        check(ok and bool(ia.isfinite().all()),
+              f"{kind}: card and CPU images disagree")
+    return out
+
+
+def outputs_phase():
+    """[outputs]: depth, aov, moment (and the Z-test), ptracer and the
+    spectral family at full width through K1, K2 and K3, launches exact,
+    the JAX package's bars, K1 and K3 on ptracer's connection rays, the
+    fit's share, the card against the CPU.  Returns the numbers and the
+    phase's launches."""
+    global _TALLY
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import (cornell_box, cornell_box_mesh,
+                                            single_quad_direct)
+    from epsm_mitsuba3_torch.utils.image import render_z_test
+    none = {"mt_closest_hit": 0, "mt_any_hit": 0, "bvh4_closest_hit": 0,
+            "bvh4_any_hit": 0, "bvh4_closest_hit_mp": 0}
+    n4, n16 = OUT_SPP // SPP_CHUNK, SPP // SPP_CHUNK
+    lo, hi = OUT_DEPTH
+    secs, out = {}, {}
+    zero_counts()
+    _TALLY = {}
+    try:
+        t0 = time.perf_counter()
+        box = mt.load_dict(cornell_box(res=RES, spp=OUT_SPP))
+        img, ms, peak = output_render(
+            "depth box", box, OUT_SPP, SPP_CHUNK, {"type": "depth"},
+            {**none, "mt_closest_hit": n4})
+        c = float(img[RES // 2, RES // 2, 0])
+        img_a, ms_a, peak_a = output_render(
+            "aov box", box, OUT_SPP, SPP_CHUNK,
+            {"type": "aov", "max_depth": 2},
+            {**none, "mt_closest_hit": 3 * n4, "mt_any_hit": 2 * n4})
+        ca = float(img_a[RES // 2, RES // 2, 3])
+        say(f"[outputs] centre depth: depth {c:.6g}, aov {ca:.6g} (limits "
+            f"{lo}-{hi}); aov channels {img_a.shape[-1]}")
+        check(lo < c < hi and lo < ca < hi, "centre depth out of range")
+        check(img_a.shape[-1] == 13 and float(img.std()) > 0,
+              "aov channels or a flat depth")
+        mesh = mt.load_dict(cornell_box_mesh(res=RES, spp=MESH_CHUNK,
+                                             max_depth=DEPTH))
+        _, ms_dm, _ = output_render(
+            "depth mesh", mesh, MESH_SPP, MESH_CHUNK, {"type": "depth"},
+            {**none, "bvh4_closest_hit": MESH_SPP // MESH_CHUNK})
+        out["depth aov"] = dict(depth_ms=ms, depth_peak=peak, aov_ms=ms_a,
+                                aov_peak=peak_a, centre=c, mesh_ms=ms_dm)
+        secs["depth aov"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        box_m = mt.load_dict(cornell_box(res=RES, spp=SPP, max_depth=4))
+        img_m, ms_m, peak_m = output_render(
+            "moment box", box_m, SPP, SPP_CHUNK,
+            {"type": "moment", "max_depth": 4},
+            {**none, "mt_closest_hit": 4 * n16, "mt_any_hit": 4 * n16})
+        var_min = float((img_m[..., 3:] - img_m[..., :3] ** 2).min())
+        path = mt.render(box_m, spp=SPP, seed=0, spp_chunk=SPP_CHUNK,
+                         integrator={"type": "path", "max_depth": 4})
+        d_path = float((img_m[..., :3] - path).abs().max())
+        ref = mt.render(box_m, spp=SPP, seed=1, spp_chunk=SPP_CHUNK,
+                        integrator={"type": "path", "max_depth": 4})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t1 = time.perf_counter()
+        passed, p_min, fails = render_z_test(box_m, spp=SPP, seed=0,
+                                             max_depth=4, reference=ref)
+        ms_z = (time.perf_counter() - t1) * 1e3
+        peak_z = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts_z = read_counts()
+        say(f"[outputs] moment: var min {var_min:.3g} (limit >= -1e-4); "
+            f"mean vs path at the same seed max |diff| {d_path:.3g} (limit "
+            f"{1e-4 * float(path.max()):.3g}); render_z_test, one "
+            f"{SPP}-spp pass against path at seed 1: {ms_z:.1f} ms, peak "
+            f"{peak_z:.2f} GiB, launches {counts_z}; passed {passed}, "
+            f"least p {p_min:.3g}, fail fraction {fails:.4%} (limit < 1 %)")
+        check(var_min >= -1e-4, "moment: second moment below mean^2")
+        check(d_path <= 1e-4 * float(path.max()),
+              "moment's mean and path's image differ")
+        check(fails < 0.01, "render_z_test: too many pixels fail")
+        check(counts_z["mt_closest_hit"] == 4 and counts_z["mt_any_hit"] == 4,
+              f"render_z_test launched {counts_z}")
+        out["moment"] = dict(ms=ms_m, peak=peak_m, var_min=var_min,
+                             path_diff=d_path, z_ms=ms_z, z_peak=peak_z,
+                             z_fail=fails, z_passed=passed)
+        del box_m, img_m, path, ref
+        secs["moment"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        quad = mt.load_dict(single_quad_direct(res=RES, spp=OUT_SPP))
+        img_q, ms_q, peak_q = output_render(
+            "ptracer quad", quad, OUT_SPP, SPP_CHUNK,
+            {"type": "ptracer", "max_depth": 2},
+            {**none, "mt_closest_hit": n4, "mt_any_hit": 2 * n4})
+        path_q = mt.render(quad, spp=OUT_SPP, seed=0, spp_chunk=SPP_CHUNK,
+                           integrator={"type": "path", "max_depth": 2})
+        rel_q = abs(float(img_q.mean() - path_q.mean())) / float(
+            path_q.mean())
+        say(f"[outputs] ptracer quad: mean {float(img_q.mean()):.6g}, path "
+            f"at depth 2 {float(path_q.mean()):.6g}: relative {rel_q:.3g} "
+            f"[limit {OUT_PT_REL}]")
+        check(rel_q < OUT_PT_REL, "ptracer and path disagree on the quad")
+        conn_k1 = connection_rays_k1(quad)
+        img_pm, ms_pm, peak_pm = output_render(
+            "ptracer mesh", mesh, MESH_CHUNK, MESH_CHUNK,
+            {"type": "ptracer", "max_depth": DEPTH},
+            {**none, "bvh4_closest_hit": DEPTH - 1, "bvh4_any_hit": DEPTH})
+        check(float(img_pm.std()) > 0, "ptracer mesh: image flat")
+        conn_k3 = connection_rays_k3(mesh)
+        out["ptracer"] = dict(quad_ms=ms_q, quad_peak=peak_q, rel=rel_q,
+                              mesh_ms=ms_pm, mesh_peak=peak_pm,
+                              k1_rays=conn_k1, k3_rays=conn_k3)
+        del mesh
+        secs["ptracer"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        gray = mt.load_dict(gray_box(RES, OUT_SPP))
+        spec = {**none, "mt_closest_hit": 4 * n4, "mt_any_hit": 4 * n4}
+        img_s, ms_s, peak_s = output_render(
+            "spectral gray box", gray, OUT_SPP, SPP_CHUNK,
+            {"type": "spectral", "max_depth": 4}, spec)
+        rgb = mt.render(gray, spp=OUT_SPP, seed=0, spp_chunk=SPP_CHUNK,
+                        integrator={"type": "path", "max_depth": 4})
+        rel_s = abs(float(img_s.mean() - rgb.mean())) / float(rgb.mean())
+        img_mo, ms_mo, _ = output_render(
+            "spectral_mono gray box", gray, OUT_SPP, SPP_CHUNK,
+            {"type": "spectral_mono", "max_depth": 4}, spec)
+        lum = rgb @ torch.tensor([0.2126, 0.7152, 0.0722], device=rgb.device)
+        rel_mo = abs(float(img_mo.mean() - lum.mean())) / float(lum.mean())
+        img_sp, ms_sp, _ = output_render(
+            "spectral_spec box", box, OUT_SPP, SPP_CHUNK,
+            {"type": "spectral_spec", "max_depth": 4, "n_bins": 8}, spec)
+        band = img_sp[:, RES * 2 // 24:RES * 3 // 24].mean((0, 1))
+        long_e, short_e = float(band[4:6].sum()), float(band[1:3].sum())
+        say(f"[outputs] spectral: mean {float(img_s.mean()):.6g} against "
+            f"the RGB render's {float(rgb.mean()):.6g}, relative "
+            f"{rel_s:.3g} [limit {OUT_SPEC_REL}]; mono "
+            f"{float(img_mo.mean()):.6g} against the luminance "
+            f"{float(lum.mean()):.6g}, relative {rel_mo:.3g} [limit "
+            f"{OUT_MONO_REL}]; spec ({img_sp.shape[-1]} bins) on the red "
+            f"wall: long {long_e:.6g}, short {short_e:.6g} [long > short]")
+        check(rel_s < OUT_SPEC_REL, "spectral and RGB renders disagree")
+        check(rel_mo < OUT_MONO_REL, "spectral_mono and luminance disagree")
+        check(img_sp.shape[-1] == 8 and long_e > short_e,
+              "spectral_spec: the red wall is not red")
+        fit = fit_share(lambda: mt.render(gray, spp=SPP_CHUNK, seed=7,
+                                          integrator={"type": "spectral",
+                                                      "max_depth": 4}))
+        out["spectral"] = dict(ms=ms_s, pass_ms=ms_s / n4, peak=peak_s,
+                               rel=rel_s, mono_ms=ms_mo, mono_rel=rel_mo,
+                               spec_ms=ms_sp, long=long_e, short=short_e,
+                               fit=fit)
+        del gray, box
+        secs["spectral"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        out["card vs cpu"] = outputs_card_vs_cpu()
+        secs["card vs cpu"] = time.perf_counter() - t0
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    say("[outputs] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} s in all")
+    out["secs"] = secs
+    return out
+
 
 def main() -> int:
     import torch
@@ -5692,6 +6090,15 @@ def main() -> int:
 
     lap("24 direct")
 
+    # -- 25. [outputs]: depth, aov, moment, ptracer, the spectral family ----
+    t0 = time.perf_counter()
+    ou = outputs_phase()
+    epsm_launches["launches_outputs_phase"] = ou["total"]
+    say(f"[outputs] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{ou['total']}")
+
+    lap("25 outputs")
+
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []
     for i, k in enumerate(("mt_closest_hit", "mt_any_hit")):
@@ -5797,6 +6204,8 @@ def main() -> int:
         "direct_reparam mesh"]["bwd"]["bvh4_closest_hit"]
     kernels[0]["emission_reparam_box_backward_launches"] = di[
         "emission_reparam box"]["bwd"]["mt_closest_hit"]
+    kernels[1]["ptracer_connection_rays"] = ou["ptracer"]["k1_rays"]
+    kernels[3]["ptracer_connection_rays"] = ou["ptracer"]["k3_rays"]
     # each kernel on the experiments' own rays: K1 at egg's 3,972
     # triangles, K2/K3 on shadow's 1,587,204
     for entry, rows, kind in ((kernels[0], epsm_exp["k1"], "closest"),

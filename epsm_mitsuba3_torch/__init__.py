@@ -16,6 +16,14 @@ version instead.
     params["blob.vertex_positions"] = params["blob.vertex_positions"] + 0.1
     scene = params.update()
     mt.write_image("out.exr", mt.render(scene))
+
+``render`` runs the integrator types ``path``, ``prb``, ``prb_basic``,
+``prb_reparam``, ``manifold``, ``manifold_caustic``, ``direct``,
+``direct_reparam``, ``emission_reparam``, ``depth``, ``aov``, ``moment``,
+``ptracer``, ``spectral``, ``spectral_mono`` and ``spectral_spec``, and
+any given to ``register_integrator``.  ``utils/image.py`` (the Z-test
+over ``moment``), ``utils/denoiser.py`` and ``utils/tonemap.py`` consume
+their outputs.
 """
 
 from .core.bitmap import Bitmap, read_image, write_image  # noqa: F401
@@ -26,6 +34,7 @@ from .models.scene import (Scene, SceneParameters, load_dict,  # noqa: F401
 from .ops.normals import (compute_vertex_normals,  # noqa: F401
                           scene_with_vertices)
 from .models.records import Ray, RayFlags  # noqa: F401
-from .ad.render import render, render_forward  # noqa: F401
+from .ad.render import (register_integrator, render,  # noqa: F401
+                        render_forward)
 
 __version__ = "0.1.0"

@@ -1,12 +1,21 @@
 """The differentiable ``render`` entry point (counterpart of
 ``ad/render.py``): every float tensor of the scene that requires grad
-receives its gradient through ``torch.autograd``: PRB (``ad/prb.py``)
-for the ``path``, ``prb`` and ``prb_basic`` integrators, reparameterised
-PRB (``ad/reparam.py``) for ``prb_reparam``, the EPSM manifold backward
-(``integrators/epsm.py``) for ``manifold`` and ``manifold_caustic``, the
-attached reparameterised estimators (``ad/direct_reparam.py``) for
-``direct_reparam`` and ``emission_reparam``, and zero for ``direct``
-(``integrators/direct.py``), as the reference detaches its scene.
+receives its gradient through ``torch.autograd``:
+
+- PRB (``ad/prb.py``) for ``path``, ``prb`` and ``prb_basic``,
+  reparameterised PRB (``ad/reparam.py``) for ``prb_reparam``;
+- the EPSM manifold backward (``integrators/epsm.py``) for ``manifold``
+  and ``manifold_caustic``;
+- the attached reparameterised estimators (``ad/direct_reparam.py``) for
+  ``direct_reparam`` and ``emission_reparam``;
+- plain autograd through the surface interaction for ``depth`` and the
+  geometric and albedo channels of ``aov`` (``integrators/aov.py``);
+- zero, as the reference detaches its scene, for ``direct``
+  (``integrators/direct.py``), ``moment``, ``ptracer``
+  (``integrators/ptracer.py``), ``spectral``, ``spectral_mono`` and
+  ``spectral_spec`` (``integrators/spectral.py``).
+
+A type given to ``register_integrator`` is looked up first.
 ``render_forward`` is forward mode for the PRB family."""
 from __future__ import annotations
 
@@ -16,7 +25,8 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.films import kahan_add
-from ..integrators import direct, epsm
+from ..integrators import aov, direct, epsm, ptracer
+from ..integrators import spectral as spectral_mod
 from ..ops import cuda_traverse as CT
 from . import direct_reparam, prb
 
@@ -31,6 +41,24 @@ _EPSM_TYPES = ("manifold", "manifold_caustic")
 #: the direct-illumination family: ``direct`` (detached) and its two
 #: reparameterised, differentiable forms
 _DIRECT_TYPES = ("direct", "direct_reparam", "emission_reparam")
+#: the other outputs: the depth, the AOV image, the moments, the particle
+#: tracer and the spectral developments
+_OUTPUT_TYPES = ("depth", "aov", "moment", "ptracer") + tuple(
+    spectral_mod.MODES)
+#: every type ``render`` runs without a registered integrator
+TYPES = _PATH_TYPES + _EPSM_TYPES + _DIRECT_TYPES + _OUTPUT_TYPES
+
+#: integrators given to ``register_integrator``: name -> callable
+_CUSTOM_INTEGRATORS = {}
+
+
+def register_integrator(name: str, fn) -> None:
+    """mi.register_integrator (JAX ad/render.py:21-31): ``render`` with an
+    integrator of type ``name`` calls ``fn(scene, seed=..., spp=...,
+    sensor_idx=..., cfg=dict)``, which returns the (H, W, C) image; the
+    registered name is looked up before the built-in types, and
+    ``spp_chunk`` does not split its calls."""
+    _CUSTOM_INTEGRATORS[name] = fn
 
 
 #: the reparameterisation's settings under the reference's names and the
@@ -63,15 +91,33 @@ def _integrator_cfg(scene, integrator: Optional[dict]):
     return cfg
 
 
+def _aov_names(cfg: dict):
+    """The channels of an ``aov`` integrator's ``aovs`` string of
+    ``label:name`` pairs (JAX ad/render.py:199-203); without a ``:`` in
+    it, ``aov.DEFAULT_AOVS``."""
+    if ":" not in str(cfg.get("aovs", "")):
+        return aov.DEFAULT_AOVS
+    return tuple(a.split(":")[1].strip() for a in
+                 str(cfg.get("aovs", "depth:depth,sh_normal:sh_normal")
+                     ).split(","))
+
+
 def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
            integrator: Optional[dict] = None, spp_chunk: int = 0,
            device=None) -> torch.Tensor:
-    """mi.render: the (H, W, 3) image of ``scene`` ((H, W, 5) for the
-    EPSM integrators), differentiable w.r.t. the scene's float tensors
-    that require grad.  ``direct``, ``direct_reparam`` and
-    ``emission_reparam`` read ``integrator["emitter_samples"]`` and
-    ``["bsdf_samples"]`` (default 1 each); the reparameterised types the
-    settings of ``_rp_items``.
+    """mi.render: the (H, W, C) image of ``scene``, differentiable w.r.t.
+    the scene's float tensors that require grad.  C is 3 but for the
+    EPSM integrators (5), ``aov`` (3 + its channels: 13 by default),
+    ``moment`` (6: the mean and the second moment), ``spectral_mono``
+    (1) and ``spectral_spec`` (``n_bins``, default 16).  ``direct``,
+    ``direct_reparam`` and ``emission_reparam`` read
+    ``integrator["emitter_samples"]`` and ``["bsdf_samples"]`` (default 1
+    each); the reparameterised types the settings of ``_rp_items``;
+    ``aov`` its ``aovs`` string (``_aov_names``); the spectral types
+    ``wavelengths`` (4) and ``n_bins`` (16).  Each type's depth is
+    ``max_depth``, 6 where neither the scene nor the call sets it: the
+    reference's own defaults for ``aov`` (2) and ``moment`` (4) are read
+    after that 6 is set, so never apply (kept as they are).
 
     ``spp_chunk``: render in passes of at most this many samples per pixel
     and average them with Kahan-compensated sums, through which the
@@ -90,38 +136,62 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
         raise ValueError(f"scene is on {scene.device}, render was asked "
                          f"to run on {device}")
     cfg = _integrator_cfg(scene, integrator)
-    if cfg["type"] not in _PATH_TYPES + _EPSM_TYPES + _DIRECT_TYPES:
-        raise NotImplementedError(
-            f"integrator '{cfg['type']}' is not ported")
+    kind = cfg["type"]
     if spp == 0:
         spp = scene.static.spp
+    if kind in _CUSTOM_INTEGRATORS:
+        return _CUSTOM_INTEGRATORS[kind](scene, seed=seed, spp=spp,
+                                         sensor_idx=sensor, cfg=cfg)
+    if kind not in TYPES:
+        raise NotImplementedError(f"integrator '{kind}' is not ported")
 
     multi_pop = cfg["multi_pop"]
     samples = (int(cfg.get("emitter_samples", 1)),
                int(cfg.get("bsdf_samples", 1)))
 
     def one_pass(pass_seed, pass_spp):
-        if cfg["type"] == "direct":
+        if kind == "depth":
+            return aov.render_depth(scene, pass_seed, sensor, pass_spp)
+        if kind == "aov":
+            return aov.render_aov(scene, pass_seed, sensor, pass_spp,
+                                  aovs=_aov_names(cfg),
+                                  max_depth=int(cfg.get("max_depth", 2)))
+        if kind == "moment":
+            return aov.render_moment(scene, pass_seed, sensor, pass_spp,
+                                     max_depth=int(cfg.get("max_depth", 4)))
+        if kind == "ptracer":
+            return ptracer.render_ptracer(
+                scene, pass_seed, sensor, pass_spp,
+                max_depth=int(cfg.get("max_depth", 6)))
+        if kind in spectral_mod.MODES:
+            return spectral_mod.render_spectral(
+                scene, pass_seed, sensor, pass_spp,
+                max_depth=int(cfg.get("max_depth", 6)),
+                rr_depth=int(cfg.get("rr_depth", 5)),
+                k=int(cfg.get("wavelengths", 4)),
+                mode=spectral_mod.MODES[kind],
+                n_bins=int(cfg.get("n_bins", 16)))
+        if kind == "direct":
             return direct.render_direct(scene, pass_seed, sensor, pass_spp,
                                         *samples)
-        if cfg["type"] == "direct_reparam":
+        if kind == "direct_reparam":
             return direct_reparam.render_direct_reparam(
                 scene, pass_seed, sensor, pass_spp, *samples,
                 rp_items=_rp_items(cfg))
-        if cfg["type"] == "emission_reparam":
+        if kind == "emission_reparam":
             return direct_reparam.render_emission_reparam(
                 scene, pass_seed, sensor, pass_spp, rp_items=_rp_items(cfg))
-        if cfg["type"] in _EPSM_TYPES:
+        if kind in _EPSM_TYPES:
             return epsm.render_epsm(
                 scene, seed=pass_seed, sensor_idx=sensor, spp=pass_spp,
                 max_depth=int(cfg["max_depth"]),
                 rr_depth=int(cfg["rr_depth"]),
-                caustic=cfg["type"] == "manifold_caustic")
+                caustic=kind == "manifold_caustic")
         return prb.render_prb(
             scene, seed=pass_seed, sensor_idx=sensor, spp=pass_spp,
             max_depth=int(cfg["max_depth"]), rr_depth=int(cfg["rr_depth"]),
             multi_pop=None if multi_pop is None else int(multi_pop),
-            reparam=cfg["type"] == "prb_reparam",
+            reparam=kind == "prb_reparam",
             rp_items=_rp_items(cfg))
 
     if spp_chunk and spp > spp_chunk:

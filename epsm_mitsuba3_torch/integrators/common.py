@@ -1,7 +1,8 @@
 """Shared integrator machinery (counterpart of ``integrators/common.py``):
 camera rays in the pixel-major lane order (lane = pixel * spp + s), the
-film of a pass's lanes, and the MIS power heuristic, which is detached
-as in the reference."""
+film of a pass's lanes, the MIS power heuristic, which is detached as in
+the reference, and ``detached``, the image of an integrator whose
+reference stops the gradient of the whole scene."""
 from __future__ import annotations
 
 from typing import Optional
@@ -83,3 +84,32 @@ def film(sensor: sns.Sensor, value: torch.Tensor, pos: torch.Tensor,
     data, w = films.splat(pos, value, sensor.width, sensor.height,
                           sensor.rfilter)
     return films.develop(data, w)
+
+
+class _Detached(torch.autograd.Function):
+    """The image ``fn()`` of a scene whose leaves require grad, computed
+    without a graph, and a zero gradient for each leaf."""
+
+    @staticmethod
+    def forward(ctx, fn, *leaves):
+        ctx.leaves = [(v.shape, v.dtype, v.device) for v in leaves]
+        return fn()
+
+    @staticmethod
+    def backward(ctx, g_img):
+        return (None, *(torch.zeros(s, dtype=d, device=v)
+                        for s, d, v in ctx.leaves))
+
+
+def detached(scene, fn):
+    """``fn()``, the image of an integrator whose reference stops the
+    gradient of the whole scene (``direct``, ``moment``, ``ptracer``, the
+    spectral family): where grad mode is on and a leaf of ``scene``
+    requires grad, the image is attached to those leaves with a zero
+    gradient each, so that ``torch.autograd.grad`` returns zeros rather
+    than raising; it is computed without a graph either way."""
+    leaves = [v for v in scene.leaves().values() if v.requires_grad]
+    if torch.is_grad_enabled() and leaves:
+        return _Detached.apply(fn, *leaves)
+    with torch.no_grad():
+        return fn()

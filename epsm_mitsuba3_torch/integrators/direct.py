@@ -13,8 +13,9 @@ and one closest-hit launch a BSDF sample.
 
 The reference detaches the whole scene (:24), so ``direct``'s gradient
 w.r.t. every leaf is zero: ``render_direct`` hands back zeros through
-``torch.autograd`` rather than an image that no leaf reaches.  The
-differentiable members of the family are ``ad/direct_reparam.py``'s.
+``torch.autograd`` (``common.detached``) rather than an image that no
+leaf reaches.  The differentiable members of the family are
+``ad/direct_reparam.py``'s.
 """
 from __future__ import annotations
 
@@ -88,28 +89,10 @@ def sample_direct(scene, sampler, ray: Ray, emitter_samples: int = 1,
 
 
 def _primal(scene, seed, sensor_idx, spp, emitter_samples, bsdf_samples):
-    with torch.no_grad():
-        sensor, _, sampler, ray, weight, pos = common.camera(
-            scene, seed, sensor_idx, spp)
-        L, _ = sample_direct(scene, sampler, ray, emitter_samples,
-                             bsdf_samples)
-        return common.film(sensor, L * weight, pos, spp)
-
-
-class _Detached(torch.autograd.Function):
-    """The image of a scene whose leaves require grad: the detached primal,
-    and a zero gradient for each leaf (the reference's stop_gradient of
-    the whole scene, :24)."""
-
-    @staticmethod
-    def forward(ctx, scene, cfg, *leaves):
-        ctx.leaves = [(v.shape, v.dtype, v.device) for v in leaves]
-        return _primal(scene, *cfg)
-
-    @staticmethod
-    def backward(ctx, g_img):
-        return (None, None, *(torch.zeros(s, dtype=d, device=v)
-                              for s, d, v in ctx.leaves))
+    sensor, _, sampler, ray, weight, pos = common.camera(
+        scene, seed, sensor_idx, spp)
+    L, _ = sample_direct(scene, sampler, ray, emitter_samples, bsdf_samples)
+    return common.film(sensor, L * weight, pos, spp)
 
 
 def render_direct(scene, seed: int = 0, sensor_idx: int = 0, spp: int = 16,
@@ -117,9 +100,6 @@ def render_direct(scene, seed: int = 0, sensor_idx: int = 0, spp: int = 16,
                   ) -> torch.Tensor:
     """One pass of ``direct`` (JAX ``render_direct``, :87-104): the (H, W,
     3) image.  Where grad mode is on and a scene leaf requires grad, each
-    such leaf's gradient is zero."""
-    cfg = (seed, sensor_idx, spp, emitter_samples, bsdf_samples)
-    leaves = [v for v in scene.leaves().values() if v.requires_grad]
-    if torch.is_grad_enabled() and leaves:
-        return _Detached.apply(scene, cfg, *leaves)
-    return _primal(scene, *cfg)
+    such leaf's gradient is zero (``common.detached``)."""
+    return common.detached(scene, lambda: _primal(
+        scene, seed, sensor_idx, spp, emitter_samples, bsdf_samples))

@@ -26,8 +26,12 @@ children), the five samplers of ``models/samplers.py``, ``hdrfilm``
 with any of the six filters of ``models/films.py`` (``gaussian`` where
 none is named); and the ``path``, ``prb``, ``prb_basic``,
 ``prb_reparam``, ``manifold``, ``manifold_caustic``, ``direct``,
-``direct_reparam`` and ``emission_reparam`` integrators.  Any
-other plugin raises ``NotImplementedError`` with its name.  Shapes keep
+``direct_reparam``, ``emission_reparam``, ``depth``, ``aov``, ``moment``
+and ``ptracer`` integrators.  The spectral types are not scene elements
+in the reference either: ``render``'s ``integrator`` argument names
+them, and a scene naming one raises ``ValueError`` as the reference's
+loader does.  Any other plugin raises ``NotImplementedError`` with its
+name.  Shapes keep
 their names and vertex ranges, by which the experiments (``app/exp``) and ``traverse``
 move them.  A scene of more than ``ops/accel.py``
 ``BRUTE_FORCE_MAX_TRIS`` triangles gets a BVH at load, packed once into
@@ -237,7 +241,11 @@ _SHAPE_TYPES = ("obj", "ply", "serialized", "rectangle", "cube", "disk",
 _SENSOR_TYPES = sns_mod.KINDS
 _INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "prb_reparam", "manifold",
                      "manifold_caustic", "direct", "direct_reparam",
-                     "emission_reparam")
+                     "emission_reparam", "depth", "aov", "moment",
+                     "ptracer")
+#: integrator types that ``render`` runs but the reference's loader does
+#: not list (JAX models/scene.py:1041-1044): a scene naming one is refused
+_RENDER_ONLY_TYPES = ("spectral", "spectral_mono", "spectral_spec")
 
 
 def _open_edge_mask(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
@@ -847,6 +855,8 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
             b.add_sensor(val)
         elif t in _INTEGRATOR_TYPES:
             b.integrator = dict(val)
+        elif t in _RENDER_ONLY_TYPES:
+            raise ValueError(f"unsupported scene element '{key}' type={t}")
         elif t in _SHAPE_TYPES:
             b.add_shape(val, key)
         elif t in bsdf_mod.KIND_NAMES or t in ("twosided", "mask"):

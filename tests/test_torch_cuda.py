@@ -570,3 +570,24 @@ def test_grad_cuda_matches_cpu(cuda, scene_fn):
     for a, b in zip(*grads):
         assert torch.isfinite(a).all()
         assert float((a.cpu() - b).norm()) <= 1e-3 * float(b.norm()) + 1e-12
+
+
+@pytest.mark.parametrize("kind", ["depth", "aov", "moment", "ptracer",
+                                  "spectral", "spectral_mono",
+                                  "spectral_spec"])
+def test_output_types_cuda_match_cpu(cuda, kind):
+    """The new outputs at 16^2 x 2 spp on the card against the CPU: images
+    within 1e-3 of the mean on average (the particle tracer's film within
+    1e-5 of its largest entry: its scatter-add sums in another order)."""
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        sc = mt.load_dict(cornell_box(res=16, spp=2, max_depth=3), device=dev)
+        imgs.append(mt.render(sc, spp=2, seed=1, device=dev,
+                              integrator={"type": kind, "max_depth": 3}
+                              ).cpu())
+    a, b = imgs
+    assert a.shape == b.shape and bool(torch.isfinite(a).all())
+    if kind == "ptracer":
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    else:
+        assert float((a - b).abs().mean()) <= 1e-3 * float(b.abs().mean())

@@ -190,3 +190,26 @@ def test_forward_and_direct_entry_points_without_device_raise():
                         integrator={"type": kind, "reparam_rays": 2})
         assert img.shape == (8, 8, 3)
     assert CI.launches == before and CI._lib is None
+
+
+def test_output_entry_points_without_device_raise():
+    """``render`` with ``depth``, ``aov``, ``moment``, ``ptracer`` and the
+    spectral types, and ``render_z_test``, default to the GPU too; on the
+    CPU they run the plain versions and build nothing."""
+    _require_no_cuda()
+    from epsm_mitsuba3_torch.utils.image import render_z_test
+    before = dict(CI.launches)
+    scene = mt.load_dict(cornell_box(res=4, spp=1, max_depth=2),
+                         device="cpu")
+    for kind in ("depth", "aov", "moment", "ptracer", "spectral",
+                 "spectral_mono", "spectral_spec"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mt.render(scene, spp=1, integrator={"type": kind})
+        img = mt.render(scene, spp=1, device="cpu",
+                        integrator={"type": kind, "max_depth": 2})
+        assert img.shape[:2] == (4, 4) and bool(torch.isfinite(img).all())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_z_test(scene, spp=2)
+    mean, var = render_z_test(scene, spp=2, device="cpu")
+    assert mean.shape == var.shape == (4, 4, 3)
+    assert CI.launches == before and CI._lib is None
