@@ -88,8 +88,8 @@ Phases (any failed check raises, and the script exits non-zero):
     512^2, match_res 128, 2 iterations each (spp and ground truth cut,
     ``EXP_CELLS``): ms an iteration and by phase, launches (each count
     exact), theta and its gradients finite and non-zero, peak memory,
-    egg's device busy share of one profiled iteration (``EXP_PROFILED``),
-    shadow's BVH build and
+    a config's device busy share where ``EXP_PROFILED`` names it (none
+    now), shadow's BVH build and
     refit + re-pack; bunny, bathroom and bedroom one iteration each; K1
     on one egg pass's rays and K2/K3 on one shadow pass's rays, each held
     bit for bit against its plain version and timed beside its bound; the
@@ -235,6 +235,25 @@ Phases (any failed check raises, and the script exits non-zero):
     the fit's share of a profiled pass; launches exact throughout; the
     card against the CPU at 64^2 x 2 spp for the seven types.
 
+26. [plugins]: ``cornell_box`` at 512^2 x 64 spp (16 passes of 2^20
+    lanes, K1 exact) with an analytic sphere and a measured back wall
+    (the JAX tests' synthetic Beckmann tensor file, written at run time):
+    the sphere's pixels differ from the wall's behind it, the measured
+    slot's GGX proxy passes a chi-square test on 2^20 draws; on the
+    reference's ball scene at 512^2 the PRB centre and radius gradients
+    are non-zero with the signs of central differences, and
+    ``render_forward`` of a centre tangent agrees with the backward;
+    ``cornell_box_mesh`` on the numpy-built tree (its build time and
+    records beside the native tree's; K2/K3 bit for bit their plain
+    versions on 2^18 of its rays; its 512^2 x 16 spp render equal to the
+    native tree's but for tie rays; once more with a sphere); one
+    manifold iteration of the epsm-mesh cell with a sphere (finite, the
+    sphere's logged vertices ismesh 0); the box under the double variant
+    (float64 within 2e-3 of float32, the same K1 launches, a float64 PRB
+    gradient); the box with one plugin of each registry (launches exact,
+    the registered BSDF's chi-square test); the card against the CPU at
+    64^2 for each.
+
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
 prints no result.
@@ -302,10 +321,10 @@ MATCH_CMP_RES = 64
 EXP_RES, EXP_MATCH, EXP_ITERS = 512, 128, 2
 EXP_CELLS = (("egg", 32, 32), ("glossyball", 32, 32), ("highlight", 32, 32),
              ("shadow", 16, 16))
-#: the configs whose run ends with a profiled iteration: egg's (K1 a
-#: quarter of its busy time); the others' are left out for the script's
-#: time limit
-EXP_PROFILED = ("egg",)
+#: the configs whose run ends with a profiled iteration: none, for the
+#: script's time limit (egg's, ~50 s, last measured K1 at a quarter of
+#: its busy time; the others' were cut before it)
+EXP_PROFILED = ()
 #: bunny, bathroom and bedroom (procedural stand-ins): one iteration each
 #: at 512^2 and this spp (ground truth too)
 EXP_ONE, EXP_ONE_SPP = ("bunny", "bathroom", "bedroom"), 4
@@ -5797,6 +5816,798 @@ def outputs_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# [plugins]: the analytic sphere, the measured BSDF, the numpy-built BVH,
+# the double variant and the six plugin registries
+# ---------------------------------------------------------------------------
+
+#: the analytic sphere of the [plugins] box: on the floor, left of centre
+PL_BALL = {"type": "sphere", "analytic": True, "radius": 0.3,
+           "center": [-0.35, 0.3, 0.2],
+           "bsdf": {"type": "diffuse",
+                    "reflectance": {"type": "rgb", "value": [0.2, 0.4, 0.8]}}}
+#: the synthetic measured material (the JAX package's
+#: tests/test_measured.py:38-95 ``_synth_bsdf``): Beckmann alpha 0.3
+PL_ALPHA = 0.3
+#: spp of the mesh, double and registry renders (passes of SPP_CHUNK, the
+#: mesh's of MESH_CHUNK); the chi-square draws; K2/K3 held on this many
+#: of the numpy tree's rays; the double variant's bar (JAX's own,
+#: tests/test_double_variant.py:62)
+PL_SPP, PL_CHI2_DRAWS, PL_SUBSET, PL_DOUBLE_REL = 16, 2 ** 20, 2 ** 18, 2e-3
+#: the reference's FD check (tests/test_quadric.py:107): its ball lit by
+#: a rectangle at 512^2 x 4 spp, prb depth 2, eps 1e-2
+PL_FD_SPP, PL_FD_EPS = 4, 1e-2
+#: the phong exponent of the registered BSDF (tests/test_register_bsdf.py)
+PL_PHONG = 8.0
+
+
+def _beckmann_d(theta_m):
+    import numpy as np
+    c2 = np.cos(theta_m) ** 2
+    t2 = np.tan(theta_m) ** 2
+    return np.exp(-t2 / PL_ALPHA ** 2) / (np.pi * PL_ALPHA ** 2 * c2 ** 2)
+
+
+def _beckmann_sigma(theta_i):
+    import numpy as np
+    tm = np.linspace(0, np.pi / 2 - 1e-3, 256)
+    pm = np.linspace(0, 2 * np.pi, 128, endpoint=False)
+    TM, PM = np.meshgrid(tm, pm, indexing="ij")
+    m_ = np.stack([np.sin(TM) * np.cos(PM), np.sin(TM) * np.sin(PM),
+                   np.cos(TM)], -1)
+    dA = (tm[1] - tm[0]) * (pm[1] - pm[0])
+    out = []
+    for ti in np.atleast_1d(theta_i):
+        wi = np.array([np.sin(ti), 0, np.cos(ti)])
+        out.append(np.sum(_beckmann_d(TM) * np.clip(m_ @ wi, 0, None)
+                          * np.sin(TM)) * dA)
+    return np.asarray(out)
+
+
+def synth_measured(path):
+    """An RGL tensor file of an analytic Beckmann material, as the JAX
+    package's tests write it (no RGL download)."""
+    import numpy as np
+    from epsm_mitsuba3_torch.models import measured as MT
+    res_t, res_p = 64, 16
+    u_t = np.linspace(0, 1, res_t)
+    theta_m = (u_t ** 2) * (np.pi / 2)
+    theta_i = np.asarray([0.0, 0.35, 0.7, 1.0, 1.3], np.float32)
+    ndf = np.tile(_beckmann_d(theta_m)[None, :], (res_p, 1))
+    sigma = np.tile(_beckmann_sigma(theta_m)[None, :], (res_p, 1))
+    vndf = np.zeros((1, len(theta_i), res_p, res_t), np.float32)
+    phis = np.linspace(-np.pi, np.pi, res_p)
+    for k, ti in enumerate(theta_i):
+        wi = np.array([np.sin(ti), 0, np.cos(ti)])
+        TM, PM = np.meshgrid(theta_m, phis, indexing="xy")
+        m_ = np.stack([np.sin(TM) * np.cos(PM), np.sin(TM) * np.sin(PM),
+                       np.cos(TM)], -1)
+        jac = np.sin(TM) * (np.pi * np.maximum(u_t[None, :], 1e-3))
+        vndf[0, k] = _beckmann_d(TM) * np.clip(m_ @ wi, 0, None) * jac
+    MT.write_tensor_file(path, {
+        "theta_i": theta_i, "phi_i": np.asarray([0.0], np.float32),
+        "ndf": ndf, "sigma": sigma, "vndf": vndf,
+        "spectra": np.full((1, len(theta_i), 4, res_p, res_t), 0.8),
+        "luminance": np.ones((1, len(theta_i), res_p, res_t)),
+        "wavelengths": np.linspace(400, 700, 4),
+        "jacobian": np.asarray([1], np.uint8)})
+
+
+def plugins_box(measured, res, spp, ball=True):
+    """cornell_box with the analytic sphere and a measured back wall."""
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    d = cornell_box(res=res, spp=spp, max_depth=DEPTH)
+    d["back"]["bsdf"] = {"type": "measured", "filename": measured}
+    if ball:
+        d["ball"] = dict(PL_BALL)
+    return d
+
+
+def ball_scene(res):
+    """The JAX package's tests/test_quadric.py ``_ball_scene``: a
+    sphere lit by a rectangle light."""
+    import epsm_mitsuba3_torch as mt
+    T = mt.ScalarTransform4f
+    return {
+        "type": "scene",
+        "sensor": {"type": "perspective", "fov": 30,
+                   "to_world": T.look_at(origin=[0, 0.35, 1.2],
+                                         target=[0, 0.35, 0], up=[0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": res,
+                            "height": res}},
+        "light": {"type": "rectangle",
+                  "to_world": T.look_at(origin=[1.2, 1.2, 1.2],
+                                        target=[0, 0.35, 0], up=[0, 1, 0])
+                  .scale([0.4, 0.4, 1.0]),
+                  "emitter": {"type": "area", "radiance": {
+                      "type": "rgb", "value": [8.0] * 3}}},
+        "ball": {"type": "sphere", "radius": 0.35, "center": [0, 0.35, 0],
+                 "analytic": True,
+                 "bsdf": {"type": "diffuse", "reflectance": {
+                     "type": "rgb", "value": [0.5] * 3}}}}
+
+
+def plugin_render(label, scene, spp, chunk, expect, integrator=None,
+                  seed=0):
+    """One render of ``spp`` in passes of ``chunk``, the counts set to 0
+    before and read after, each as ``expect`` says; the image finite.
+    Returns (image, wall ms, counts)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = mt.render(scene, spp=spp, seed=seed, spp_chunk=chunk,
+                    integrator=integrator)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    say(f"[plugins] {label}: {scene.sensors[0].width}^2 x {spp} spp in "
+        f"passes of {chunk}: {ms:.1f} ms; launches {counts}; dtype "
+        f"{img.dtype}, mean {float(img.mean()):.6g}")
+    for k, n in expect.items():
+        check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, "
+              f"expected {n}")
+    check(bool(torch.isfinite(img).all()), f"{label}: image not finite")
+    return img, ms, counts
+
+
+def bsdf_chi2(label, sample, pdf, device, draws=PL_CHI2_DRAWS, res=31):
+    """The chi-square test (``utils/chi2.py``) of a BSDF's sampling on
+    ``draws`` draws on the card, at the reference's 1 % level."""
+    from epsm_mitsuba3_torch.utils.chi2 import ChiSquareTest, SphericalDomain
+    t0 = time.perf_counter()
+    test = ChiSquareTest(SphericalDomain(), sample, pdf, sample_count=draws,
+                         res=res, ires=8, device=device)
+    ok = test.run()
+    say(f"[plugins] chi2 {label}, {draws} draws: {test.messages} "
+        f"[pass: p > 0.01] in {time.perf_counter() - t0:.1f} s")
+    check(ok, f"{label}: chi-square test failed ({test.messages})")
+    return dict(p=test.p_value, message=test.messages)
+
+
+def slot_chi2(scene, kind, label, res=31):
+    """The sampling of the scene's first BSDF slot of ``kind`` against its
+    pdf, both through the BSDF table's dispatch (``B.sample`` /
+    ``B.eval_pdf`` on the scene's kinds)."""
+    import torch
+    from epsm_mitsuba3_torch.models import bsdf as B
+    dev = scene.device
+    slot = int((scene.bsdfs["kind"] == kind).nonzero()[0])
+    wi0 = torch.tensor([0.3, -0.2, 0.933], device=dev)
+    wi0 = wi0 / wi0.norm()
+    tex = scene.bsdf_textures()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kinds = scene.static.bsdf_kinds
+
+    def lanes(n):
+        return (torch.full((n,), slot, dtype=torch.int32, device=dev),
+                wi0.expand(n, 3).contiguous(),
+                torch.zeros((n, 2), device=dev))
+
+    def sample(n):
+        idx, wi, uv = lanes(n)
+        bs, _, ok = B.sample(scene.bsdfs, kinds, idx, wi,
+                             torch.rand(n, generator=gen, device=dev),
+                             torch.rand((n, 2), generator=gen, device=dev),
+                             textures=tex, uv=uv)
+        return bs.wo[ok]
+
+    def pdf(dirs):
+        wo = dirs.reshape(-1, 3)
+        idx, wi, uv = lanes(wo.shape[0])
+        return B.eval_pdf(scene.bsdfs, kinds, idx, wi, wo, textures=tex,
+                          uv=uv)[1].reshape(dirs.shape[:-1])
+
+    return bsdf_chi2(label, sample, pdf, dev, res=res)
+
+
+def measured_chi2(scene):
+    """The measured slot's GGX-proxy sampling against its pdf."""
+    from epsm_mitsuba3_torch.models import bsdf as B
+    return slot_chi2(scene, B.KIND_MEASURED, "measured slot (GGX proxy)")
+
+
+def sphere_pixels(scene):
+    """The pixels whose centre ray hits an analytic sphere."""
+    import torch
+    from epsm_mitsuba3_torch.models import sensors as sns
+    from epsm_mitsuba3_torch.models.records import Ray
+    s = scene.sensors[0]
+    dev = scene.device
+    y, x = torch.meshgrid(torch.arange(s.height, device=dev),
+                          torch.arange(s.width, device=dev), indexing="ij")
+    pos = torch.stack([(x.reshape(-1) + 0.5) / s.width,
+                       (y.reshape(-1) + 0.5) / s.height], -1)
+    ray, _ = sns.sample_ray_differential(s, pos)
+    pi = scene.ray_intersect_preliminary(Ray.make(ray.o, ray.d))
+    return (pi.prim_index >= scene.faces.shape[0]).reshape(s.height, s.width)
+
+
+def sphere_gradient_fd(label):
+    """The reference's check on its ball scene at 512^2: PRB's centre and
+    radius gradients non-zero, each with the sign of a central
+    difference; and ``render_forward`` of a centre tangent against the
+    backward's directional derivative (relative FW_RTOL)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    sc = mt.load_dict(ball_scene(RES))
+    integ = {"type": "prb", "max_depth": 2}
+
+    def loss(sph):
+        return mt.render(sc.with_leaves({"sph_data": sph}), spp=PL_FD_SPP,
+                         seed=3, integrator=integ).mean()
+
+    sph = sc.sph_data.clone().requires_grad_(True)
+    zero_counts()
+    g = torch.autograd.grad(loss(sph), sph)[0][0].tolist()
+    counts = read_counts()
+    fd = []
+    with torch.no_grad():
+        for k in range(4):
+            e = torch.zeros_like(sph)
+            e[0, k] = PL_FD_EPS
+            fd.append(float(loss(sc.sph_data + e) - loss(sc.sph_data - e))
+                      / (2 * PL_FD_EPS))
+    say(f"[plugins] {label}: PRB d mean(img) / d(cx, cy, cz, r) "
+        f"{[round(x, 6) for x in g]}; central differences (eps "
+        f"{PL_FD_EPS}) {[round(x, 6) for x in fd]}; fwd+bwd launches "
+        f"{counts} [each non-zero, signs equal]")
+    for k, (a, b) in enumerate(zip(g, fd)):
+        check(math.isfinite(a) and a != 0.0 and (a > 0) == (b > 0),
+              f"{label}: component {k}: gradient {a}, difference {b}")
+    tan = torch.zeros_like(sc.sph_data)
+    tan[0, :3] = torch.tensor([0.6, -0.3, 0.8])
+    W = x_ramp(sc)
+    dimg = mt.render_forward(sc, {"sph_data": tan}, spp=PL_FD_SPP,
+                             seed=FW_SEED, integrator=integ)
+    fwd = float((dimg * W).sum())
+    bwd, _ = forward_vs_backward(sc, {"sph_data": tan}, PL_FD_SPP, integ)
+    rel = abs(fwd - bwd) / max(abs(bwd), 1e-30)
+    say(f"[plugins] {label}: render_forward of a centre tangent <dimg, W> "
+        f"{fwd:.8g}, the backward's {bwd:.8g}: relative {rel:.3g} [limit "
+        f"{FW_RTOL}]")
+    check(rel <= FW_RTOL and bwd != 0.0,
+          f"{label}: forward and backward disagree")
+    return dict(grad=g, fd=fd, fwd=fwd, bwd=bwd, rel=rel)
+
+
+def plugins_box_cell(measured):
+    """The box with the sphere and the measured slot at full width."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    n16 = SPP // SPP_CHUNK
+    t0 = time.perf_counter()
+    box = mt.load_dict(plugins_box(measured, RES, SPP_CHUNK))
+    img, ms, _ = plugin_render(
+        "box + sphere + measured", box, SPP, SPP_CHUNK,
+        {"mt_closest_hit": DEPTH * n16, "mt_any_hit": DEPTH * n16,
+         "bvh4_closest_hit": 0, "bvh4_any_hit": 0})
+    plain = mt.render(mt.load_dict(plugins_box(measured, RES, SPP_CHUNK,
+                                               ball=False)),
+                      spp=SPP, seed=0, spp_chunk=SPP_CHUNK)
+    mask = sphere_pixels(box)
+    diff = (img - plain).abs().mean(-1)
+    on, off = float(diff[mask].mean()), float(diff[~mask].mean())
+    say(f"[plugins] the sphere covers {int(mask.sum())} pixels: mean "
+        f"|img - img without it| {on:.6g} there, {off:.6g} elsewhere "
+        f"[> 2 % of the image; sphere pixels differ: > 0.05 x the mean "
+        f"{float(plain.mean()):.4g} and > 4x elsewhere]")
+    check(float(mask.float().mean()) > 0.02
+          and on > 0.05 * float(plain.mean()) and on > 4 * off,
+          "the sphere's pixels do not differ")
+    t1 = time.perf_counter()
+    chi2 = measured_chi2(box)
+    del plain
+    t2 = time.perf_counter()
+    fd = sphere_gradient_fd("ball scene")
+    secs = {"load, renders": t1 - t0, "chi2": t2 - t1,
+            "gradients": time.perf_counter() - t2}
+    say("[plugins] box seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return dict(ms=ms, sphere_pixels=int(mask.sum()), diff_on=on,
+                diff_off=off, chi2=chi2, fd=fd, secs=secs)
+
+
+def plugins_mesh_cell():
+    """cornell_box_mesh on the numpy-built tree: the build against the
+    native one's, K2/K3 against their plain versions on it, the render
+    against the native tree's, once more with an analytic sphere."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import bvh as BT
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT
+    from epsm_mitsuba3_torch.ops import traverse as TR
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    d = cornell_box_mesh(res=RES, spp=MESH_CHUNK, max_depth=DEPTH)
+    mesh = mt.load_dict(d)
+    v, f = mesh.vertices.detach().cpu().numpy(), mesh.faces.cpu().numpy()
+    builds = {}
+    for name in ("native", "numpy"):
+        t0 = time.perf_counter()
+        bvh = BT.build(v, f, device=mesh.device, builder=name)
+        builds[name] = dict(s=time.perf_counter() - t0,
+                            nodes=int(bvh.meta.shape[0]),
+                            levels=int(bvh.n_levels), bvh=bvh)
+    mesh_np = mesh.with_bvh(builds["numpy"]["bvh"])
+    records = {"native": int(mesh.bvh_nodes.shape[0]),
+               "numpy": int(mesh_np.bvh_nodes.shape[0])}
+    say(f"[plugins] {mesh.faces.shape[0]} triangles: native build "
+        f"{builds['native']['s']:.3f} s, {builds['native']['nodes']} binary "
+        f"nodes over {builds['native']['levels']} levels, "
+        f"{records['native']} BVH4 records; numpy build "
+        f"{builds['numpy']['s']:.3f} s, {builds['numpy']['nodes']} nodes "
+        f"over {builds['numpy']['levels']} levels, {records['numpy']} "
+        "records")
+    gen = torch.Generator(device=mesh.device).manual_seed(4)
+    o, dd, maxt = (x[:PL_SUBSET].contiguous()
+                   for x in main_path_rays(mesh_np, gen, MESH_CHUNK))
+    args = (mesh_np.bvh_nodes, mesh_np.bvh_tris, o, dd, maxt)
+    hit = CT.closest_hit(*args, tri_k=mesh_np.bvh_tris_k)
+    occ = CT.any_hit(*args, tri_k=mesh_np.bvh_tris_k)
+    ref = TR.bvh_ray_intersect_plain(*args)
+    occ_ref = TR.bvh_ray_test_plain(*args)
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(mesh.device)
+    diff = [int((a != b).sum()) for a, b in zip(hit, ref)]
+    say(f"[plugins] K2/K3 on the numpy tree against their plain versions "
+        f"on {PL_SUBSET} rays: t, slot, u, v lanes differing {diff}, any "
+        f"hit {int((occ != occ_ref).sum())} [limit 0]")
+    check(all(torch.equal(a, b) for a, b in zip(hit, ref))
+          and torch.equal(occ, occ_ref), "K2/K3 on the numpy tree differ "
+          "from their plain versions")
+    n = MESH_SPP // MESH_CHUNK
+    expect = {"bvh4_closest_hit": DEPTH * n, "bvh4_any_hit": DEPTH * n,
+              "mt_closest_hit": 0, "mt_any_hit": 0}
+    img_np, ms_np, _ = plugin_render("mesh, numpy tree", mesh_np, MESH_SPP,
+                                     MESH_CHUNK, expect)
+    img_nat, ms_nat, _ = plugin_render("mesh, native tree", mesh, MESH_SPP,
+                                       MESH_CHUNK, expect)
+    delta = (img_np - img_nat).abs()
+    mad = float(delta.mean())
+    parted = float((delta.amax(-1) > 1e-5).float().mean())
+    say(f"[plugins] numpy tree against native: mean |diff| {mad:.3g} "
+        f"[limit {1e-4 * float(img_nat.mean()):.3g}]; pixels apart by > 1e-5:"
+        f" {parted:.4%} [limit 0.1 %: tie rays]")
+    check(mad <= 1e-4 * float(img_nat.mean()) and parted <= 1e-3,
+          "the numpy tree's render differs from the native tree's")
+    d["ball"] = dict(PL_BALL)
+    mesh_ball = mt.load_dict(d).with_bvh(builds["numpy"]["bvh"])
+    img_b, ms_b, _ = plugin_render("mesh + sphere, numpy tree", mesh_ball,
+                                   MESH_SPP, MESH_CHUNK, expect)
+    check(float((img_b - img_np).abs().mean()) > 1e-4,
+          "the sphere does not show in the mesh")
+    return dict(build_native_s=builds["native"]["s"],
+                build_numpy_s=builds["numpy"]["s"], records=records,
+                ms_numpy=ms_np, ms_native=ms_nat, ms_sphere=ms_b,
+                mean_abs=mad, parted=parted)
+
+
+def plugins_epsm_cell():
+    """One ``manifold`` iteration of the epsm-mesh cell with an analytic
+    sphere: finite, launches exact, and every logged vertex on the sphere
+    has ismesh 0, so its chain stops there."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.integrators import epsm as ET
+    from epsm_mitsuba3_torch.ops.sinkhorn import Matcher
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    d = cornell_box_mesh(res=EPSM_RES, spp=EPSM_SPP, max_depth=DEPTH)
+    d["ball"] = dict(PL_BALL)
+    scene = mt.load_dict(d)
+    dev = scene.device
+    with torch.no_grad():
+        gt = mt.render(scene, spp=EPSM_SPP, seed=123,
+                       integrator={"type": "path", "max_depth": DEPTH})
+    theta = torch.tensor(0.01, device=dev, requires_grad=True)
+    sc = scene.set_vertices(scene.vertices + theta * torch.tensor(
+        [1.0, 0.0, 0.0], device=dev))
+    logs = []
+    orig = ET.sample_path_logged
+
+    def keep(*a, **kw):
+        out = orig(*a, **kw)
+        logs.append(out[2])
+        return out
+
+    ET.sample_path_logged = keep
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = mt.render(sc, spp=EPSM_SPP, seed=1,
+                        integrator={"type": "manifold", "max_depth": DEPTH})
+        with torch.no_grad():
+            g5 = Matcher(EPSM_RES).match_Sinkhorn(
+                img[..., :3].reshape(-1, 3), gt.reshape(-1, 3)).reshape(
+                    EPSM_RES, EPSM_RES, 5)
+        (g,) = torch.autograd.grad(torch.sum(img * g5), theta)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ET.sample_path_logged = orig
+    counts = read_counts()
+    check(len(logs) > 0, "epsm + sphere: no logged pass")
+    nf = scene.faces.shape[0]
+    on_sph = [lg.active & (lg.prim_index >= nf) for lg in logs]
+    n_sph = sum(int(m.sum()) for m in on_sph)
+    mesh_left = sum(int((lg.ismesh[m] != 0).sum())
+                    for lg, m in zip(logs, on_sph))
+    say(f"[plugins] epsm mesh + sphere, one manifold iteration at "
+        f"{EPSM_RES}^2 x {EPSM_SPP} spp: {wall:.1f} ms, dL/dtheta "
+        f"{float(g):.6g}, launches {counts}; {n_sph} logged vertices on "
+        f"the sphere, {mesh_left} of them with ismesh != 0 [limit 0]")
+    check(math.isfinite(float(g)) and float(g) != 0.0
+          and bool(torch.isfinite(img).all()), "epsm + sphere: not finite")
+    check(n_sph > 0 and mesh_left == 0,
+          "epsm + sphere: the sphere's vertices do not stop their chains")
+    for k, n in {"bvh4_closest_hit": 4 * DEPTH + 1,
+                 "bvh4_any_hit": 3 * DEPTH, "mt_closest_hit": 0,
+                 "mt_any_hit": 0}.items():
+        check(counts[k] == n, f"epsm + sphere: {k} launched {counts[k]} "
+              f"times, expected {n}")
+    return dict(wall_ms=wall, grad=float(g), sphere_vertices=n_sph)
+
+
+def plugins_double_cell():
+    """The box at 512^2 x PL_SPP spp under float32 and under the double
+    variant: the same K1 launches, the float64 image within PL_DOUBLE_REL
+    of the float32 one; a PRB fwd+bwd pass in float64."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    n = PL_SPP // SPP_CHUNK
+    expect = {"mt_closest_hit": DEPTH * n, "mt_any_hit": DEPTH * n}
+    out = {}
+    try:
+        for name in ("cuda_ad_rgb", "cuda_ad_rgb_double"):
+            mt.set_variant(name)
+            box = mt.load_dict(cornell_box(res=RES, spp=SPP_CHUNK,
+                                           max_depth=DEPTH))
+            img, ms, counts = plugin_render(f"box, {name}", box, PL_SPP,
+                                            SPP_CHUNK, expect)
+            out[name] = (img, ms, counts, box)
+        img64, _, _, box64 = out["cuda_ad_rgb_double"]
+        refl = box64.bsdfs["reflectance"].clone().requires_grad_(True)
+        zero_counts()
+        img_g = mt.render(box64.with_leaves({"bsdfs.reflectance": refl}),
+                          spp=SPP_CHUNK, seed=5,
+                          integrator={"type": "prb", "max_depth": DEPTH})
+        (g,) = torch.autograd.grad((img_g ** 2).mean(), refl)
+        counts_g = read_counts()
+        fd_small, fd_large = double_precision_fd(mt.load_dict(cornell_box(
+            res=128, spp=SPP_CHUNK, max_depth=DEPTH)))
+    finally:
+        mt.set_variant("cuda_ad_rgb")
+    img32 = out["cuda_ad_rgb"][0]
+    rel = float((img64 - img32).abs().mean() / img32.mean())
+    say(f"[plugins] double variant: image {img64.dtype}, relative mean "
+        f"|f64 - f32| {rel:.3g} [limit {PL_DOUBLE_REL}]; K1 launches "
+        f"{out['cuda_ad_rgb_double'][2]} against {out['cuda_ad_rgb'][2]}; "
+        f"PRB gradient {g.dtype}, |g| {float(g.norm()):.6g}, launches "
+        f"{counts_g}; central differences of the reflectance at 128^2, "
+        f"h 1e-8 {fd_small!r} against h 1e-3 {fd_large!r} [limit 1e-4 "
+        f"relative]")
+    check(img64.dtype == torch.float64 and rel < PL_DOUBLE_REL,
+          "double: the image is not float64 or strays from float32's")
+    check(out["cuda_ad_rgb_double"][2] == out["cuda_ad_rgb"][2],
+          "double: launches differ from float32's")
+    check(g.dtype == torch.float64 and bool(torch.isfinite(g).all())
+          and float(g.abs().sum()) > 0, "double: gradient")
+    check(fd_large > 1.0 and abs(fd_small - fd_large) < 1e-4 * fd_large,
+          "double: shading or film lost float64 precision")
+    return dict(rel=rel, ms32=out["cuda_ad_rgb"][1],
+                ms64=out["cuda_ad_rgb_double"][1], grad_norm=float(g.norm()),
+                fd_small=fd_small, fd_large=fd_large)
+
+
+def double_precision_fd(box64):
+    """The image's central difference in every reflectance at h = 1e-8
+    (below float32's spacing) and at h = 1e-3, under the double variant:
+    equal where shading and film run in float64; 0 or quantised where
+    any step between the leaf and the film runs in float32."""
+    import epsm_mitsuba3_torch as mt
+    r = box64.bsdfs["reflectance"]
+
+    def fd(h):
+        lo, hi = (mt.render(box64.with_leaves({"bsdfs.reflectance": r + s}),
+                            spp=SPP_CHUNK, seed=3, device=box64.device)
+                  for s in (-h, h))
+        return float((hi - lo).sum()) / (2.0 * h)
+
+    return fd(1e-8), fd(1e-3)
+
+
+# -- the registered plugins: each a torch function, as a user writes one ----
+
+def _phong_eval_pdf(p, wi, wo):
+    import torch
+    r = torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], -1)
+    cos_a = torch.clamp((r * wo).sum(-1), 0.0, 1.0)
+    up = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    lobe = (PL_PHONG + 2.0) / (2.0 * math.pi) * cos_a ** PL_PHONG
+    val = p["reflectance"] * (lobe * torch.clamp(wo[..., 2], min=0.0))[
+        ..., None]
+    pdf = (PL_PHONG + 1.0) / (2.0 * math.pi) * cos_a ** PL_PHONG
+    return torch.where(up[..., None], val, 0.0), torch.where(up, pdf, 0.0)
+
+
+def _phong_sample(p, wi, s1, s2):
+    import torch
+    from epsm_mitsuba3_torch.core import math as mm
+    from epsm_mitsuba3_torch.models.bsdf import BSDFFlags
+    from epsm_mitsuba3_torch.models.records import BSDFSample
+    cos_a = s2[..., 0] ** (1.0 / (PL_PHONG + 1.0))
+    sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+    phi = 2.0 * math.pi * s2[..., 1]
+    r = torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], -1)
+    s_, t_ = mm.coordinate_system(r)
+    wo = (s_ * (sin_a * torch.cos(phi))[..., None]
+          + t_ * (sin_a * torch.sin(phi))[..., None] + r * cos_a[..., None])
+    val, pdf = _phong_eval_pdf(p, wi, wo)
+    ok = (pdf > 0) & (wi[..., 2] > 0)
+    w = torch.where(ok[..., None],
+                    val / torch.clamp(pdf, min=1e-12)[..., None], 0.0)
+    return BSDFSample(wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
+                      sampled_type=torch.full(
+                          pdf.shape, BSDFFlags.GlossyReflection,
+                          dtype=torch.int32, device=wi.device),
+                      hf=torch.zeros_like(wo)), w, ok
+
+
+def _point_sample(row, ref_p, s2):
+    import torch
+    from epsm_mitsuba3_torch.models.records import DirectionSample
+    dvec = row["position"] - ref_p
+    dist2 = (dvec * dvec).sum(-1)
+    dist = torch.sqrt(torch.clamp(dist2, min=1e-20))
+    dn = dvec / dist[..., None]
+    return DirectionSample(
+        p=row["position"], n=-dn, uv=s2, d=dn, dist=dist,
+        pdf=torch.ones_like(dist),
+        delta=torch.ones(dist.shape, dtype=torch.bool, device=dist.device),
+        emitter_index=torch.zeros(dist.shape, dtype=torch.int32,
+                                  device=dist.device)), \
+        row["intensity"] / torch.clamp(dist2, min=1e-20)[..., None]
+
+
+def _pyramid(props):
+    import numpy as np
+    s = float(props.get("size", 1.0))
+    v = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s],
+                  [0, 1.5 * s, 0]], np.float32)
+    f = np.array([[0, 2, 1], [0, 3, 2], [0, 1, 4], [1, 2, 4], [2, 3, 4],
+                  [3, 0, 4]], np.int32)
+    return {"vertices": v, "faces": f}
+
+
+def _flipped(sensor, pos01):
+    import torch
+    aspect = sensor.width / sensor.height
+    th = math.tan(math.radians(sensor.fov_x) * 0.5)
+    u, v = 1.0 - pos01[..., 0], pos01[..., 1]
+    d_cam = torch.stack([(1 - 2 * u) * th, (1 - 2 * v) * th / aspect,
+                         torch.ones_like(u)], -1)
+    d = d_cam @ sensor.to_world[:3, :3].T
+    return sensor.to_world[:3, 3].expand(d.shape), d, None
+
+
+def _uv_gradient(tex, uv, pos):
+    import torch
+    t = torch.clamp(uv[..., 0:1], 0.0, 1.0)
+    return tex.color1 * t + tex.color0 * (1.0 - t)
+
+
+def _halfshift(sampler):
+    import torch
+    from epsm_mitsuba3_torch.models import samplers as smp
+    s, x = smp._next_1d_f32(sampler)
+    return s, torch.remainder(x + 0.5, 1.0)
+
+
+def register_plugins():
+    """One plugin of each registry (the JAX package's test plugins,
+    tests/test_register_*.py, written in torch), once a process."""
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.models import bsdf as B
+    from epsm_mitsuba3_torch.models import emitters as E
+    from epsm_mitsuba3_torch.models import samplers as S
+    from epsm_mitsuba3_torch.models import scene as SC
+    from epsm_mitsuba3_torch.models import sensors as SN
+    from epsm_mitsuba3_torch.models import textures as TX
+    if "pl_phong" not in B.KIND_NAMES:
+        mt.register_bsdf("pl_phong", eval_pdf_fn=_phong_eval_pdf,
+                         sample_fn=_phong_sample,
+                         flags=B.BSDFFlags.GlossyReflection
+                         | B.BSDFFlags.FrontSide)
+    if "pl_point" not in E.KIND_NAMES:
+        mt.register_emitter("pl_point", sample_fn=_point_sample)
+    if "pl_pyramid" not in SC._CUSTOM_SHAPE_FNS:
+        mt.register_shape("pl_pyramid", _pyramid)
+    if "pl_flipped" not in SN._CUSTOM_SENSOR_FNS:
+        mt.register_sensor("pl_flipped", _flipped)
+    if "pl_uv_gradient" not in TX._CUSTOM_TEXTURE_FNS:
+        mt.register_texture("pl_uv_gradient", _uv_gradient)
+    if "pl_halfshift" not in S._CUSTOM_SAMPLER_FNS:
+        mt.register_sampler("pl_halfshift", _halfshift)
+
+
+def registry_box(res, spp):
+    """cornell_box with a registered BSDF on the back wall, a registered
+    texture on the floor, a registered shape, a registered point light
+    beside the area light, seen by a registered sensor through a
+    registered sampler."""
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    T = mt.ScalarTransform4f
+    d = cornell_box(res=res, spp=spp, max_depth=DEPTH)
+    d["back"]["bsdf"] = {"type": "pl_phong", "reflectance": {
+        "type": "rgb", "value": [0.8, 0.6, 0.2]}}
+    d["floor"]["bsdf"] = {"type": "diffuse", "reflectance": {
+        "type": "pl_uv_gradient", "color0": [0.1, 0.1, 0.1],
+        "color1": [0.9, 0.9, 0.9]}}
+    d["pyr"] = {"type": "pl_pyramid", "size": 0.3,
+                "to_world": T.translate([0.4, 0.0, 0.3]),
+                "bsdf": {"type": "diffuse", "reflectance": {
+                    "type": "rgb", "value": 0.6}}}
+    d["bulb"] = {"type": "pl_point", "position": [0.0, 1.5, 0.5],
+                 "intensity": {"type": "rgb", "value": [1.5] * 3}}
+    for k, v in list(d.items()):
+        if isinstance(v, dict) and v.get("type") == "perspective":
+            v = {**v, "type": "pl_flipped"}
+            v["sampler"] = {"type": "pl_halfshift", "sample_count": spp}
+            d[k] = v
+    return d
+
+
+def phong_chi2(scene):
+    """The registered BSDF's slot, through the custom-kind dispatch."""
+    from epsm_mitsuba3_torch.models import bsdf as B
+    return slot_chi2(scene, B.KIND_NAMES["pl_phong"], "registered phong",
+                     res=21)
+
+
+def plugins_registry_cell():
+    """The box with one plugin of each registry at 512^2 x PL_SPP spp:
+    launches exact, the plugins' kinds in the scene, the registered
+    BSDF's chi-square test."""
+    import epsm_mitsuba3_torch as mt
+    register_plugins()
+    sc = mt.load_dict(registry_box(RES, SPP_CHUNK))
+    check(sc.static.sampler_kind == "pl_halfshift"
+          and sc.sensors[0].kind == "pl_flipped"
+          and any(t.kind == "pl_uv_gradient" for t in sc.textures)
+          and "pyr" in sc.static.shape_names
+          and max(sc.static.bsdf_kinds) >= 1000
+          and max(sc.static.emitter_kinds) >= 1000,
+          "registries: a plugin is missing from the scene")
+    n = PL_SPP // SPP_CHUNK
+    img, ms, counts = plugin_render(
+        "registries box", sc, PL_SPP, SPP_CHUNK,
+        {"mt_closest_hit": DEPTH * n, "mt_any_hit": DEPTH * n,
+         "bvh4_closest_hit": 0, "bvh4_any_hit": 0})
+    check(float(img.mean()) > 0.01, "registries: image dark")
+    chi2 = phong_chi2(sc)
+    return dict(ms=ms, chi2=chi2)
+
+
+def plugins_card_vs_cpu(measured, res=64, spp=4):
+    """Each [plugins] case at 64^2 on the card and on the CPU: images
+    within 1e-3 x the mean on average; the sphere's PRB gradient and the
+    manifold backward's vertex gradient on the box with the sphere
+    within 1e-3 (relative L2)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.ops import bvh as BT
+    from epsm_mitsuba3_torch.scenes import cornell_box, cornell_box_mesh
+    register_plugins()
+    tree = {}
+
+    def numpy_tree(dev):
+        sc = mt.load_dict(cornell_box_mesh(res=res, spp=2, max_depth=DEPTH),
+                          device=dev)
+        if not tree:
+            tree["bvh"] = BT.build(sc.vertices, sc.faces, builder="numpy")
+        bvh = tree["bvh"]
+        return sc.with_bvh(bvh.replace(**{
+            k: getattr(bvh, k).to(sc.device) for k in BT.ARRAY_FIELDS}))
+
+    cases = {
+        "box + sphere + measured": lambda dev: mt.load_dict(
+            plugins_box(measured, res, spp), device=dev),
+        "mesh, numpy tree": numpy_tree,
+        "registries": lambda dev: mt.load_dict(registry_box(res, spp),
+                                               device=dev),
+        "box, double": lambda dev: mt.load_dict(
+            cornell_box(res=res, spp=spp, max_depth=DEPTH), device=dev)}
+    out = {}
+    for label, make in cases.items():
+        imgs = []
+        try:
+            if label == "box, double":
+                mt.set_variant("cuda_ad_rgb_double")
+            for dev in ("cuda", "cpu"):
+                sc = make(dev)
+                imgs.append(mt.render(sc, spp=2 if "mesh" in label else spp,
+                                      seed=0, device=dev).cpu())
+        finally:
+            mt.set_variant("cuda_ad_rgb")
+        a, b = imgs
+        mad, mean = float((a - b).abs().mean()), float(b.abs().mean())
+        out[label] = mad
+        say(f"[plugins, card vs cpu] {label} {res}^2: mean |gpu - cpu| "
+            f"{mad:.3g} (limit {1e-3 * mean:.3g}); dtype {a.dtype}")
+        check(mad <= 1e-3 * mean and bool(torch.isfinite(a).all())
+              and a.dtype == b.dtype, f"{label}: card and CPU disagree")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        sc = mt.load_dict(plugins_box(measured, res, spp), device=dev)
+        sph = sc.sph_data.clone().requires_grad_(True)
+        v = sc.vertices.clone().requires_grad_(True)
+        sc = sc.with_leaves({"sph_data": sph, "vertices": v})
+        img = mt.render(sc, spp=spp, seed=0, device=dev,
+                        integrator={"type": "prb", "max_depth": 3})
+        (gs,) = torch.autograd.grad((img ** 2).mean(), sph)
+        img5 = mt.render(sc, spp=2, seed=0, device=dev,
+                         integrator={"type": "manifold", "max_depth": 3})
+        w = torch.linspace(-1.0, 1.0, img5.numel(),
+                           device=img5.device).reshape(img5.shape)
+        (gv,) = torch.autograd.grad((img5 * w).sum(), v)
+        grads.append((gs.cpu(), gv.cpu()))
+    for name, a, b in zip(("sphere PRB", "manifold vertices"), *grads):
+        err = rel_l2(a, b)
+        out[name] = err
+        say(f"[plugins, card vs cpu] {name} gradient: relative L2 "
+            f"{err:.3g} [limit 1e-3]")
+        check(err <= 1e-3 and float(b.abs().sum()) > 0,
+              f"{name}: card and CPU gradients disagree")
+    return out
+
+
+def plugins_phase():
+    """[plugins]: the box with an analytic sphere and a measured slot at
+    full width, cornell_box_mesh on the numpy-built tree, a manifold
+    iteration with a sphere, the double variant, the six registries, the
+    card against the CPU.  Returns the numbers and the phase's
+    launches."""
+    global _TALLY
+    import tempfile
+    secs, out = {}, {}
+    zero_counts()
+    _TALLY = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            measured = f"{tmp}/synth.bsdf"
+            synth_measured(measured)
+            t0 = time.perf_counter()
+            out["box"] = plugins_box_cell(measured)
+            secs["box"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["mesh"] = plugins_mesh_cell()
+            secs["mesh"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["epsm"] = plugins_epsm_cell()
+            secs["epsm"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["double"] = plugins_double_cell()
+            secs["double"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["registries"] = plugins_registry_cell()
+            secs["registries"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["card vs cpu"] = plugins_card_vs_cpu(measured)
+            secs["card vs cpu"] = time.perf_counter() - t0
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    say("[plugins] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} s in all")
+    out["secs"] = secs
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6098,6 +6909,16 @@ def main() -> int:
         f"{ou['total']}")
 
     lap("25 outputs")
+
+    # -- 26. [plugins]: the analytic sphere, the measured BSDF, the numpy
+    # tree, the double variant and the six registries ----------------------
+    t0 = time.perf_counter()
+    pl = plugins_phase()
+    epsm_launches["launches_plugins_phase"] = pl["total"]
+    say(f"[plugins] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{pl['total']}")
+
+    lap("26 plugins")
 
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []

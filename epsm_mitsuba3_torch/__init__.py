@@ -17,6 +17,11 @@ version instead.
     scene = params.update()
     mt.write_image("out.exr", mt.render(scene))
 
+``set_variant("cuda_ad_rgb_double")`` makes the scenes built after it
+float64 (``config.py``).  ``register_bsdf``, ``register_emitter``,
+``register_sensor``, ``register_sampler``, ``register_shape`` and
+``register_texture`` add plugins written in torch.
+
 ``render`` runs the integrator types ``path``, ``prb``, ``prb_basic``,
 ``prb_reparam``, ``manifold``, ``manifold_caustic``, ``direct``,
 ``direct_reparam``, ``emission_reparam``, ``depth``, ``aov``, ``moment``,
@@ -26,6 +31,7 @@ over ``moment``), ``utils/denoiser.py`` and ``utils/tonemap.py`` consume
 their outputs.
 """
 
+from .config import config, set_variant, variant  # noqa: F401
 from .core.bitmap import Bitmap, read_image, write_image  # noqa: F401
 from .core.transform import ScalarTransform4f  # noqa: F401
 from .core.xmlparse import load_file, load_string  # noqa: F401
@@ -36,5 +42,11 @@ from .ops.normals import (compute_vertex_normals,  # noqa: F401
 from .models.records import Ray, RayFlags  # noqa: F401
 from .ad.render import (register_integrator, render,  # noqa: F401
                         render_forward)
+from .models.bsdf import register_bsdf  # noqa: F401
+from .models.emitters import register_emitter  # noqa: F401
+from .models.samplers import register_sampler  # noqa: F401
+from .models.scene import register_shape  # noqa: F401
+from .models.sensors import register_sensor  # noqa: F401
+from .models.textures import register_texture  # noqa: F401
 
 __version__ = "0.1.0"

@@ -81,7 +81,8 @@ def _attached_L(sc, sampler, ray: Ray, seed: int, emitter_samples: int,
     frac_lum = emitter_samples / (emitter_samples + bsdf_samples)
     frac_bsdf = bsdf_samples / (emitter_samples + bsdf_samples)
 
-    L = E.eval_hit(sc.emitters, si.emitter_index, si.wi[..., 2])
+    L = E.eval_hit(sc.emitters, si.emitter_index, si.wi[..., 2],
+                   uv=si.uv, kinds_present=sc.static.emitter_kinds)
     L = L + E.eval_env(sc.emitters, ek, d0, ~si.valid, sc.textures, env)
     smooth = B.has_flag(B.flags_of(sc.bsdfs, si.bsdf_index),
                         B.BSDFFlags.Smooth) & active
@@ -139,7 +140,8 @@ def _attached_L(sc, sampler, ray: Ray, seed: int, emitter_samples: int,
         ray2 = Ray.make(si_f.p + (si_d.spawn_ray(d_world).o - si_d.p), d_b)
         si2 = I.compute_surface_interaction(
             sc, ray2, sc.ray_intersect_preliminary(ray2), RayFlags.All)
-        le = E.eval_hit(sc.emitters, si2.emitter_index, si2.wi[..., 2])
+        le = E.eval_hit(sc.emitters, si2.emitter_index, si2.wi[..., 2],
+                        uv=si2.uv, kinds_present=sc.static.emitter_kinds)
         le = le + E.eval_env(sc.emitters, ek, d_b, ~si2.valid, sc.textures,
                              env)
         pdf_em = E.pdf_direction(
@@ -167,7 +169,8 @@ def _emission_L(sc, sampler, ray: Ray, seed: int, rp: Optional[dict],
     pi = sc.ray_intersect_preliminary(ray)
     si = I.compute_surface_interaction(sc, Ray.make(ray.o, d0), pi,
                                        RayFlags.All)
-    L = E.eval_hit(sc.emitters, si.emitter_index, si.wi[..., 2])
+    L = E.eval_hit(sc.emitters, si.emitter_index, si.wi[..., 2],
+                   uv=si.uv, kinds_present=sc.static.emitter_kinds)
     L = L + E.eval_env(sc.emitters, sc.static.emitter_kinds, d0, ~si.valid,
                        sc.textures, sc.static.env_texture)
     return L, d0, det0

@@ -203,7 +203,8 @@ def attached_emitter_weight(sc, ds, d_att, em_weight_att):
     the envmap's texels.  A scene of area lights alone skips the select,
     whose other branch's backward would cost it as much as its own."""
     em_val = E.eval_hit(sc.emitters, ds.emitter_index,
-                        m.dot(-d_att, ds.n))
+                        m.dot(-d_att, ds.n),
+                        kinds_present=sc.static.emitter_kinds)
     pdf_d = ds.pdf.detach()
     em_weight = torch.where(
         (pdf_d > 0.0)[..., None],
@@ -294,7 +295,10 @@ def _bounce_lo(sc, st: P.LoopState, cached: dict, max_depth: int,
         si.to_local(wo_world), active_next, uv=si.uv, textures=textures,
         vcolor=si.vcolor)
     val_d = bsdf_val.detach()
-    nz = val_d != 0.0
+    # a subnormal value counts as 0, as on the reference's devices, which
+    # flush subnormals (XLA): its reciprocal would overflow, and its lane's
+    # zero cotangent turn NaN (a measured table's grazing entries)
+    nz = torch.abs(val_d) >= torch.finfo(val_d.dtype).tiny
     inv_det = torch.where(nz, 1.0, 0.0) / torch.where(nz, val_d, 1.0)
     lr_ind = L_remaining * I.replace_grad(torch.ones_like(bsdf_val),
                                           inv_det * bsdf_val)

@@ -36,7 +36,7 @@ def boundary_test(scene, si, ray_d: torch.Tensor) -> torch.Tensor:
     dp = m.dot(si.sh_n, -ray_d)
     b_graze = dp * dp
     face_open = scene.face_open
-    if face_open is None:
+    if face_open is None or face_open.shape[0] == 0:
         return torch.where(si.valid, b_graze, 1.0)
     idx = torch.clamp(si.prim_index.long(), 0, face_open.shape[0] - 1)
     fo = face_open[idx].to(si.b0.dtype)

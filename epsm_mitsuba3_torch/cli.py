@@ -5,7 +5,8 @@ src/mitsuba/mitsuba.cpp:162-177).
       -D key=value --spp 64 --integrator path --depth 6 [--device cpu]
 
 Loads an XML scene (``core/xmlparse.py``) with -D parameter
-substitution, renders any sensor with the spp, integrator and depth
+substitution under the variant ``-m`` (``config.py`` ``set_variant``),
+renders any sensor with the spp, integrator and depth
 given, and writes EXR, PFM, NPY or (with PIL) PNG.  The render runs on
 the GPU unless ``--device`` names another device; without CUDA the
 default raises.
@@ -30,18 +31,20 @@ def main(argv=None):
     ap.add_argument("--integrator", default=None)
     ap.add_argument("--depth", type=int, default=None)
     ap.add_argument("-m", "--mode", default="cuda_ad_rgb",
-                    help="variant name (accepted for parity; the port "
-                    "renders float32 RGB)")
+                    help="variant name (set_variant): a *_double name "
+                    "renders in float64")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
 
     from .ad.render import render
+    from .config import set_variant
     from .core.bitmap import write_image
     from .core.device import resolve_device
     from .core.xmlparse import load_file
 
     device = resolve_device(args.device)
+    set_variant(args.mode)
     params = dict(d.split("=", 1) for d in args.define)
     t0 = time.time()
     scene = load_file(args.scene, parameters=params or None, device=device)

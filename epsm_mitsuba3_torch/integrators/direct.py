@@ -41,7 +41,8 @@ def sample_direct(scene, sampler, ray: Ray, emitter_samples: int = 1,
     frac_bsdf = bsdf_samples / (emitter_samples + bsdf_samples)
 
     # the emitters and the environment the camera ray sees
-    L = E.eval_hit(scene.emitters, si.emitter_index, si.wi[..., 2])
+    L = E.eval_hit(scene.emitters, si.emitter_index, si.wi[..., 2],
+                   uv=si.uv, kinds_present=scene.static.emitter_kinds)
     L = L + E.eval_env(scene.emitters, ek, ray.d, ~si.valid, scene.textures,
                        env)
     smooth = B.has_flag(B.flags_of(scene.bsdfs, si.bsdf_index),
@@ -73,7 +74,8 @@ def sample_direct(scene, sampler, ray: Ray, emitter_samples: int = 1,
                                   vcolor=si.vcolor)
         ray2 = si.spawn_ray(si.to_world(bs.wo))
         si2 = scene.ray_intersect(ray2)
-        le = E.eval_hit(scene.emitters, si2.emitter_index, si2.wi[..., 2])
+        le = E.eval_hit(scene.emitters, si2.emitter_index, si2.wi[..., 2],
+                        uv=si2.uv, kinds_present=scene.static.emitter_kinds)
         le = le + E.eval_env(scene.emitters, ek, ray2.d, ~si2.valid,
                              scene.textures, env)
         pdf_em = E.pdf_direction(

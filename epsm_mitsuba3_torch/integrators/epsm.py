@@ -114,6 +114,13 @@ def sample_path_logged(scene, sampler, ray: Ray, max_depth: int,
         return _sample_path_logged(scene, sampler, ray, max_depth, rr_depth)
 
 
+def _face_of(scene, prim_index):
+    """The face row of each lane's ``prim_index``, clamped to the last
+    face as the reference's gather clamps: an analytic sphere's hit (F +
+    slot) reads a face whose values its lane never uses."""
+    return torch.clamp(prim_index.long(), max=scene.faces.shape[0] - 1)
+
+
 def _sample_path_logged(scene, sampler, ray, max_depth, rr_depth):
     n = ray.o.shape[0]
     st = P.init_state(sampler, ray, n)
@@ -141,7 +148,7 @@ def _sample_path_logged(scene, sampler, ray, max_depth, rr_depth):
         # the NEE direction's hit topology (the ray_direct FollowShape
         # analog, epsm.py:609-627)
         pi_dir = scene.ray_intersect_preliminary(si.spawn_ray(ds.d))
-        f_dir = scene.faces[pi_dir.prim_index.long()].long()
+        f_dir = scene.faces[_face_of(scene, pi_dir.prim_index)].long()
         u_d, v_d = pi_dir.prim_uv[:, 0], pi_dir.prim_uv[:, 1]
         b0d = 1.0 - u_d - v_d
         hp = (scene.vertices[f_dir[:, 0]] * b0d[:, None]
@@ -568,7 +575,7 @@ def inject_gradients(scene, logs: PathLog, path_grad, light_grad,
 
     for k in range(K):
         act = logs.active[k][:, None]
-        f = faces[logs.prim_index[k].long()].long()      # (N, 3)
+        f = faces[_face_of(scene, logs.prim_index[k])].long()   # (N, 3)
 
         # triangle vertex grads
         for v in range(3):
@@ -601,7 +608,7 @@ def inject_gradients(scene, logs: PathLog, path_grad, light_grad,
         lw = torch.sum(logs.lr_dir[k], dim=-1, keepdim=True)
         act_em = (logs.active[k] & logs.em_hit_valid[k])[:, None]
         gl = torch.where(act_em, light_grad[k] * lw, 0.0)
-        fe = faces[logs.em_prim[k].long()].long()
+        fe = faces[_face_of(scene, logs.em_prim[k])].long()
         eb0, eb1 = logs.em_b0[k][:, None], logs.em_b1[k][:, None]
         eb2 = 1.0 - eb0 - eb1
         scatter(g_v, fe[:, 0], eb0 * gl)

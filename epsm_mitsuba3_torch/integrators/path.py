@@ -61,7 +61,8 @@ def _emitter_hit_le(scene, si, ray_d, prev_p, prev_bsdf_pdf, prev_bsdf_delta,
         scene.emitters, ek, prev_p, ray_d, si.emitter_index, si.p, si.n,
         scene.vertices, scene.faces, scene.em_faces, mis_active, tex, env)
     mis = mis_weight(prev_bsdf_pdf, ds_pdf)
-    le_surf = E.eval_hit(scene.emitters, si.emitter_index, si.wi[..., 2])
+    le_surf = E.eval_hit(scene.emitters, si.emitter_index, si.wi[..., 2],
+                         uv=si.uv, kinds_present=ek)
     le_surf = torch.where((active & si.valid)[..., None], le_surf, 0.0)
     le_env = E.eval_env(scene.emitters, ek, ray_d, active & ~si.valid, tex,
                         env)

@@ -1,10 +1,12 @@
 """BSDF models (counterpart of ``models/bsdf.py``): every scalar BSDF of
-the reference but ``measured`` and the polarization elements -- diffuse,
-the smooth and rough conductors, the smooth, thin and rough dielectrics,
-the smooth and rough plastics (``pplastic`` is the rough one), ``null``,
-``principled``, ``principledthin`` and ``blendbsdf`` (a ``mask`` loads as
-a blend of ``null`` and its material) -- with the two-sided wrapper; each
-rough kind takes GGX or Beckmann.
+the reference but the polarization elements -- diffuse, the smooth and
+rough conductors, the smooth, thin and rough dielectrics, the smooth and
+rough plastics (``pplastic`` is the rough one), ``null``, ``principled``,
+``principledthin``, ``blendbsdf`` (a ``mask`` loads as a blend of
+``null`` and its material) and ``measured`` (an RGL table baked at load,
+``models/measured.py``) -- with the two-sided wrapper; each rough kind
+takes GGX or Beckmann.  ``register_bsdf`` adds a kind written by the
+user in torch.
 
 All BSDFs of a scene live in one table of per-slot parameters.  ``sample``
 and ``eval_pdf`` check the kinds present in the scene, evaluate each of
@@ -32,7 +34,7 @@ normal = +Z; ``wi`` points away from the surface; ``sample`` returns
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple
 
 import torch
 
@@ -74,7 +76,7 @@ def has_flag(flags: torch.Tensor, flag: int) -> torch.Tensor:
 
 
 #: kind ids in the reference's numbering (``KIND_*``, :56-80); the
-#: reference's 12-16 (``measured``, the polarization elements and
+#: reference's 13-16 (the polarization elements and
 #: ``measured_polarized``) are not ported
 KIND_DIFFUSE = 0
 KIND_CONDUCTOR = 1
@@ -88,6 +90,7 @@ KIND_NULL = 8
 KIND_PRINCIPLED = 9
 KIND_BLEND = 10
 KIND_PPLASTIC = 11
+KIND_MEASURED = 12
 KIND_PRINCIPLEDTHIN = 17
 #: appended to a scene's kinds where a slot takes the Beckmann
 #: distribution: the Beckmann branch is evaluated only then
@@ -100,7 +103,8 @@ KIND_NAMES = {"diffuse": KIND_DIFFUSE, "conductor": KIND_CONDUCTOR,
               "plastic": KIND_PLASTIC, "roughplastic": KIND_ROUGHPLASTIC,
               "null": KIND_NULL, "principled": KIND_PRINCIPLED,
               "principledthin": KIND_PRINCIPLEDTHIN,
-              "blendbsdf": KIND_BLEND, "pplastic": KIND_PPLASTIC}
+              "blendbsdf": KIND_BLEND, "pplastic": KIND_PPLASTIC,
+              "measured": KIND_MEASURED}
 _F = BSDFFlags
 KIND_FLAGS = {
     KIND_DIFFUSE: _F.DiffuseReflection | _F.FrontSide,
@@ -124,6 +128,7 @@ KIND_FLAGS = {
     KIND_PRINCIPLEDTHIN: (_F.GlossyReflection | _F.GlossyTransmission
                           | _F.DiffuseReflection | _F.DiffuseTransmission
                           | _F.FrontSide | _F.BackSide),
+    KIND_MEASURED: _F.GlossyReflection | _F.FrontSide,
 }
 _PLASTIC_FIELDS = ("eta", "diffuse_reflectance", "specular_reflectance")
 #: the table columns each kind reads, beside ``kind`` and ``twosided``;
@@ -149,6 +154,7 @@ KIND_FIELDS = {
     KIND_PRINCIPLEDTHIN: ("reflectance", "alpha", "eta", "spec_trans",
                           "diff_trans", "flatness", "spec_tint", "sheen",
                           "sheen_tint"),
+    KIND_MEASURED: ("alpha", "reflectance_tex"),
     KIND_SENTINEL_BECKMANN: ("beckmann",),
 }
 #: the float columns of the table and their defaults (``empty_table``,
@@ -163,14 +169,21 @@ SCALAR_DEFAULTS = {"alpha": DEFAULT_ALPHA, "eta": DEFAULT_ETA,
                    "blend_weight": 0.5}
 
 
+#: the columns a kind of ``register_bsdf`` is handed: every colour and
+#: scalar column of the table
+_CUSTOM_FIELDS = ("reflectance", "specular_reflectance",
+                  "specular_transmittance", "diffuse_reflectance", "eta_c",
+                  "k_c") + tuple(k for k in SCALAR_DEFAULTS
+                                 if k != "blend_weight")
+
+
 def check_kinds(kinds_present: Tuple[int, ...]) -> None:
     """Raise unless every kind of the scene is one the port has."""
     missing = [k for k in kinds_present if k not in KIND_FIELDS]
     if missing:
         raise NotImplementedError(
             f"BSDF kinds {missing}: the port has every scalar BSDF but "
-            "measured, polarizer, retarder, circular and "
-            "measured_polarized")
+            "polarizer, retarder, circular and measured_polarized")
 
 
 def gather_params(table: Dict[str, torch.Tensor], idx: torch.Tensor,
@@ -839,6 +852,50 @@ def _null_sample(p, wi, s1, s2):
     return bs, torch.ones_like(wi), torch.ones_like(pdf, dtype=torch.bool)
 
 
+def _measured_sample(p, wi, s1, s2):
+    """measured (``_measured_sample``, :955-974): a GGX visible normal at
+    the fitted ``alpha`` (the proxy), reflected; the weight here is a
+    placeholder, which ``sample`` replaces by f_r cos / pdf from the
+    baked table."""
+    alpha = p["alpha"]
+    mvec = warp.ggx_visible_normal_sample(wi, s2, alpha, alpha)
+    wo = m.reflect_m(wi, mvec)
+    pdf = m.safe_div(warp.ggx_pdf_visible(wi, mvec, alpha, alpha),
+                     4.0 * torch.abs(m.dot(wo, mvec)))
+    bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
+                    sampled_type=torch.full(pdf.shape,
+                                            BSDFFlags.GlossyReflection,
+                                            dtype=torch.int32,
+                                            device=wi.device), hf=mvec)
+    ok = (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0) & (pdf > 1e-12)
+    return bs, torch.ones_like(wi), ok
+
+
+def _measured_eval_pdf(p, wi, wo):
+    """The proxy's pdf (``_measured_eval_pdf``, :977-986); the value is 0
+    here and filled in from the baked table by ``_eval_table``."""
+    ok = (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0)
+    alpha = p["alpha"]
+    h = m.normalize(wi + wo)
+    pdf = m.safe_div(warp.ggx_pdf_visible(wi, h, alpha, alpha),
+                     4.0 * torch.abs(m.dot(wo, h)))
+    return torch.zeros_like(wi), torch.where(ok, pdf, 0.0)
+
+
+def _measured_tex_eval(textures, tex_idx, wi, wo):
+    """f_r (no cosine) of each lane's baked table, by ``tex_idx``
+    (``_measured_tex_eval``, :989-999); 0 where the lane names none."""
+    from . import measured as meas_mod
+    items = (textures.items() if isinstance(textures, Mapping)
+             else enumerate(textures))
+    out = torch.zeros_like(wi)
+    for i, tex in items:
+        if tex.kind == "measured_brdf":
+            out = torch.where((tex_idx == i)[..., None],
+                              meas_mod.eval_table(tex, wi, wo), out)
+    return out
+
+
 _SAMPLE_FNS = {KIND_DIFFUSE: _diffuse_sample,
                KIND_CONDUCTOR: _conductor_sample,
                KIND_ROUGHCONDUCTOR: _roughconductor_sample,
@@ -850,7 +907,8 @@ _SAMPLE_FNS = {KIND_DIFFUSE: _diffuse_sample,
                KIND_NULL: _null_sample,
                KIND_PRINCIPLED: _principled_sample,
                KIND_PPLASTIC: _roughplastic_sample,
-               KIND_PRINCIPLEDTHIN: _principledthin_sample}
+               KIND_PRINCIPLEDTHIN: _principledthin_sample,
+               KIND_MEASURED: _measured_sample}
 _EVAL_PDF_FNS = {KIND_DIFFUSE: _diffuse_eval_pdf,
                  KIND_CONDUCTOR: _zero_eval_pdf,
                  KIND_ROUGHCONDUCTOR: _roughconductor_eval_pdf,
@@ -862,7 +920,39 @@ _EVAL_PDF_FNS = {KIND_DIFFUSE: _diffuse_eval_pdf,
                  KIND_NULL: _zero_eval_pdf,
                  KIND_PRINCIPLED: _principled_eval_pdf,
                  KIND_PPLASTIC: _roughplastic_eval_pdf,
-                 KIND_PRINCIPLEDTHIN: _principledthin_eval_pdf}
+                 KIND_PRINCIPLEDTHIN: _principledthin_eval_pdf,
+                 KIND_MEASURED: _measured_eval_pdf}
+
+#: the first kind id of ``register_bsdf`` (the reference's
+#: ``_CUSTOM_KIND_BASE``)
+_CUSTOM_KIND_BASE = 1000
+
+
+def register_bsdf(name: str, *, eval_pdf_fn, sample_fn,
+                  flags: int = None) -> int:
+    """A BSDF plugin (``register_bsdf``, :1101-1127; the reference's
+    ``PluginManager::register_python_plugin``, src/core/plugin.cpp:168).
+
+    ``eval_pdf_fn(p, wi, wo) -> (f * cos_theta_o (N, 3), pdf (N,))`` and
+    ``sample_fn(p, wi, s1, s2) -> (BSDFSample, weight (N, 3), ok (N,))``
+    are torch functions of the lanes' table columns ``p`` (``kind``,
+    ``twosided`` and every colour and scalar column: ``reflectance``,
+    ``alpha``, ``eta``, ...), in the local frame; they are
+    differentiated by autograd.  ``flags`` default to a diffuse front
+    side.  The kind joins the evaluation of every kind present on every
+    lane; a scene names it as ``{"type": name, ...}``.  Returns the kind
+    id, numbered from ``_CUSTOM_KIND_BASE``.  A name taken raises."""
+    if name in KIND_NAMES:
+        raise ValueError(f"bsdf type '{name}' already registered")
+    kind = _CUSTOM_KIND_BASE + sum(1 for k in _SAMPLE_FNS
+                                   if k >= _CUSTOM_KIND_BASE)
+    KIND_NAMES[name] = kind
+    _SAMPLE_FNS[kind] = sample_fn
+    _EVAL_PDF_FNS[kind] = eval_pdf_fn
+    KIND_FLAGS[kind] = (flags if flags is not None
+                        else BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide)
+    KIND_FIELDS[kind] = _CUSTOM_FIELDS
+    return kind
 
 
 def _by_function(fns, kinds_present):
@@ -940,6 +1030,15 @@ def sample(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, s1, s2,
             bs = _select_bs(is_k, bs_k, bs)
             w = torch.where(is_k[..., None], w_k, w)
             ok = torch.where(is_k, ok_k, ok)
+    if KIND_MEASURED in kinds_present:
+        # f_r cos / pdf of the proxy from the baked table (:1213-1222):
+        # unbiased whatever the fit
+        f_val = _measured_tex_eval(textures, p["reflectance_tex"], wi_f,
+                                   bs.wo)
+        w_m = f_val * (torch.clamp(bs.wo[..., 2:3], min=0.0)
+                       / torch.clamp(bs.pdf, min=1e-12)[..., None])
+        w = torch.where(((p["kind"] == KIND_MEASURED) & ok)[..., None], w_m,
+                        w)
     bs = bs.replace(wo=_flip_z(bs.wo, flip), hf=_flip_z(bs.hf, flip))
     if active is not None:
         ok = ok & active
@@ -947,9 +1046,9 @@ def sample(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, s1, s2,
     return bs, w, ok
 
 
-def _eval_table(p, kinds_present, wi, wo):
+def _eval_table(p, kinds_present, wi, wo, textures):
     """The per-kind eval_pdf selected by each lane's kind; 0 on a blend
-    lane."""
+    lane; a measured lane's value from its baked table (``textures``)."""
     wi_f, flip = _apply_twosided_in(p, wi)
     wo_f = _flip_z(wo, flip)
     val = torch.zeros_like(wi)
@@ -959,6 +1058,11 @@ def _eval_table(p, kinds_present, wi, wo):
         is_k = _is_kind(p, kinds)
         val = torch.where(is_k[..., None], val_k, val)
         pdf = torch.where(is_k, pdf_k, pdf)
+    if KIND_MEASURED in kinds_present:
+        f_val = _measured_tex_eval(textures, p["reflectance_tex"], wi_f,
+                                   wo_f)
+        val = torch.where((p["kind"] == KIND_MEASURED)[..., None],
+                          f_val * torch.clamp(wo_f[..., 2:3], min=0.0), val)
     return val, pdf
 
 
@@ -974,16 +1078,16 @@ def eval_pdf(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, wo,
     check_kinds(kinds_present)
     p = _kind_params(table, kinds_present, bsdf_idx, uv, textures, vcolor)
     if KIND_BLEND not in kinds_present:
-        val, pdf = _eval_table(p, kinds_present, wi, wo)
+        val, pdf = _eval_table(p, kinds_present, wi, wo, textures)
     else:
         is_blend = p["kind"] == KIND_BLEND
         idx_a = torch.where(is_blend, p["blend_a"], bsdf_idx)
         val, pdf = _eval_table(_kind_params(table, kinds_present, idx_a, uv,
                                             textures, vcolor),
-                               kinds_present, wi, wo)
+                               kinds_present, wi, wo, textures)
         vb, pb = _eval_table(_kind_params(table, kinds_present, p["blend_b"],
                                           uv, textures, vcolor),
-                             kinds_present, wi, wo)
+                             kinds_present, wi, wo, textures)
         w_ = p["blend_weight"]
         val = torch.where(is_blend[..., None],
                           val * (1.0 - w_[..., None]) + vb * w_[..., None],

@@ -12,9 +12,8 @@ Triangle areas and their CDF are recomputed from the current vertices on
 every call, as in the reference, where vertex positions are optimization
 parameters: every function here is differentiable w.r.t. the vertices,
 the table's columns and the envmap's texels.  Far lights (constant,
-envmap, directional) put their point ``_WORLD_RADIUS`` away.  The
-reference's ``register_emitter`` plugins are not ported: ``check_kinds``
-refuses their kinds.
+envmap, directional) put their point ``_WORLD_RADIUS`` away.
+``register_emitter`` adds a kind written by the user in torch.
 """
 from __future__ import annotations
 
@@ -58,13 +57,11 @@ INT_COLUMNS = ("kind", "shape_index", "texture_index")
 
 
 def check_kinds(kinds_present: Tuple[int, ...]) -> None:
-    """Raise unless every kind of the scene is one the port has: the
-    reference's ``register_emitter`` kinds (1000 and up) are not."""
+    """Raise unless every kind of the scene is one the port has (a
+    built-in kind or one of ``register_emitter``)."""
     missing = [k for k in kinds_present if k not in KIND_NAMES.values()]
     if missing:
-        raise NotImplementedError(
-            f"emitter kinds {missing}: register_emitter plugins are not "
-            "ported")
+        raise NotImplementedError(f"emitter kinds {missing} are unknown")
 
 
 def empty_table(n: int) -> Dict[str, torch.Tensor]:
@@ -425,20 +422,38 @@ def pdf_direction(table, kinds_present, ref_p, d, hit_emitter_idx, hit_p,
             inf_pdf = torch.where(kind == KIND_ENVMAP,
                                   envmap_pdf_direction(env_tex, d), inf_pdf)
         pdf = torch.where(is_inf, inf_pdf, pdf)
+    custom = [k for k in kinds_present if k in _CUSTOM_PDF_FNS]
+    if custom:
+        row = _Rows(table, safe_idx)
+        for ck in custom:
+            pdf = torch.where(kind == ck, _CUSTOM_PDF_FNS[ck](
+                row, ref_p, d, hit_p, hit_n), pdf)
     pdf = pdf / n_em
     return torch.where(active & (hit_emitter_idx >= 0), pdf, 0.0)
 
 
-def eval_hit(table, si_emitter_idx, wi_local_z):
+def eval_hit(table, si_emitter_idx, wi_local_z, uv=None, *,
+             kinds_present):
     """Radiance of an area (or directionalarea) emitter on a direct hit
-    (area.cpp ``eval``), where the hit is on the emissive front side."""
+    (area.cpp ``eval``), where the hit is on the emissive front side;
+    a ``register_emitter`` kind's from its ``eval_hit_fn`` at the hit's
+    ``uv`` (None where the caller has no surface record).  Only the
+    plugin kinds in ``kinds_present`` (the scene's emitter kinds) are
+    evaluated, as in the reference (:513-538)."""
     safe = torch.clamp(si_emitter_idx, min=0).long()
     kind = table["kind"][safe]
     vis = ((si_emitter_idx >= 0)
            & ((kind == KIND_AREA) | (kind == KIND_DIRECTIONALAREA))
            & (wi_local_z > 0.0))
-    return torch.where(vis[..., None], take_rows(table["radiance"], safe),
-                       0.0)
+    out = torch.where(vis[..., None], take_rows(table["radiance"], safe),
+                      0.0)
+    custom = [k for k in _CUSTOM_EVAL_FNS if k in kinds_present]
+    if custom:
+        row = _Rows(table, safe)
+        for ck in custom:
+            out = torch.where(((si_emitter_idx >= 0) & (kind == ck))[..., None],
+                              _CUSTOM_EVAL_FNS[ck](row, wi_local_z, uv), out)
+    return out
 
 
 def eval_env(table, kinds_present, d, active, textures=(),
@@ -463,3 +478,61 @@ def eval_env(table, kinds_present, d, active, textures=(),
         else:
             out = out + torch.broadcast_to(scale[None, :], d.shape)
     return torch.where(active[..., None], out, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# plugins (register_emitter)
+# ---------------------------------------------------------------------------
+
+#: the first kind id of ``register_emitter``
+_CUSTOM_KIND_BASE = 1000
+_CUSTOM_PDF_FNS: Dict[int, object] = {}
+_CUSTOM_EVAL_FNS: Dict[int, object] = {}
+
+
+def register_emitter(name: str, *, sample_fn, pdf_fn=None,
+                     eval_hit_fn=None) -> int:
+    """An emitter plugin (``register_emitter``, :396-464; the reference's
+    ``PluginManager::register_python_plugin``).  Each function is torch,
+    of the lanes' table rows ``row`` (``position``, ``direction``,
+    ``intensity``, ``radiance``, ``cutoff_cos``, ...: the columns the
+    loader parses for every emitter, leaves that take a gradient):
+
+    - ``sample_fn(row, ref_p, s2) -> (DirectionSample, spec (N, 3))``: a
+      next-event direction from ``ref_p``; its pdf is the solid-angle pdf
+      without the 1/E pick, which the dispatcher applies, and ``delta``
+      marks a Dirac light.  A light without ``eval_hit_fn`` can never be
+      hit, so it must mark its samples delta;
+    - ``pdf_fn(row, ref_p, d, hit_p, hit_n) -> pdf (N,)``: that pdf, for
+      the MIS of a BSDF-sampled hit;
+    - ``eval_hit_fn(row, wi_local_z, uv) -> (N, 3)``: the radiance of a
+      light on a shape, hit from a BSDF sample.  It needs ``pdf_fn``:
+      without it NEE would be weighted against a BSDF leg of full weight
+      and the image biased bright, so that raises, as in the reference.
+
+    A gradient of the light's parameters reaches the NEE term through
+    ``sample_fn`` (``ad/prb.py`` ``attached_emitter_weight``) by autograd.
+    A scene names it as ``{"type": name, ...}``.  Returns the kind id,
+    numbered from ``_CUSTOM_KIND_BASE``.  A name taken raises."""
+    if name in KIND_NAMES:
+        raise ValueError(f"emitter type '{name}' already registered")
+    if eval_hit_fn is not None and pdf_fn is None:
+        raise ValueError(
+            f"emitter type '{name}': eval_hit_fn without pdf_fn would "
+            "double-count: NEE is MIS-weighted against a BSDF-hit leg "
+            "whose pdf_direction would be 0. Shape-attached custom "
+            "emitters require both hooks.")
+    kind = _CUSTOM_KIND_BASE + sum(1 for k in _SAMPLE_FNS
+                                   if k >= _CUSTOM_KIND_BASE)
+    KIND_NAMES[name] = kind
+
+    def _wrapped(p_em, ref_p, s2, em_idx):
+        ds, spec = sample_fn(p_em, ref_p, s2)
+        return ds.replace(emitter_index=em_idx), spec
+
+    _SAMPLE_FNS[kind] = _wrapped
+    if pdf_fn is not None:
+        _CUSTOM_PDF_FNS[kind] = pdf_fn
+    if eval_hit_fn is not None:
+        _CUSTOM_EVAL_FNS[kind] = eval_hit_fn
+    return kind

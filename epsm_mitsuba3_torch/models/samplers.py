@@ -19,7 +19,12 @@ stratified or multijitter 2-D draw, is plain jitter when spp is not a
 power of two; and the dimension counter ``dim`` is one number shared by
 every lane, held here as a Python int, so a draw's scramble key is
 computed on the host.  32-bit values are carried in masked ``int64``
-(``core/rng.py``).  Any other kind raises.
+(``core/rng.py``).  ``register_sampler`` adds a kind written by the user;
+any other kind raises.
+
+Draws are made in float32, bit for bit with the reference, and cast to
+the variant's float type (``config.py``): exactly, so a ``*_double``
+variant consumes the float32 variant's stream.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from ..config import config
 from ..core import rng as _rng
 
 M32 = _rng.M32
@@ -57,10 +63,8 @@ def seed(seed_value, wavefront_size: int, kind: str = "independent",
     stream a lane (sampler.cpp:115-135) and the lane's sample index
     ``lane % spp``.  A shard seeding lanes [off, off + n) gets the same
     draws as those lanes of the whole wavefront."""
-    if kind not in KINDS:
-        raise NotImplementedError(
-            f"sampler '{kind}' is not ported (register_sampler plugins "
-            "come with the registries)")
+    if kind not in KINDS and kind not in _CUSTOM_SAMPLER_FNS:
+        raise NotImplementedError(f"sampler '{kind}' is not ported")
     seed_val = int(seed_value) & M32
     sample_index = None
     if kind != "independent":      # the independent draws never read it
@@ -168,8 +172,8 @@ def _pcg_1d(sampler: Sampler):
     return replace(sampler, rng=r), x
 
 
-def next_1d(sampler: Sampler):
-    """(sampler', x (N,)) in [0, 1)."""
+def _next_1d_f32(sampler: Sampler):
+    """A built-in kind's 1-D draw, float32."""
     kind = sampler.kind
     if kind == "independent":
         return _pcg_1d(sampler)
@@ -185,8 +189,8 @@ def next_1d(sampler: Sampler):
     return s2, jitter
 
 
-def next_2d(sampler: Sampler):
-    """(sampler', xy (N, 2)) in [0, 1)^2."""
+def _next_2d_f32(sampler: Sampler):
+    """A built-in kind's 2-D draw, float32."""
     kind = sampler.kind
     if kind == "independent":
         r, x = _rng.pcg32_next_float32(sampler.rng)
@@ -232,3 +236,51 @@ def next_2d(sampler: Sampler):
         return s2, torch.stack([(x + jx) / p, (y + jy) / p], dim=-1)
 
     return s2, torch.stack([jx, jy], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# plugins (register_sampler) and the variant's float type
+# ---------------------------------------------------------------------------
+
+#: the kinds of ``register_sampler``: name -> (1-D fn, 2-D fn)
+_CUSTOM_SAMPLER_FNS = {}
+
+
+def register_sampler(name: str, next_1d_fn, next_2d_fn=None) -> None:
+    """A sampler plugin (``register_sampler``, :219-236; the reference's
+    ``PluginManager::register_python_plugin``).
+
+    ``next_1d_fn(sampler) -> (sampler', x (N,))`` draws the next
+    dimension; the ``Sampler`` holds the lanes' PCG32 streams ``rng``,
+    their ``sample_index``, the dimension counter ``dim`` and
+    ``seed_val``, and ``_next_1d_f32`` is the built-in draw of the
+    sampler's kind.  ``next_2d_fn`` defaults to two 1-D draws.  A scene
+    names it as ``{"sampler": {"type": name, ...}}``.  A name taken
+    raises."""
+    if name in _CUSTOM_SAMPLER_FNS or name in KINDS:
+        raise ValueError(f"sampler type '{name}' already registered")
+    if next_2d_fn is None:
+        def next_2d_fn(sampler):
+            sampler, x = next_1d_fn(sampler)
+            sampler, y = next_1d_fn(sampler)
+            return sampler, torch.stack([x, y], dim=-1)
+    _CUSTOM_SAMPLER_FNS[name] = (next_1d_fn, next_2d_fn)
+
+
+def _as_policy(x: torch.Tensor) -> torch.Tensor:
+    """A draw in the variant's float type (``_as_policy``, :238-247)."""
+    return x if config.dtype == torch.float32 else x.to(config.dtype)
+
+
+def next_1d(sampler: Sampler):
+    """(sampler', x (N,)) in [0, 1)."""
+    fns = _CUSTOM_SAMPLER_FNS.get(sampler.kind)
+    sampler, x = (fns[0] if fns else _next_1d_f32)(sampler)
+    return sampler, _as_policy(x)
+
+
+def next_2d(sampler: Sampler):
+    """(sampler', xy (N, 2)) in [0, 1)^2."""
+    fns = _CUSTOM_SAMPLER_FNS.get(sampler.kind)
+    sampler, x = (fns[1] if fns else _next_2d_f32)(sampler)
+    return sampler, _as_policy(x)

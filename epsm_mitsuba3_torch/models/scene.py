@@ -5,11 +5,13 @@ Geometry is one flat set of arrays (all meshes concatenated); structure
 (kinds present, integrator settings, film sizes) is static metadata.
 ``load_dict`` takes the subset of the reference schema that the port
 renders: ``rectangle``/``cube``/``disk``/``sphere``/``cylinder`` shapes
-(the sphere tessellated), in-memory ``mesh`` shapes and mesh files
+(the sphere tessellated, or analytic with ``analytic``: a row of
+``Scene.sph_data``, ``ops/quadric.py``), in-memory ``mesh`` shapes and mesh files
 (``obj``, ``ply``, ``serialized``, through ``mesh_io``), ``shapegroup``
 and ``instance`` (flattened at load) and ``merge``; every scalar BSDF of
-``models/bsdf.py`` (all of the reference's but ``measured``,
-``polarizer``, ``retarder``, ``circular`` and ``measured_polarized``),
+``models/bsdf.py`` (all of the reference's but ``polarizer``,
+``retarder``, ``circular`` and ``measured_polarized``; a ``measured``
+table is baked at load into a ``measured_brdf`` texture),
 its rough kinds with the GGX or the Beckmann distribution, a
 ``blendbsdf`` with a scalar or textured weight and ``mask`` (a blend of
 ``null`` and its material), optionally ``twosided``, ``normalmap`` or
@@ -27,7 +29,11 @@ with any of the six filters of ``models/films.py`` (``gaussian`` where
 none is named); and the ``path``, ``prb``, ``prb_basic``,
 ``prb_reparam``, ``manifold``, ``manifold_caustic``, ``direct``,
 ``direct_reparam``, ``emission_reparam``, ``depth``, ``aov``, ``moment``
-and ``ptracer`` integrators.  The spectral types are not scene elements
+and ``ptracer`` integrators; and the kinds given to ``register_shape``,
+``register_bsdf``, ``register_emitter``, ``register_sensor``,
+``register_sampler`` and ``register_texture``.  Under a ``*_double``
+variant (``config.py``) every float leaf is cast to float64 at the end
+of ``scene_from_arrays``; the BVH stays float32.  The spectral types are not scene elements
 in the reference either: ``render``'s ``integrator`` argument names
 them, and a scene naming one raises ``ValueError`` as the reference's
 loader does.  Any other plugin raises ``NotImplementedError`` with its
@@ -51,6 +57,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import config
 from ..core.device import resolve_device
 from ..core.spectral import project_to_rgb
 from ..core.spectrum import blackbody_rgb
@@ -138,6 +145,11 @@ class Scene:
     #: topology is fixed, so moved vertices keep it.  The reparameterised
     #: integrators' boundary test reads it (``ad/reparam.py``)
     face_open: Optional[torch.Tensor] = None
+    #: analytic spheres (``ops/quadric.py``): (S, 4) rows [center,
+    #: radius], a differentiable leaf, and (S,) int32 the shape each
+    #: belongs to; None without any
+    sph_data: Optional[torch.Tensor] = None
+    sph_shape: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -151,13 +163,17 @@ class Scene:
         each sensor's ``sensors.<i>.to_world`` (and a batch sensor's
         ``sensors.<i>.sub_to_world``) and each texture's tensors
         (``textures.<i>.data``, ``.color0``, ``.color1``, ``.uv_scale``,
-        ``.uv_offset``), so that an envmap's or a BSDF's texels take a
-        gradient, and the ``vertex_colors``.  The BVH and its packed
-        records derive from the vertices and are no leaves."""
+        ``.uv_offset``, a measured BSDF's ``.grid3d`` and ``.nodes``), so
+        that an envmap's or a BSDF's texels take a gradient, the
+        ``vertex_colors`` and the analytic spheres' ``sph_data``.  The BVH
+        and its packed records derive from the vertices and are no
+        leaves."""
         out = {k: getattr(self, k) for k in GEOMETRY_FIELDS
                if getattr(self, k).is_floating_point()}
         if self.vertex_colors is not None:
             out["vertex_colors"] = self.vertex_colors
+        if self.sph_data is not None:
+            out["sph_data"] = self.sph_data
         for prefix in ("bsdfs", "emitters"):
             out.update({f"{prefix}.{k}": v
                         for k, v in getattr(self, prefix).items()
@@ -167,7 +183,7 @@ class Scene:
                 if getattr(sensor, k) is not None:
                     out[f"sensors.{i}.{k}"] = getattr(sensor, k)
         for i, tex in enumerate(self.textures):
-            for k in tex_mod.ARRAYS:
+            for k in tex_mod.LEAF_ARRAYS:
                 if getattr(tex, k) is not None:
                     out[f"textures.{i}.{k}"] = getattr(tex, k)
         return out
@@ -177,7 +193,7 @@ class Scene:
         the BVH is kept as it is (a vertex edit goes through
         ``set_vertices``)."""
         kw = {k: v for k, v in leaves.items()
-              if k in GEOMETRY_FIELDS or k == "vertex_colors"}
+              if k in GEOMETRY_FIELDS or k in ("vertex_colors", "sph_data")}
         for prefix in ("bsdfs", "emitters"):
             table = dict(getattr(self, prefix))
             table.update({k.split(".", 1)[1]: v for k, v in leaves.items()
@@ -189,7 +205,7 @@ class Scene:
             for i, s in enumerate(self.sensors))
         kw["textures"] = tuple(
             t.replace(**{k: leaves.get(f"textures.{i}.{k}", getattr(t, k))
-                         for k in tex_mod.ARRAYS})
+                         for k in tex_mod.LEAF_ARRAYS})
             for i, t in enumerate(self.textures))
         return replace(self, **kw)
 
@@ -212,16 +228,28 @@ class Scene:
         sc = replace(self, vertices=vertices)
         if sc.bvh is None:
             return sc
-        v = vertices.detach()
-        bvh = bvh_mod.refit(sc.bvh, v, sc.faces)
-        nodes, tris, tris_k = CT.pack_bvh4(bvh, v, sc.faces)
-        return replace(sc, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris,
+        return sc.with_bvh(bvh_mod.refit(
+            sc.bvh, vertices.detach().to(torch.float32), sc.faces))
+
+    def with_bvh(self, bvh: bvh_mod.BVH) -> "Scene":
+        """The scene with the BVH ``bvh`` (e.g. ``bvh_mod.build(...,
+        builder="numpy")``) and its K2/K3 records packed from the
+        vertices."""
+        nodes, tris, tris_k = CT.pack_bvh4(
+            bvh, self.vertices.detach().to(torch.float32), self.faces)
+        return replace(self, bvh=bvh, bvh_nodes=nodes, bvh_tris=tris,
                        bvh_tris_k=tris_k)
 
     # -- ray queries (scene.cpp:116-142) ------------------------------------
     def ray_intersect_preliminary(self, ray: Ray,
                                   multi_pop: Optional[int] = None):
-        return accel.ray_intersect(self, ray, multi_pop=multi_pop)
+        """The triangle query (K1, or K2/K4 through the BVH), then the
+        analytic spheres merged by the nearest t."""
+        pi = accel.ray_intersect(self, ray, multi_pop=multi_pop)
+        if self.sph_data is not None:
+            from ..ops import quadric
+            pi = quadric.merge_spheres(self, ray, pi)
+        return pi
 
     def ray_intersect(self, ray: Ray, ray_flags: int = RayFlags.All):
         from ..ops import intersect as I
@@ -229,7 +257,11 @@ class Scene:
         return I.compute_surface_interaction(self, ray, pi, ray_flags)
 
     def ray_test(self, ray: Ray):
-        return accel.ray_test(self, ray)
+        occ = accel.ray_test(self, ray)
+        if self.sph_data is not None:
+            from ..ops import quadric
+            occ = occ | quadric.sphere_occluded(ray, self.sph_data)
+        return occ
 
 
 # ===========================================================================
@@ -246,6 +278,28 @@ _INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "prb_reparam", "manifold",
 #: integrator types that ``render`` runs but the reference's loader does
 #: not list (JAX models/scene.py:1041-1044): a scene naming one is refused
 _RENDER_ONLY_TYPES = ("spectral", "spectral_mono", "spectral_spec")
+
+
+#: the kinds of ``register_shape``: name -> build fn
+_CUSTOM_SHAPE_FNS: Dict[str, Any] = {}
+
+
+def register_shape(name: str, build_fn) -> None:
+    """A shape plugin (``register_shape``, :148-161; the reference's
+    ``PluginManager::register_python_plugin``).  ``build_fn(props) ->
+    {"vertices": (V, 3), "faces": (F, 3)}``, with ``normals``, ``uvs`` or
+    ``colors`` where it has them, turns the scene-dict entry into mesh
+    arrays; ``to_world``, the BSDF and emitter children,
+    ``face_normals``, ``flip_normals`` and the BVH are the shared
+    pipeline's.  A scene names it as ``{"type": name, ...}``.  A name
+    taken (a built-in one too) raises."""
+    if name in _SHAPE_TYPES or name in _CUSTOM_SHAPE_FNS:
+        raise ValueError(f"shape type '{name}' already registered")
+    _CUSTOM_SHAPE_FNS[name] = build_fn
+
+
+def _is_shape(t) -> bool:
+    return t in _SHAPE_TYPES or t in _CUSTOM_SHAPE_FNS
 
 
 def _open_edge_mask(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
@@ -357,8 +411,8 @@ def _transform(value) -> np.ndarray:
 
 
 #: the reference's BSDF plugin names (its ``KIND_NAMES``); the port has
-#: all but the last five (``bsdf.KIND_NAMES``): ``measured`` and the
-#: polarization elements raise by name
+#: all but the last four (``bsdf.KIND_NAMES``): the polarization elements
+#: raise by name
 _BSDF_PLUGINS = ("diffuse", "conductor", "roughconductor", "dielectric",
                  "thindielectric", "roughdielectric", "plastic",
                  "roughplastic", "null", "principled", "principledthin",
@@ -367,6 +421,18 @@ _BSDF_PLUGINS = ("diffuse", "conductor", "roughconductor", "dielectric",
 #: the texture plugins a BSDF's reflectance may name
 _REFLECTANCE_TEXTURES = ("bitmap", "checkerboard", "mesh_attribute",
                          "volume")
+
+
+def _is_bsdf(t, extra=()) -> bool:
+    """``t`` names a BSDF plugin (the reference's or one of
+    ``register_bsdf``), or one of ``extra``."""
+    return t in _BSDF_PLUGINS or t in bsdf_mod.KIND_NAMES or t in extra
+
+
+def _is_texture(t) -> bool:
+    """``t`` names a texture a reflectance may take (a plugin of
+    ``register_texture`` too)."""
+    return t in _REFLECTANCE_TEXTURES or t in tex_mod._CUSTOM_TEXTURE_FNS
 
 
 def _unwrap_bsdf(d: dict):
@@ -384,7 +450,7 @@ def _unwrap_bsdf(d: dict):
                       if isinstance(d.get(k), dict)), None)
         if child is None:
             child = next((v for v in d.values() if isinstance(v, dict)
-                          and v.get("type") in _BSDF_PLUGINS + ("twosided",)),
+                          and _is_bsdf(v.get("type"), ("twosided",))),
                          None)
         if child is None:
             raise ValueError(f"wrapper bsdf '{d['type']}' without nested "
@@ -409,6 +475,7 @@ class _Builder:
         self.integrator = {"type": "path", "max_depth": 6, "rr_depth": 5}
         self.spp = 16
         self.sampler_kind = "independent"
+        self.sph_rows, self.sph_shape_rows = [], []
         self._v_off = 0
         self._f_off = 0
 
@@ -464,21 +531,34 @@ class _Builder:
             raise NotImplementedError(
                 "a roughness given as a list is not ported; give alpha as "
                 "a number")
+        # a measured BSDF's table, baked from its tensor file (:420-434),
+        # is a texture the slot's reflectance_tex names; its alpha is the
+        # fitted roughness of the sampling proxy
+        measured_tex = -1
+        if kind == bsdf_mod.KIND_MEASURED:
+            from . import measured as meas_mod
+            table, ti_nodes, alpha = meas_mod.bake(p["filename"])
+            self.textures.append({
+                "kind": "measured_brdf",
+                "data": np.zeros((1, 1, 3), np.float32),
+                "color0": np.zeros(3, np.float32),
+                "color1": np.ones(3, np.float32),
+                "uv_scale": np.ones(2, np.float32),
+                "grid3d": table, "nodes": ti_nodes})
+            measured_tex = len(self.textures) - 1
         # a blend's children first (:454-464): BSDFs, twosided wrappers and
         # references among its entries, in order
         blend_a = blend_b = 0
         if kind == bsdf_mod.KIND_BLEND:
             children = [v for v in p.values() if isinstance(v, dict)
-                        and v.get("type") in _BSDF_PLUGINS
-                        + ("twosided", "ref")]
+                        and _is_bsdf(v.get("type"), ("twosided", "ref"))]
             if len(children) < 2:
                 raise ValueError("blendbsdf needs two nested BSDFs")
             blend_a = self.add_bsdf(children[0])
             blend_b = self.add_bsdf(children[1])
         refl = p.get("reflectance", p.get("base_color"))
         refl_tex = -1
-        if isinstance(refl, dict) and refl.get("type") in \
-                _REFLECTANCE_TEXTURES:
+        if isinstance(refl, dict) and _is_texture(refl.get("type")):
             refl_tex = self.add_texture(refl)
             refl = None
         diffuse = p.get("diffuse_reflectance")
@@ -534,6 +614,8 @@ class _Builder:
             "blend_weight_tex": self.add_texture(weight)
             if isinstance(weight, dict) else -1,
         }
+        if measured_tex >= 0:
+            row["reflectance_tex"] = measured_tex
         self.bsdf_rows.append(row)
         idx = len(self.bsdf_rows) - 1
         if "id" in d:
@@ -565,6 +647,20 @@ class _Builder:
                    "color0": np.zeros(3, np.float32),
                    "color1": np.ones(3, np.float32),
                    "uv_scale": np.ones(2, np.float32)}
+        elif t in tex_mod._CUSTOM_TEXTURE_FNS:
+            # a register_texture plugin (:357-376): the dict's filename,
+            # colours and uv_scale in the generic fields
+            data = np.zeros((1, 1, 3), np.float32)
+            if d.get("filename"):
+                from ..core.bitmap import read_image
+                data = read_image(d["filename"]).data
+            scale = d.get("uv_scale", 1.0)
+            tex = {"kind": t, "data": data,
+                   "color0": _rgb(d.get("color0"), (1, 1, 1)),
+                   "color1": _rgb(d.get("color1"), (0, 0, 0)),
+                   "uv_scale": np.asarray(
+                       scale if isinstance(scale, (list, tuple))
+                       else (float(scale),) * 2, np.float32)}
         else:
             raise NotImplementedError(f"texture type '{t}' is not ported")
         self.textures.append(tex)
@@ -638,7 +734,7 @@ class _Builder:
             # (shapegroup.cpp)
             self.shapegroups[d.get("id", name)] = [
                 v for v in d.values()
-                if isinstance(v, dict) and v.get("type") in _SHAPE_TYPES]
+                if isinstance(v, dict) and _is_shape(v.get("type"))]
             return
         if t == "instance":
             # flattened at load: the group's shapes under the instance's
@@ -666,11 +762,18 @@ class _Builder:
             for k in ("normals", "uvs"):
                 if k in d:
                     mesh[k] = np.asarray(d[k], np.float32)
+        elif t in _CUSTOM_SHAPE_FNS:
+            # a register_shape plugin: its mesh arrays, then the shared
+            # pipeline (to_world, children, the BVH)
+            mesh = dict(_CUSTOM_SHAPE_FNS[t](d))
+            mesh["vertices"] = np.asarray(mesh["vertices"], np.float32)
+            mesh["faces"] = np.asarray(mesh["faces"], np.int32)
+            for k in ("normals", "uvs", "colors"):
+                if mesh.get(k) is not None:
+                    mesh[k] = np.asarray(mesh[k], np.float32)
         elif t == "sphere":
             if bool(d.get("analytic", False)):
-                raise NotImplementedError(
-                    "the analytic sphere (ops/quadric.py) is not ported; "
-                    "the tessellated sphere is the default")
+                return self._add_analytic_sphere(d, name)
             mesh = shapes_mod.sphere(
                 radius=float(d.get("radius", 1.0)),
                 center=tuple(d.get("center", (0.0, 0.0, 0.0))),
@@ -739,6 +842,55 @@ class _Builder:
         self._v_off += nv
         self._f_off += nf
 
+    def _add_analytic_sphere(self, d: dict, name: str):
+        """A quadric sphere (``_add_analytic_sphere``, :799-840): a shape
+        slot without triangles and a row [center, radius] of the spheres'
+        table, under ``to_world``, which must scale uniformly.  A BSDF
+        child is loaded as on a mesh; an emitter child raises (the
+        reference tessellates such a sphere instead: load it without
+        ``analytic``)."""
+        to_world = _transform(d.get("to_world"))
+        lin = to_world[:3, :3]
+        scales = np.linalg.norm(lin, axis=0)
+        if not np.allclose(scales, scales[0], rtol=1e-4):
+            raise ValueError(
+                f"shape '{name}': analytic sphere needs a uniform-scale "
+                "to_world (non-uniform scale makes it an ellipsoid; "
+                "tessellate instead)")
+        c = lin @ np.asarray(d.get("center", (0.0, 0.0, 0.0)), np.float32) \
+            + to_world[:3, 3]
+        r = float(d.get("radius", 1.0)) * float(scales[0])
+        shape_index = len(self.shape_bsdf)
+        bsdf_idx = -1
+        for key, val in d.items():
+            if not isinstance(val, dict):
+                continue
+            vt = val.get("type")
+            if key == "emitter" or vt in em_mod.KIND_NAMES:
+                raise ValueError(
+                    f"shape '{name}': an analytic sphere with an emitter "
+                    "is not supported; load the sphere tessellated")
+            if vt == "ref" or key == "bsdf" or vt in ("twosided", "mask") \
+                    or vt in bsdf_mod.KIND_NAMES:
+                bsdf_idx = self.add_bsdf(val)
+            else:
+                raise NotImplementedError(
+                    f"shape child '{key}' of type '{vt}' is not ported")
+        if bsdf_idx < 0:
+            bsdf_idx = self.add_bsdf({"type": "diffuse"})
+        self.shape_names.append(name)
+        self.vertex_ranges.append((self._v_off, 0))
+        self.shape_bsdf.append(bsdf_idx)
+        self.shape_emitter.append(-1)
+        self.vertices.append(np.zeros((0, 3), np.float32))
+        self.normals.append(np.zeros((0, 3), np.float32))
+        self.uvs.append(np.zeros((0, 2), np.float32))
+        self.vertex_colors.append(np.zeros((0, 3), np.float32))
+        self.faces.append(np.zeros((0, 3), np.int32))
+        self.face_shape.append(np.zeros((0,), np.int32))
+        self.sph_rows.append([c[0], c[1], c[2], r])
+        self.sph_shape_rows.append(shape_index)
+
     # -- sensor (_Builder.add_sensor) ---------------------------------------
     def add_sensor(self, d: dict):
         """A sensor row (``_Builder.add_sensor``, :847-911).  A ``batch``
@@ -756,7 +908,7 @@ class _Builder:
         self.spp = int(sampler.get("sample_count", self.spp))
         if d.get("type") == "batch":
             subs = [v for v in d.values() if isinstance(v, dict)
-                    and v.get("type") in _SENSOR_TYPES
+                    and sns_mod.is_kind(v.get("type"))
                     and v.get("type") != "batch"]
             if not subs:
                 raise ValueError("batch sensor needs nested sensors")
@@ -782,7 +934,8 @@ class _Builder:
                                 for sub in subs)))
             return
         kind = sampler.get("type", self.sampler_kind)
-        if kind not in smp_mod.KINDS:
+        if kind not in smp_mod.KINDS \
+                and kind not in smp_mod._CUSTOM_SAMPLER_FNS:
             raise NotImplementedError(f"sampler '{kind}' is not ported")
         self.sampler_kind = kind
         self.sensors.append(dict(
@@ -817,6 +970,9 @@ class _Builder:
         for em_idx, face_ids in zip(self.em_shape, self.em_face_list):
             em_faces[em_idx, :len(face_ids)] = face_ids
         out["em_faces"] = em_faces
+        if self.sph_rows:
+            out["sph_data"] = np.asarray(self.sph_rows, np.float32)
+            out["sph_shape"] = np.asarray(self.sph_shape_rows, np.int32)
         for k in self.bsdf_rows[0]:
             out[f"bsdfs.{k}"] = np.asarray([r[k] for r in self.bsdf_rows])
         # the emitter table: the reference's defaults, then the rows
@@ -831,8 +987,8 @@ class _Builder:
             etable["radiance"][:] = 0.0
         out.update({f"emitters.{k}": v for k, v in etable.items()})
         for i, tex in enumerate(self.textures):
-            out.update({f"textures.{i}.{k}": tex[k] for k in tex_mod.ARRAYS
-                        if k in tex})
+            out.update({f"textures.{i}.{k}": tex[k]
+                        for k in tex_mod.LEAF_ARRAYS if k in tex})
         for i, s in enumerate(self.sensors):
             for k in SENSOR_ARRAYS:
                 if k in s:
@@ -851,13 +1007,13 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
         if key == "type" or not isinstance(val, dict):
             continue
         t = val.get("type")
-        if t in _SENSOR_TYPES:
+        if sns_mod.is_kind(t):
             b.add_sensor(val)
         elif t in _INTEGRATOR_TYPES:
             b.integrator = dict(val)
         elif t in _RENDER_ONLY_TYPES:
             raise ValueError(f"unsupported scene element '{key}' type={t}")
-        elif t in _SHAPE_TYPES:
+        elif _is_shape(t):
             b.add_shape(val, key)
         elif t in bsdf_mod.KIND_NAMES or t in ("twosided", "mask"):
             b.add_bsdf(val)          # stand-alone, referenced by its id
@@ -865,7 +1021,7 @@ def load_dict(d: Mapping[str, Any], device=None) -> Scene:
             b.add_emitter(val)       # a light without a shape
         elif t == "merge":
             for k2, v2 in val.items():
-                if isinstance(v2, dict) and v2.get("type") in _SHAPE_TYPES:
+                if isinstance(v2, dict) and _is_shape(v2.get("type")):
                     b.add_shape(v2, f"{key}.{k2}")
         else:
             raise NotImplementedError(
@@ -911,7 +1067,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
 
     ``vertex_colors`` (V, 3) is taken where it is given, zeros
     otherwise; ``face_open`` (F, 3) where it is given, else computed from
-    the vertices and faces (``_open_edge_mask``).
+    the vertices and faces (``_open_edge_mask``); ``sph_data`` (S, 4) and
+    ``sph_shape`` (S,), the analytic spheres, where they are given.
 
     ``sensors``: per sensor, the static fields of ``Sensor`` other than
     its arrays (kind, fov_x, near, far, width, height, rfilter,
@@ -970,10 +1127,10 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     texs = tuple(
         tex_mod.Texture(kind=str(s["kind"]), **{
             k: t(arrays[f"textures.{i}.{k}"], torch.float32)
-            for k in tex_mod.ARRAYS if f"textures.{i}.{k}" in arrays})
+            for k in tex_mod.LEAF_ARRAYS if f"textures.{i}.{k}" in arrays})
         for i, s in enumerate(textures))
     for tex in texs:
-        if tex.kind not in ("bitmap", "checkerboard", "mesh_attribute"):
+        if not tex_mod.is_kind(tex.kind):
             raise NotImplementedError(
                 f"texture kind '{tex.kind}' is not ported")
     bsdf_kinds = tuple(sorted({int(k) for k in arrays["bsdfs.kind"]}))
@@ -1017,10 +1174,21 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray],
     if face_open is None:
         face_open = _open_edge_mask(np.asarray(arrays["vertices"]),
                                     np.asarray(arrays["faces"]))
-    return Scene(bsdfs=bsdfs, emitters=emitters, sensors=sensor_objs,
-                 static=static, textures=texs, bvh=bvh, bvh_nodes=nodes,
-                 bvh_tris=tris, bvh_tris_k=tris_k, vertex_colors=vcol,
-                 face_open=t(face_open, torch.int8), **geo)
+    sph = {}
+    if arrays.get("sph_data") is not None:
+        sph = {"sph_data": t(arrays["sph_data"], torch.float32),
+               "sph_shape": t(arrays["sph_shape"], torch.int32)}
+    scene = Scene(bsdfs=bsdfs, emitters=emitters, sensors=sensor_objs,
+                  static=static, textures=texs, bvh=bvh, bvh_nodes=nodes,
+                  bvh_tris=tris, bvh_tris_k=tris_k, vertex_colors=vcol,
+                  face_open=t(face_open, torch.int8), **sph, **geo)
+    if config.dtype != torch.float32:
+        # a *_double variant (config.py): every float leaf in its type,
+        # at this one point (:1016-1030); the BVH and its K2/K3 records
+        # stay float32
+        scene = scene.with_leaves({k: v.to(config.dtype)
+                                   for k, v in scene.leaves().items()})
+    return scene
 
 
 # ===========================================================================
@@ -1031,8 +1199,10 @@ class SceneParameters:
     """Dict-like view of a scene's differentiable parameters, under the
     reference's keys: ``<shape>.vertex_positions``,
     ``<shape>.vertex_normals``, ``<shape>.bsdf.reflectance.value``,
-    ``<shape>.bsdf.alpha``, ``<shape>.emitter.radiance.value`` and
-    ``sensor[i].to_world``.  Assignments are buffered; ``update()``
+    ``<shape>.bsdf.alpha``, ``<shape>.emitter.radiance.value``,
+    ``sensor[i].to_world`` and an analytic sphere's ``<shape>.center`` and
+    ``<shape>.radius`` (in place of its vertices).  Assignments are
+    buffered; ``update()``
     applies them in order and returns the new Scene (also kept as
     ``self.scene``), differentiable in every value written.  It
     recomputes the smooth normals of the shapes whose positions changed,
@@ -1043,12 +1213,20 @@ class SceneParameters:
         self.scene = scene
         self._pending: Dict[str, Any] = {}
 
+    def _spheres(self):
+        """The shape indices of the analytic spheres, by slot."""
+        sph = self.scene.sph_shape
+        return [] if sph is None else sph.tolist()
+
     def keys(self):
         ks = []
         emissive = self.scene.shape_emitter.tolist()
+        spheres = self._spheres()
         for i, name in enumerate(self.scene.static.shape_names):
-            ks += [f"{name}.vertex_positions", f"{name}.vertex_normals",
-                   f"{name}.bsdf.reflectance.value", f"{name}.bsdf.alpha"]
+            ks += ([f"{name}.center", f"{name}.radius"] if i in spheres
+                   else [f"{name}.vertex_positions",
+                         f"{name}.vertex_normals"])
+            ks += [f"{name}.bsdf.reflectance.value", f"{name}.bsdf.alpha"]
             if emissive[i] >= 0:
                 ks.append(f"{name}.emitter.radiance.value")
         ks += [f"sensor[{i}].to_world" for i in range(len(self.scene.sensors))]
@@ -1069,6 +1247,11 @@ class SceneParameters:
             idx = self.scene.static.shape_names.index(name)
         except ValueError:
             raise KeyError(key) from None
+        if rest in ("center", "radius"):
+            spheres = self._spheres()
+            if idx not in spheres:
+                raise KeyError(key)
+            return ("sphere", spheres.index(idx), rest)
         if rest == "vertex_positions":
             return ("verts", idx)
         if rest == "vertex_normals":
@@ -1094,6 +1277,9 @@ class SceneParameters:
             return sc.bsdfs[kind[2]][int(sc.shape_bsdf[kind[1]])]
         if kind[0] == "emitter":
             return sc.emitters[kind[2]][int(sc.shape_emitter[kind[1]])]
+        if kind[0] == "sphere":
+            row = sc.sph_data[kind[1]]
+            return row[:3] if kind[2] == "center" else row[3]
         return sc.sensors[kind[1]].to_world
 
     def __setitem__(self, key: str, value):
@@ -1136,6 +1322,13 @@ class SceneParameters:
                 tab[kind[2]] = set_row(tab[kind[2]], int(owner[kind[1]]),
                                        value)
                 sc = replace(sc, **{table: tab})
+            elif kind[0] == "sphere":
+                row = sc.sph_data[kind[1]]
+                val = as_t(value, row)
+                row = (torch.cat([val.reshape(3), row[3:]])
+                       if kind[2] == "center"
+                       else torch.cat([row[:3], val.reshape(1)]))
+                sc = replace(sc, sph_data=set_row(sc.sph_data, kind[1], row))
             else:
                 sensors = list(sc.sensors)
                 s0 = sensors[kind[1]]

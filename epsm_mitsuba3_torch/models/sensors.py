@@ -7,7 +7,8 @@ side by side on one film).
 primary rays with their x/y-offset directions, which the EPSM
 position channel reads (epsm.py:249-257).  ``point_to_film`` and
 ``project_to_film`` map world points and directions back to the film for
-the reparameterised integrators (``ad/reparam.py``).
+the reparameterised integrators (``ad/reparam.py``).  ``register_sensor``
+adds a kind written by the user in torch.
 """
 from __future__ import annotations
 
@@ -74,6 +75,47 @@ def _axis(R: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return m.normalize(_rotate(R, z))
 
 
+#: the kinds of ``register_sensor``: name -> sample fn
+_CUSTOM_SENSOR_FNS = {}
+
+
+def register_sensor(name: str, sample_fn) -> None:
+    """A sensor plugin (``register_sensor``, :39-52; the reference's
+    ``PluginManager::register_python_plugin``).  ``sample_fn(sensor,
+    pos01 (N, 2)) -> (o (N, 3), d (N, 3), weight (N, 3) or None)`` maps
+    film positions in [0, 1]^2 to primary rays, a torch function of the
+    ``Sensor``'s ``to_world`` (a leaf) and its static fields.  The ray
+    differentials are ``sample_fn`` at one-pixel offsets; a weight of None
+    is 1.  A scene names it as ``{"type": name, ...}``.  A name taken
+    raises."""
+    if name in _CUSTOM_SENSOR_FNS or name in KINDS:
+        raise ValueError(f"sensor type '{name}' already registered")
+    _CUSTOM_SENSOR_FNS[name] = sample_fn
+
+
+def is_kind(kind: str) -> bool:
+    """``kind`` is a sensor the port renders."""
+    return kind in KINDS or kind in _CUSTOM_SENSOR_FNS
+
+
+def _sample_custom(sensor: Sensor, pos01: torch.Tensor):
+    """A ``register_sensor`` kind's rays, the differentials from its
+    function at one-pixel film offsets (:74-88)."""
+    fn = _CUSTOM_SENSOR_FNS[sensor.kind]
+    o, d, w = fn(sensor, pos01)
+    du = torch.tensor([1.0 / sensor.width, 0.0], dtype=pos01.dtype,
+                      device=pos01.device)
+    dv = torch.tensor([0.0, 1.0 / sensor.height], dtype=pos01.dtype,
+                      device=pos01.device)
+    _, d_x, _ = fn(sensor, pos01 + du)
+    _, d_y, _ = fn(sensor, pos01 + dv)
+    ray = Ray.make(o, m.normalize(d), d_x=m.normalize(d_x),
+                   d_y=m.normalize(d_y))
+    if w is None:
+        w = torch.ones(d.shape[:-1] + (3,), dtype=d.dtype, device=d.device)
+    return ray, w
+
+
 def sample_ray_differential(sensor: Sensor, pos01: torch.Tensor,
                             aperture_sample: Optional[torch.Tensor] = None):
     """Primary rays for film positions ``pos01`` in [0,1]^2
@@ -82,10 +124,10 @@ def sample_ray_differential(sensor: Sensor, pos01: torch.Tensor,
     ``aperture_sample``: the thin lens's (N, 2) draw; with none the lens
     is sampled at its centre.  Returns (Ray with d_x/d_y differentials,
     weight (N, 3))."""
+    if sensor.kind in _CUSTOM_SENSOR_FNS:
+        return _sample_custom(sensor, pos01)
     if sensor.kind not in KINDS:
-        raise NotImplementedError(
-            f"sensor '{sensor.kind}' is not ported (register_sensor "
-            "plugins come with the registries)")
+        raise NotImplementedError(f"sensor '{sensor.kind}' is not ported")
     if sensor.kind == "batch":
         return _sample_batch(sensor, pos01)
     aspect = sensor.width / sensor.height

@@ -10,8 +10,10 @@ envmap's texels and a BSDF's take a gradient.  ``eval_select`` evaluates
 the textures it is given and selects per lane; the reference evaluates
 every texture of the scene, and the BSDFs and normal maps here pass only
 those their slots name (``Scene.bsdf_textures``, ``normal_textures``),
-which gives every lane the same value.  The volume texture and
-``register_texture`` are not ported and raise by name."""
+which gives every lane the same value.  A ``measured_brdf`` texture is
+a measured BSDF's baked table (``models/measured.py``), read by the BSDF
+and skipped here.  ``register_texture`` adds a kind written by the user
+in torch.  The volume texture is not ported and raises by name."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -21,8 +23,11 @@ import torch
 
 from ..ops.gather import take_rows
 
-#: a texture's tensors, ``textures.<i>.<name>`` among the scene's leaves
+#: a colour texture's tensors
 ARRAYS = ("data", "color0", "color1", "uv_scale", "uv_offset")
+#: every texture tensor, ``textures.<i>.<name>`` among the scene's leaves:
+#: the colour textures' and a measured table's
+LEAF_ARRAYS = ARRAYS + ("grid3d", "nodes")
 
 
 @dataclass(frozen=True)
@@ -34,12 +39,16 @@ class Texture:
     color1: torch.Tensor = None
     uv_scale: torch.Tensor = None         # (2,) to_uv scaling
     uv_offset: Optional[torch.Tensor] = None  # (2,) to_uv translation
+    #: a measured BSDF's baked table (Ti, To, Pd, 3) and its theta_i grid
+    grid3d: Optional[torch.Tensor] = None
+    nodes: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "Texture":
         return replace(self, **kw)
 
     def detach(self) -> "Texture":
-        return replace(self, **{k: getattr(self, k).detach() for k in ARRAYS
+        return replace(self, **{k: getattr(self, k).detach()
+                                for k in LEAF_ARRAYS
                                 if getattr(self, k) is not None})
 
 
@@ -73,9 +82,31 @@ def volume3d(*_a, **_kw):
         "the volume texture (models/textures.py volume3d) is not ported")
 
 
-def register_texture(name: str, *_a, **_kw):
-    raise NotImplementedError(
-        f"register_texture('{name}'): texture plugins are not ported")
+#: the kinds of ``register_texture``: name -> eval fn
+_CUSTOM_TEXTURE_FNS = {}
+
+
+def register_texture(name: str, eval_fn) -> None:
+    """A texture plugin (``register_texture``, :104-118; the reference's
+    ``PluginManager::register_python_plugin``).  ``eval_fn(tex, uv (N,
+    2), pos) -> (N, 3)`` is a torch function of the ``Texture``'s tensors
+    (``color0``, ``color1``, ``uv_scale``, ``data``, parsed from the scene
+    dict; they are leaves and take a gradient) and the hit's uv; ``pos``
+    is None, as the reference's BSDF lookups give it on a surface without
+    a volume texture.  A scene names it wherever a reflectance texture
+    may stand, as ``{"type": name, ...}``.  A name taken raises."""
+    if name in _CUSTOM_TEXTURE_FNS or name in KINDS:
+        raise ValueError(f"texture type '{name}' already registered")
+    _CUSTOM_TEXTURE_FNS[name] = eval_fn
+
+
+#: the built-in kinds
+KINDS = ("bitmap", "checkerboard", "mesh_attribute", "measured_brdf")
+
+
+def is_kind(kind: str) -> bool:
+    """``kind`` is a texture the port evaluates."""
+    return kind in KINDS or kind in _CUSTOM_TEXTURE_FNS
 
 
 def _to_uv(tex: Texture, uv: torch.Tensor) -> torch.Tensor:
@@ -89,6 +120,8 @@ def _to_uv(tex: Texture, uv: torch.Tensor) -> torch.Tensor:
 
 def eval_one(tex: Texture, uv: torch.Tensor) -> torch.Tensor:
     """One texture at (N, 2) uv -> (N, C)."""
+    if tex.kind in _CUSTOM_TEXTURE_FNS:
+        return _CUSTOM_TEXTURE_FNS[tex.kind](tex, uv, None)
     if tex.kind == "checkerboard":
         st = _to_uv(tex, uv)
         mask = ((torch.floor(st[..., 0]) + torch.floor(st[..., 1]))
@@ -129,6 +162,8 @@ def eval_select(textures, tex_idx: torch.Tensor, uv: torch.Tensor,
              else enumerate(textures))
     out = fallback
     for i, tex in items:
+        if tex.kind == "measured_brdf":      # a BRDF table, no colour
+            continue
         if tex.kind == "mesh_attribute":
             if vcolor is not None:
                 out = torch.where((tex_idx == i)[..., None], vcolor, out)

@@ -3,7 +3,10 @@
 The binary tree is built by the binned-SAH builder ``native/bvh.cpp``,
 compiled from the checkout with ``g++`` into ``_build/`` at first use
 (``ops/_native.py``) and called through ``ctypes``; a missing compiler
-or a failed build raises.  ``collapse4`` turns the binary tree into the
+or a failed build raises.  ``build(..., builder="numpy")`` takes the
+reference's median-split builder ``_build_numpy`` instead, with the same
+layout and another tree; only that argument reaches it, never a failed
+native build.  ``collapse4`` turns the binary tree into the
 4-wide topology with fat leaves that kernels K2/K3 traverse, and
 ``refit`` recomputes the node boxes bottom-up when vertices move.
 """
@@ -87,6 +90,40 @@ def _build_native(verts: np.ndarray, faces: np.ndarray):
         nf, LEAF_SIZE, bmin.ctypes.data_as(f32p), bmax.ctypes.data_as(f32p),
         meta.ctypes.data_as(i32p), order.ctypes.data_as(i32p))
     return bmin[:n], bmax[:n], meta[:n], order
+
+
+def _build_numpy(verts: np.ndarray, faces: np.ndarray):
+    """The median-split builder (``_build_numpy``, :112-154): each node
+    splits its triangles at the median centroid along the longest axis
+    of its box (a stable sort), down to ``LEAF_SIZE`` a leaf; parents
+    come before children, depth first."""
+    p = verts[faces]                                  # (F, 3, 3)
+    pmin, pmax = p.min(1), p.max(1)
+    cent = 0.5 * (pmin + pmax)
+    bmin_l, bmax_l, meta_l, order_l = [], [], [], []
+    # an explicit stack of (triangle ids, parent, the parent's slot to
+    # fill with this node): depth first, left child first
+    stack = [(np.arange(len(faces)), -1, None)]
+    while stack:
+        ids, parent, slot = stack.pop()
+        node = len(meta_l)
+        if parent >= 0:
+            meta_l[parent][slot] = node
+        bmin_l.append(pmin[ids].min(0))
+        bmax_l.append(pmax[ids].max(0))
+        if len(ids) <= LEAF_SIZE:
+            meta_l.append([len(order_l), len(ids), 1, parent])
+            order_l.extend(ids.tolist())
+            continue
+        meta_l.append([0, 0, 0, parent])
+        axis = int(np.argmax(bmax_l[node] - bmin_l[node]))
+        srt = ids[np.argsort(cent[ids, axis], kind="stable")]
+        mid = len(srt) // 2
+        stack.append((srt[mid:], node, 1))
+        stack.append((srt[:mid], node, 0))
+    return (np.stack(bmin_l).astype(np.float32),
+            np.stack(bmax_l).astype(np.float32),
+            np.asarray(meta_l, np.int32), np.asarray(order_l, np.int32))
 
 
 def _node_levels(meta: np.ndarray) -> np.ndarray:
@@ -177,10 +214,13 @@ def from_arrays(arrays: Mapping[str, np.ndarray], device) -> BVH:
     return BVH(n_levels=int(np.asarray(arrays["levels"]).max()) + 1, **out)
 
 
-def build(vertices, faces, device=None) -> BVH:
+def build(vertices, faces, device=None, builder: str = "native") -> BVH:
     """Build the BVH of a triangle mesh on the host; the arrays go to
     ``device`` (default: that of ``vertices`` if it is a tensor, else
-    the CPU)."""
+    the CPU).  ``builder``: ``"native"`` (binned SAH, ``native/bvh.cpp``)
+    or ``"numpy"`` (the median split ``_build_numpy``)."""
+    if builder not in ("native", "numpy"):
+        raise ValueError(f"unknown BVH builder '{builder}'")
     if device is None:
         device = (vertices.device if isinstance(vertices, torch.Tensor)
                   else "cpu")
@@ -190,7 +230,12 @@ def build(vertices, faces, device=None) -> BVH:
         faces = faces.cpu().numpy()
     v = np.ascontiguousarray(vertices, np.float32)
     f = np.ascontiguousarray(faces, np.int32)
-    bmin, bmax, meta, order = _build_native(v, f)
+    if builder == "numpy":
+        if f.size and (f.min() < 0 or f.max() >= len(v)):
+            raise ValueError("face indices out of range")
+        bmin, bmax, meta, order = _build_numpy(v, f)
+    else:
+        bmin, bmax, meta, order = _build_native(v, f)
     c_id, c_cnt, c_node = collapse4(meta, MAX_LEAF4)
     return from_arrays(dict(bmin=bmin, bmax=bmax, meta=meta, order=order,
                             levels=_node_levels(meta), c4_id=c_id,

@@ -152,8 +152,27 @@ def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
     the frame is built (normalmap.cpp, JAX ``ops/intersect.py:287-300``):
     ``tn = 2 tex - 1`` in the tangent frame ``coordinate_system(ns)``.
     Where a texture is a ``mesh_attribute`` (``has_vertex_colors``) the
-    record carries the interpolated vertex colour ``vcolor``."""
-    fidx = pi.prim_index.long()
+    record carries the interpolated vertex colour ``vcolor``.
+
+    A scene with analytic spheres (``Scene.sph_data``) encodes a sphere
+    hit as ``prim_index`` F + slot: those lanes read a stand-in face, and
+    their t, p, normals, uv and indices are the sphere's
+    (``ops/quadric.py`` ``sphere_surface_fields``); their vertices,
+    vertex normals and barycentrics are 0 and ``ismesh`` is 0 (JAX
+    ``ops/intersect.py:178-187``, :303-320).  A scene of spheres alone
+    gathers from one degenerate stand-in face."""
+    sph = getattr(scene, "sph_data", None)
+    is_sph = sidx = None
+    if sph is not None:
+        nf = scene.faces.shape[0]
+        prim = pi.prim_index.long()
+        is_sph = prim >= nf
+        sidx = torch.clamp(prim - nf, 0, sph.shape[0] - 1)
+        if nf == 0:
+            scene = _stand_in_face(scene)
+        fidx = torch.where(is_sph, 0, prim)
+    else:
+        fidx = pi.prim_index.long()
     f = scene.faces[fidx].long()                               # (N, 3)
     p0, p1, p2 = (take_rows(scene.vertices, f[:, k]) for k in range(3))
     n0, n1, n2 = (take_rows(scene.normals, f[:, k]) for k in range(3))
@@ -205,6 +224,30 @@ def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
                               + ns * tn[:, 2:3])
         ns = torch.where((ntex >= 0)[:, None], ns_pert, ns)
 
+    ismesh = pi.valid
+    if is_sph is not None:
+        from . import quadric
+        sf = quadric.sphere_surface_fields(scene, ray, pi, is_sph, sidx,
+                                           ray_flags)
+        sel = is_sph[:, None]
+        t = torch.where(is_sph, sf["t"], t)
+        p = torch.where(sel, sf["p"], p)
+        ng = torch.where(sel, sf["n"], ng)
+        ns = torch.where(sel, sf["n"], ns)
+        uv = torch.where(sel, sf["uv"], uv)
+        p0, p1, p2, n0, n1, n2 = (torch.where(sel, 0.0, x) for x in
+                                  (p0, p1, p2, n0, n1, n2))
+        b0 = torch.where(is_sph, 0.0, b0)
+        u = torch.where(is_sph, 0.0, u)
+        v = torch.where(is_sph, 0.0, v)
+        sph_shape = sf["shape_idx"]
+        shape_idx = torch.where(is_sph, sph_shape, shape_idx)
+        bsdf_idx = torch.where(is_sph, scene.shape_bsdf[sph_shape.long()],
+                               bsdf_idx)
+        emitter_idx = torch.where(
+            is_sph, scene.shape_emitter[sph_shape.long()], emitter_idx)
+        ismesh = ismesh & ~is_sph
+
     vcolor = None
     if scene.static.has_vertex_colors:
         vc = [take_rows(scene.vertex_colors, f[:, k]) for k in range(3)]
@@ -222,4 +265,18 @@ def compute_surface_interaction(scene, ray: Ray, pi: PreliminaryIntersection,
         bsdf_index=torch.where(valid, bsdf_idx, -1),
         emitter_index=torch.where(valid, emitter_idx, -1),
         valid=valid, b0=b0, b1=u, p0=p0, p1=p1, p2=p2, n0=n0, n1=n1, n2=n2,
-        ismesh=valid.to(p.dtype), vcolor=vcolor)
+        ismesh=ismesh.to(p.dtype), vcolor=vcolor)
+
+
+def _stand_in_face(scene):
+    """``scene`` with one degenerate face at the origin: the gathers of a
+    scene of spheres alone stay well formed, and every valid lane is a
+    sphere's."""
+    from dataclasses import replace
+    z3 = torch.zeros((1, 3), dtype=scene.vertices.dtype,
+                     device=scene.vertices.device)
+    return replace(
+        scene, vertices=z3, normals=z3, uvs=z3[:, :2],
+        faces=torch.zeros((1, 3), dtype=torch.int32, device=z3.device),
+        face_shape=torch.zeros((1,), dtype=torch.int32, device=z3.device),
+        vertex_colors=None if scene.vertex_colors is None else z3)

@@ -275,14 +275,14 @@ def test_loader_columns_equal_jax(bsdf):
     ({"type": "roughconductor", "alpha": [0.1, 0.3]}, {}, "roughness"),
     ({"type": "dielectric", "int_ior": "unobtainium"}, {}, "unobtainium"),
     ({"type": "roughconductor", "material": "Au"}, {}, "Au"),
-    ({"type": "diffuse"}, {"analytic": True}, "analytic"),
+    ({"type": "retarder"}, {}, "retarder"),
 ])
 def test_loader_refuses_what_is_not_ported(bsdf, shape_kw, match):
-    """No silent stand-in: a BSDF kind the port does not have (the
-    polarizer; Beckmann loads since the port has it), a roughness given
-    as a list, an unknown IOR name, a named conductor and the analytic
-    sphere raise (a textured roughness loads as 0.1, as in the reference:
-    ``tests/test_torch_textures.py``)."""
+    """No silent stand-in: the BSDF kinds the port does not have (the
+    polarizer and the retarder; Beckmann and the analytic
+    sphere load), a roughness given as a list, an unknown IOR name and
+    a named conductor raise (a textured roughness loads as 0.1, as in
+    the reference: ``tests/test_torch_textures.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         mt.load_dict(_ball_scene(bsdf, **shape_kw), device="cpu")
 

@@ -591,3 +591,77 @@ def test_output_types_cuda_match_cpu(cuda, kind):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
     else:
         assert float((a - b).abs().mean()) <= 1e-3 * float(b.abs().mean())
+
+
+# -- the loader and plugin slice: the numpy-built tree, analytic spheres
+# and the double variant on the card ------------------------------------------
+
+@pytest.fixture(scope="module")
+def numpy_tree_scene(mesh_scene):
+    from epsm_mitsuba3_torch.ops import bvh as BT
+    return mesh_scene.with_bvh(BT.build(mesh_scene.vertices,
+                                        mesh_scene.faces, builder="numpy"))
+
+
+@pytest.mark.parametrize("n_rays", [129, 4133, 2 ** 18])
+def test_k2_k3_on_numpy_tree_equal_plain(numpy_tree_scene, n_rays):
+    """K2/K3 walking the median-split tree equal their plain versions on
+    it bit for bit, one launch each."""
+    sc = numpy_tree_scene
+    args, ref = _plain_hits(sc, n_rays)
+    before = dict(CT.launches)
+    hit = CT.closest_hit(sc.bvh_nodes, sc.bvh_tris, *args,
+                         tri_k=sc.bvh_tris_k)
+    occ = CT.any_hit(sc.bvh_nodes, sc.bvh_tris, *args, tri_k=sc.bvh_tris_k)
+    torch.cuda.synchronize()
+    CT.raise_on_overflow(sc.device)
+    assert CT.launches["bvh4_closest_hit"] == before["bvh4_closest_hit"] + 1
+    assert CT.launches["bvh4_any_hit"] == before["bvh4_any_hit"] + 1
+    _assert_equal_hits((*hit, occ), ref)
+
+
+def _sphere_only_dict(res=16):
+    T = mt.ScalarTransform4f
+    return {"type": "scene",
+            "sensor": {"type": "perspective", "fov": 45,
+                       "to_world": T.look_at(origin=[0, 0, 3],
+                                             target=[0, 0, 0], up=[0, 1, 0]),
+                       "film": {"type": "hdrfilm", "width": res,
+                                "height": res}},
+            "light": {"type": "constant", "radiance": 1.0},
+            "ball": {"type": "sphere", "radius": 1.0, "analytic": True}}
+
+
+def test_sphere_only_scene_launches_no_k1(cuda):
+    """A scene without triangles: no kernel is launched on zero rows, and
+    the image is the CPU's."""
+    before = dict(CI.launches)
+    imgs = [mt.render(mt.load_dict(_sphere_only_dict(), device=dev), spp=2,
+                      seed=0, device=dev).cpu()
+            for dev in (cuda, torch.device("cpu"))]
+    torch.cuda.synchronize()
+    assert CI.launches == before
+    a, b = imgs
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().mean()) <= 1e-3 * float(b.abs().mean())
+
+
+def test_double_box_launches_equal_float32(cuda):
+    """The box under the double variant: K1 takes the same float32 rays
+    as many times as under float32, and the float64 image agrees."""
+    imgs, counts = [], []
+    try:
+        for name in ("cuda_ad_rgb", "cuda_ad_rgb_double"):
+            mt.set_variant(name)
+            sc = mt.load_dict(cornell_box(res=32, spp=4, max_depth=3),
+                              device=cuda)
+            before = dict(CI.launches)
+            imgs.append(mt.render(sc, spp=4, seed=0, device=cuda))
+            torch.cuda.synchronize()
+            counts.append({k: CI.launches[k] - before[k] for k in before})
+    finally:
+        mt.set_variant("cuda_ad_rgb")
+    assert counts[0] == counts[1] and counts[0]["mt_closest_hit"] == 3
+    a, b = imgs
+    assert b.dtype == torch.float64 and a.dtype == torch.float32
+    assert float((b - a).abs().mean()) <= 2e-3 * float(a.mean())

@@ -217,12 +217,13 @@ def test_load_dict_equals_jax(files, case):
                                         "filename": "t.png"}}}, "bitmap"),
     ({"type": "rectangle", "interior": {"type": "homogeneous"}},
      "homogeneous"),
-    ({"type": "sphere", "analytic": True}, "analytic sphere"),
+    ({"type": "rectangle", "bsdf": {"type": "circular"}}, "circular"),
     ({"type": "rectangle", "emitter": {"type": "area", "radiance": {
         "type": "spectrum", "filename": "d65.spd"}}}, "spectrum"),
     ({"type": "my_plugin_shape"}, "my_plugin_shape"),
-    ({"type": "rectangle", "bsdf": {"type": "measured",
-                                    "filename": "brdf.bsdf"}}, "measured"),
+    ({"type": "rectangle", "bsdf": {"type": "measured_polarized",
+                                    "filename": "brdf.pbsdf"}},
+     "measured_polarized"),
 ])
 def test_unported_elements_raise(element, name):
     d, _ = _box("t")

@@ -162,7 +162,8 @@ def test_area_emitter_eval_hit(scenes):
     idx = r.integers(-1, 2, N).astype(np.int32)
     wz = r.uniform(-1, 1, N).astype(np.float32)
     _close(ET.eval_hit(st.emitters, torch.from_numpy(idx),
-                       torch.from_numpy(wz)),
+                       torch.from_numpy(wz),
+                       kinds_present=st.static.emitter_kinds),
            EJ.eval_hit(sj.emitters, jnp.asarray(idx), jnp.asarray(wz)),
            "eval_hit")
 
