@@ -253,6 +253,18 @@ Phases (any failed check raises, and the script exits non-zero):
     gradient); the box with one plugin of each registry (launches exact,
     the registered BSDF's chi-square test); the card against the CPU at
     64^2 for each.
+27. [stokes]: ``render(..., integrator={"type": "stokes"})`` on
+    ``cornell_box`` at 512^2 x 64 spp (16 passes, K1 exact) with a linear
+    polarizer plate and a conductor right wall (the plate's pixels' degree
+    of polarization > 0.98, the conductor's > 0, S3 = 0); the diffuse box
+    (S0 equal to ``path``'s image at the same seed, S1..S3 = 0); Malus's
+    law through two plates against a constant light (0.5 cos^2 within
+    0.01, the crossed plates dark); ``cornell_box_mesh`` with the plate at
+    512^2 x 16 spp (K2/K3 exact); the box with a synthetic polarizing
+    ``measured_polarized`` back wall (K1 exact; the table's degree of
+    linear polarization within 1e-3 of 1 on 2^20 direction pairs); one
+    ``prb`` fwd+bwd pass through the plate; the card against the CPU at
+    64^2 (images within 1e-3 of the mean, the PRB gradient within 1e-3).
 
 The last lines are one JSON line of kernel numbers and one JSON line
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -6608,6 +6620,389 @@ def plugins_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# [stokes]: polarized transport (integrators/polarized.py), the
+# polarization elements and the measured polarized BSDF
+# ---------------------------------------------------------------------------
+
+#: the [stokes] integrator, at the box's depth
+ST_INTEG = {"type": "stokes", "max_depth": DEPTH}
+#: the box's conductor (the right wall) and the plate's polarizer angle
+ST_CONDUCTOR = {"type": "conductor",
+                "eta": {"type": "rgb", "value": [0.2, 0.9, 1.1]},
+                "k": {"type": "rgb", "value": [3.0, 2.5, 2.2]}}
+ST_THETA = 30.0
+#: Malus's law through two plates (JAX tests/test_polarized.py:112-151):
+#: the second plate's angles, the film and spp of those renders, the bar
+#: on S0 against 0.5 cos^2 and on the crossed plates' S0
+ST_MALUS_ANGLES, ST_MALUS_RES, ST_MALUS_SPP = (0.0, 30.0, 60.0, 90.0), 64, 8
+ST_MALUS_TOL, ST_CROSSED = 0.01, 1e-3
+#: the plate's pixels' degree of polarization (the JAX package's bar on
+#: an ideal polarizer, :112) and the conductor wall's least
+ST_PLATE_DOP, ST_CONDUCTOR_DOP = 0.98, 1e-3
+#: the pBSDF box: spp (passes of SPP_CHUNK); the direction pairs on which
+#: the polarizing table's degree of linear polarization is held near 1
+#: (JAX tests/test_measured_polarized.py:127, within 1e-3)
+ST_PB_SPP, ST_PB_PAIRS = 16, 2 ** 20
+
+
+def stokes_box(res, spp, plate=True, pbsdf=None):
+    """cornell_box with a linear polarizer plate in front of the back
+    wall (ST_THETA) and a conductor right wall; with ``pbsdf``, the back
+    wall is that measured_polarized table."""
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    d = cornell_box(res=res, spp=spp, max_depth=DEPTH)
+    if plate:
+        d["plate"] = {"type": "rectangle",
+                      "to_world": mt.ScalarTransform4f.translate(
+                          [0.0, 1.0, 0.2]).scale(0.35),
+                      "bsdf": {"type": "polarizer", "theta": ST_THETA}}
+        d["right"]["bsdf"] = dict(ST_CONDUCTOR)
+    if pbsdf:
+        d["back"]["bsdf"] = {"type": "measured_polarized",
+                             "filename": pbsdf, "alpha_sample": 0.3}
+    return d
+
+
+def stokes_mesh(res, spp):
+    """cornell_box_mesh with the plate (its K2/K3 cell)."""
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box_mesh
+    d = cornell_box_mesh(res=res, spp=spp, max_depth=DEPTH)
+    d["plate"] = {"type": "rectangle",
+                  "to_world": mt.ScalarTransform4f.translate(
+                      [0.0, 1.0, 0.2]).scale(0.35),
+                  "bsdf": {"type": "polarizer", "theta": ST_THETA}}
+    return d
+
+
+def synth_pbsdf(path):
+    """A pBSDF tensor file whose every bin is an ideal linear polarizer
+    scaled by 0.6 (as the JAX package's tests/test_measured_polarized.py
+    writes its tables; no download)."""
+    import numpy as np
+    from epsm_mitsuba3_torch.models import measured_polarized as MP
+    pd = np.linspace(-np.pi, np.pi, 9).astype(np.float32)
+    td = np.linspace(0, np.pi / 2, 7).astype(np.float32)
+    th = np.linspace(0, np.pi / 2, 8).astype(np.float32)
+    P = 0.3 * np.array([[1, 1, 0, 0], [1, 1, 0, 0], [0, 0, 0, 0],
+                        [0, 0, 0, 0]], np.float32)
+    M = np.broadcast_to(P, (9, 7, 8, 5, 4, 4)).copy()
+    MP.synthesize_tensor_file(path, M, pd, td, th,
+                              np.asarray([450, 500, 550, 600, 650]))
+
+
+def stokes_render(label, scene, spp, chunk, expect, integrator=ST_INTEG,
+                  seed=0):
+    """One render of ``spp`` in passes of ``chunk``, the counts set to 0
+    before and read after, each as ``expect`` says; the image finite.
+    Returns (image, wall ms, peak GiB, counts)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = mt.render(scene, spp=spp, seed=seed, spp_chunk=chunk,
+                    integrator=integrator)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = read_counts()
+    say(f"[stokes] {label}: {scene.sensors[0].width}^2 x {spp} spp in "
+        f"passes of {chunk}, {integrator}: {ms:.1f} ms; peak {peak:.2f} "
+        f"GiB; launches {counts}; image {tuple(img.shape)}, mean "
+        f"{float(img.mean()):.6g}")
+    for k, n in expect.items():
+        check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, "
+              f"expected {n}")
+    check(bool(torch.isfinite(img).all()), f"{label}: image not finite")
+    return img, ms, peak, counts
+
+
+def dop(img):
+    """The degree of linear polarization of a stokes image, pixel by
+    pixel, from the mean of the RGB channels of S0, S1 and S2."""
+    s0, s1, s2 = (img[..., k:k + 3].mean(-1) for k in (3, 6, 9))
+    return (s1 ** 2 + s2 ** 2).sqrt() / s0.clamp(min=1e-12)
+
+
+def first_hit_mask(scene, names):
+    """The pixels whose centre ray first hits one of the shapes
+    ``names``."""
+    import torch
+    from epsm_mitsuba3_torch.models import sensors as sns
+    from epsm_mitsuba3_torch.models.records import Ray
+    s = scene.sensors[0]
+    dev = scene.device
+    y, x = torch.meshgrid(torch.arange(s.height, device=dev),
+                          torch.arange(s.width, device=dev), indexing="ij")
+    pos = torch.stack([(x.reshape(-1) + 0.5) / s.width,
+                       (y.reshape(-1) + 0.5) / s.height], -1)
+    ray, _ = sns.sample_ray_differential(s, pos)
+    pi = scene.ray_intersect_preliminary(Ray.make(ray.o, ray.d))
+    shape = scene.face_shape[pi.prim_index.clamp(min=0).long()]
+    ids = [scene.static.shape_names.index(n) for n in names]
+    hit = pi.valid & torch.isin(shape, torch.tensor(ids, device=dev))
+    return hit.reshape(s.height, s.width)
+
+
+def stokes_box_cell():
+    """The plate-and-conductor box at full width through K1: the plate's
+    pixels fully polarized, the conductor's partly; and on the diffuse
+    box S0 equal to path's image at the same seed."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    n16 = SPP // SPP_CHUNK
+    box = mt.load_dict(stokes_box(RES, SPP_CHUNK))
+    img, ms, peak, _ = stokes_render(
+        "box + plate + conductor", box, SPP, SPP_CHUNK,
+        {"mt_closest_hit": DEPTH * n16, "mt_any_hit": DEPTH * n16,
+         "bvh4_closest_hit": 0, "bvh4_any_hit": 0})
+    prof = profile_pass(f"stokes box, one {SPP_CHUNK}-spp pass",
+                        lambda: mt.render(box, spp=SPP_CHUNK, seed=7,
+                                          integrator=ST_INTEG),
+                        ("mt_closest", "mt_any"), table=False)
+    p = dop(img)
+    on_plate, on_right = (first_hit_mask(box, [n]) for n in ("plate",
+                                                             "right"))
+    # the plate's inner pixels (its edges mix the wall behind it)
+    inner = on_plate & torch.roll(on_plate, 2, 0) & torch.roll(
+        on_plate, -2, 0) & torch.roll(on_plate, 2, 1) & torch.roll(
+        on_plate, -2, 1)
+    dop_plate = float(p[inner].mean())
+    dop_right = float(p[on_right].mean())
+    dop_left = float(p[first_hit_mask(box, ["left"])].mean())
+    s3 = float(img[..., 12:15].abs().max())
+    say(f"[stokes] box: mean DOP on the plate's {int(inner.sum())} inner "
+        f"pixels {dop_plate:.6f} [> {ST_PLATE_DOP}], on the conductor "
+        f"wall's {int(on_right.sum())} {dop_right:.6g} [> "
+        f"{ST_CONDUCTOR_DOP}], on the diffuse left wall's "
+        f"{dop_left:.6g}; max |S3| {s3:.3g} (the conductor's phase turns "
+        "the plate's S2 into S3)")
+    check(int(inner.sum()) > 100 and dop_plate > ST_PLATE_DOP,
+          "the plate's pixels are not fully polarized")
+    check(dop_right > ST_CONDUCTOR_DOP, "the conductor does not polarize")
+    del img
+
+    diffuse = mt.load_dict(cornell_box(res=RES, spp=SPP_CHUNK,
+                                       max_depth=DEPTH))
+    img_d, ms_d, _, _ = stokes_render(
+        "diffuse box", diffuse, SPP_CHUNK, SPP_CHUNK,
+        {"mt_closest_hit": DEPTH, "mt_any_hit": DEPTH})
+    path = mt.render(diffuse, spp=SPP_CHUNK, seed=0,
+                     integrator={"type": "path", "max_depth": DEPTH})
+    d_max = float((img_d[..., 3:6] - path).abs().max())
+    d_mean = abs(float(img_d[..., 3:6].mean() - path.mean()))
+    pol = float(img_d[..., 6:].abs().max())
+    say(f"[stokes] diffuse box, {SPP_CHUNK} spp: S0 against path at the "
+        f"same seed: max |diff| {d_max:.3g} (limit "
+        f"{1e-5 * float(path.max()):.3g}), |mean diff| {d_mean:.3g} "
+        f"(limit {1e-5 * float(path.mean()):.3g}); max |S1..S3| {pol:.3g} "
+        f"[< 1e-5: every lobe depolarizes]")
+    check(d_max <= 1e-5 * float(path.max())
+          and d_mean <= 1e-5 * float(path.mean()),
+          "S0 of the diffuse box is not path's image")
+    check(pol < 1e-5, "a diffuse box polarizes")
+    return dict(ms=ms, peak=peak, profile=prof, dop_plate=dop_plate,
+                dop_right=dop_right,
+                dop_left=dop_left, s0_path_max=d_max, s0_path_mean=d_mean,
+                diffuse_ms=ms_d)
+
+
+def malus_cell():
+    """Malus's law through two plates against a constant white light (the
+    JAX package's tests/test_polarized.py:82-151): S0 = 0.5 cos^2 of the
+    angle between them, the crossed plates dark."""
+    import math
+    import epsm_mitsuba3_torch as mt
+    T = mt.ScalarTransform4f
+    out = {}
+    for ang in ST_MALUS_ANGLES:
+        d = {"type": "scene",
+             "light": {"type": "constant",
+                       "radiance": {"type": "rgb", "value": [1.0] * 3}},
+             "plate": {"type": "rectangle",
+                       "to_world": T.translate([0, 0, 2.0]).scale(8.0),
+                       "bsdf": {"type": "polarizer", "theta": 0.0}},
+             "plate2": {"type": "rectangle",
+                        "to_world": T.translate([0, 0, 1.0]).scale(8.0),
+                        "bsdf": {"type": "polarizer", "theta": ang}},
+             "sensor": {"type": "perspective", "fov": 40,
+                        "to_world": T.look_at(origin=[0, 0, 0],
+                                              target=[0, 0, 1],
+                                              up=[0, 1, 0]),
+                        "film": {"type": "hdrfilm", "width": ST_MALUS_RES,
+                                 "height": ST_MALUS_RES,
+                                 "rfilter": {"type": "box"}}}}
+        img, _, _, _ = stokes_render(
+            f"two plates at {ang:g} degrees", mt.load_dict(d),
+            ST_MALUS_SPP, ST_MALUS_SPP, {"mt_closest_hit": 5,
+                                         "mt_any_hit": 5},
+            integrator={"type": "stokes", "max_depth": 5})
+        c = ST_MALUS_RES // 2
+        s0 = float(img[c - 2:c + 2, c - 2:c + 2, 3:6].mean())
+        want = 0.5 * math.cos(math.radians(ang)) ** 2
+        out[ang] = s0
+        say(f"[stokes] Malus: plates 0 and {ang:g} degrees: centre S0 "
+            f"{s0:.6f}, 0.5 cos^2 {want:.6f} [within {ST_MALUS_TOL}"
+            + (f"; crossed < {ST_CROSSED}" if ang == 90.0 else "") + "]")
+        check(abs(s0 - want) < ST_MALUS_TOL, f"Malus's law at {ang}")
+        if ang == 90.0:
+            check(s0 < ST_CROSSED, "crossed plates pass light")
+    return out
+
+
+def stokes_mesh_cell():
+    """cornell_box_mesh with the plate through K2/K3."""
+    import epsm_mitsuba3_torch as mt
+    n = MESH_SPP // MESH_CHUNK
+    mesh = mt.load_dict(stokes_mesh(RES, MESH_CHUNK))
+    img, ms, peak, _ = stokes_render(
+        "mesh + plate", mesh, MESH_SPP, MESH_CHUNK,
+        {"bvh4_closest_hit": DEPTH * n, "bvh4_any_hit": DEPTH * n,
+         "mt_closest_hit": 0, "mt_any_hit": 0, "bvh4_closest_hit_mp": 0})
+    check(float(img[..., 6:12].abs().max()) > 0, "mesh: no polarization")
+    return dict(ms=ms, peak=peak)
+
+
+def pbsdf_cell(pbsdf):
+    """The box with a polarizing pBSDF back wall through K1; the table's
+    degree of linear polarization on 2^20 direction pairs on the card."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.core import mueller as mu
+    from epsm_mitsuba3_torch.models import measured_polarized as MP
+    box = mt.load_dict(stokes_box(RES, SPP_CHUNK, plate=False, pbsdf=pbsdf))
+    n4 = ST_PB_SPP // SPP_CHUNK
+    img, ms, peak, _ = stokes_render(
+        "box, pBSDF back wall", box, ST_PB_SPP, SPP_CHUNK,
+        {"mt_closest_hit": DEPTH * n4, "mt_any_hit": DEPTH * n4})
+    back = first_hit_mask(box, ["back"])
+    dop_back = float(dop(img)[back].mean())
+    tex = next(t for t in box.textures if t.kind == "pbsdf")
+    dev = box.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    wi, wo = (torch.randn((ST_PB_PAIRS, 3), generator=gen, device=dev)
+              for _ in range(2))
+    wi[:, 2], wo[:, 2] = wi[:, 2].abs() + 0.2, wo[:, 2].abs() + 0.2
+    wi, wo = wi / wi.norm(dim=-1, keepdim=True), wo / wo.norm(dim=-1,
+                                                              keepdim=True)
+    M, ok = MP.eval_mueller_local(tex, wi, wo)
+    s_in = torch.zeros((ST_PB_PAIRS, 4, 3), device=dev)
+    s_in[:, 0, :] = 1.0
+    s = mu.matvec(M, s_in)
+    dolp = (s[:, 1] ** 2 + s[:, 2] ** 2).sqrt() / s[:, 0].clamp(min=1e-12)
+    err = float((dolp - 1.0).abs().max())
+    say(f"[stokes] pBSDF: mean DOP on the back wall's {int(back.sum())} "
+        f"pixels {dop_back:.6g}; the table's DOLP on {ST_PB_PAIRS} pairs: "
+        f"max |DOLP - 1| {err:.3g} [limit 1e-3], S0 {float(s[:, 0].mean()):.6f}"
+        f" [0.3], valid {bool(ok.all())}")
+    check(bool(ok.all()) and err < 1e-3, "the polarizing table's DOLP")
+    check(dop_back > 0.05, "the pBSDF wall does not polarize")
+    return dict(ms=ms, peak=peak, dop_back=dop_back, dolp_err=err)
+
+
+def stokes_prb_cell():
+    """One prb fwd+bwd pass through the plate at full width: K1 DEPTH
+    times each in the forward, nothing in the backward, the reflectances'
+    gradient finite and non-zero."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    sc = mt.load_dict(stokes_box(RES, SPP_CHUNK))
+    refl = sc.bsdfs["reflectance"].clone().requires_grad_(True)
+    sc = sc.with_leaves({"bsdfs.reflectance": refl})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, (g,), fwd, bwd = fwd_bwd(sc, {"r": refl}, SPP_CHUNK, 0,
+                                   {"type": "prb", "max_depth": DEPTH})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    say(f"[stokes] prb fwd+bwd through the plate, {RES}^2 x {SPP_CHUNK} "
+        f"spp: {ms:.1f} ms; loss {float(loss.detach()):.6g}; launches fwd "
+        f"{fwd}, bwd {bwd}; |grad| {float(g.norm()):.6g}")
+    check(fwd["mt_closest_hit"] == DEPTH and fwd["mt_any_hit"] == DEPTH
+          and sum(bwd.values()) == 0, "prb through the plate: launches")
+    check(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0,
+          "prb through the plate: gradient")
+    return dict(ms=ms, counts_fwd=fwd)
+
+
+def stokes_card_vs_cpu(pbsdf, res=64, spp=4):
+    """Each [stokes] scene at 64^2 on the card and on the CPU: images
+    within 1e-3 x the mean on average; the PRB gradient of the box's
+    reflectances through the plate within 1e-3 (relative L2)."""
+    import torch
+    import epsm_mitsuba3_torch as mt
+    cases = {"box + plate + conductor": (stokes_box(res, spp), spp),
+             "mesh + plate": (stokes_mesh(res, 2), 2),
+             "box, pBSDF back wall": (stokes_box(res, spp, plate=False,
+                                                 pbsdf=pbsdf), spp)}
+    out = {}
+    for label, (d, n) in cases.items():
+        a, b = (mt.render(mt.load_dict(d, device=dev), spp=n, seed=0,
+                          device=dev, integrator=ST_INTEG).cpu()
+                for dev in ("cuda", "cpu"))
+        mad, mean = float((a - b).abs().mean()), float(b.abs().mean())
+        out[label] = mad
+        say(f"[stokes, card vs cpu] {label} {res}^2: mean |gpu - cpu| "
+            f"{mad:.3g} (limit {1e-3 * mean:.3g})")
+        check(mad <= 1e-3 * mean and bool(torch.isfinite(a).all()),
+              f"{label}: card and CPU disagree")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        sc = mt.load_dict(stokes_box(res, spp), device=dev)
+        refl = sc.bsdfs["reflectance"].clone().requires_grad_(True)
+        img = mt.render(sc.with_leaves({"bsdfs.reflectance": refl}),
+                        spp=spp, seed=0, device=dev,
+                        integrator={"type": "prb", "max_depth": DEPTH})
+        grads.append(torch.autograd.grad((img ** 2).mean(), refl)[0].cpu())
+    err = rel_l2(*grads)
+    out["prb through the plate"] = err
+    say(f"[stokes, card vs cpu] prb gradient of the reflectances through "
+        f"the plate: relative L2 {err:.3g} [limit 1e-3]")
+    check(err <= 1e-3 and float(grads[1].abs().sum()) > 0,
+          "prb through the plate: card and CPU gradients disagree")
+    return out
+
+
+def stokes_phase():
+    """[stokes]: the polarized pipeline at full width through K1 (the
+    plate-and-conductor box, the diffuse box against path, Malus's law,
+    a pBSDF back wall) and K2/K3 (the mesh with the plate), a prb pass
+    through the plate, the card against the CPU.  Returns the numbers and
+    the phase's launches."""
+    global _TALLY
+    import tempfile
+    secs, out = {}, {}
+    zero_counts()
+    _TALLY = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            pbsdf = f"{tmp}/polarizer.pbsdf"
+            synth_pbsdf(pbsdf)
+            for key, fn in (("box", stokes_box_cell), ("malus", malus_cell),
+                            ("mesh", stokes_mesh_cell),
+                            ("pbsdf", lambda: pbsdf_cell(pbsdf)),
+                            ("prb", stokes_prb_cell),
+                            ("card vs cpu",
+                             lambda: stokes_card_vs_cpu(pbsdf))):
+                t0 = time.perf_counter()
+                out[key] = fn()
+                secs[key] = time.perf_counter() - t0
+        zero_counts()
+        out["total"], _TALLY = _TALLY, None
+    finally:
+        _TALLY = None
+    say("[stokes] seconds by step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} s in all")
+    out["secs"] = secs
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6919,6 +7314,16 @@ def main() -> int:
         f"{pl['total']}")
 
     lap("26 plugins")
+
+    # -- 27. [stokes]: polarized transport, the polarization elements and
+    # the measured polarized BSDF ---------------------------------------
+    t0 = time.perf_counter()
+    sk = stokes_phase()
+    epsm_launches["launches_stokes_phase"] = sk["total"]
+    say(f"[stokes] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{sk['total']}")
+
+    lap("27 stokes")
 
     # -- kernels line: launches of the fwd+bwd cells' last timed run ----------
     kernels = []

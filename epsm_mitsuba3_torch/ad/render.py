@@ -13,7 +13,8 @@ receives its gradient through ``torch.autograd``:
 - zero, as the reference detaches its scene, for ``direct``
   (``integrators/direct.py``), ``moment``, ``ptracer``
   (``integrators/ptracer.py``), ``spectral``, ``spectral_mono`` and
-  ``spectral_spec`` (``integrators/spectral.py``).
+  ``spectral_spec`` (``integrators/spectral.py``) and ``stokes``
+  (``integrators/polarized.py``).
 
 A type given to ``register_integrator`` is looked up first.
 ``render_forward`` is forward mode for the PRB family."""
@@ -25,7 +26,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.films import kahan_add
-from ..integrators import aov, direct, epsm, ptracer
+from ..integrators import aov, direct, epsm, polarized, ptracer
 from ..integrators import spectral as spectral_mod
 from ..ops import cuda_traverse as CT
 from . import direct_reparam, prb
@@ -42,8 +43,8 @@ _EPSM_TYPES = ("manifold", "manifold_caustic")
 #: reparameterised, differentiable forms
 _DIRECT_TYPES = ("direct", "direct_reparam", "emission_reparam")
 #: the other outputs: the depth, the AOV image, the moments, the particle
-#: tracer and the spectral developments
-_OUTPUT_TYPES = ("depth", "aov", "moment", "ptracer") + tuple(
+#: tracer, the Stokes vectors and the spectral developments
+_OUTPUT_TYPES = ("depth", "aov", "moment", "ptracer", "stokes") + tuple(
     spectral_mod.MODES)
 #: every type ``render`` runs without a registered integrator
 TYPES = _PATH_TYPES + _EPSM_TYPES + _DIRECT_TYPES + _OUTPUT_TYPES
@@ -108,7 +109,8 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
     """mi.render: the (H, W, C) image of ``scene``, differentiable w.r.t.
     the scene's float tensors that require grad.  C is 3 but for the
     EPSM integrators (5), ``aov`` (3 + its channels: 13 by default),
-    ``moment`` (6: the mean and the second moment), ``spectral_mono``
+    ``moment`` (6: the mean and the second moment), ``stokes`` (15: the
+    RGB image, then S0, S1, S2 and S3 in RGB), ``spectral_mono``
     (1) and ``spectral_spec`` (``n_bins``, default 16).  ``direct``,
     ``direct_reparam`` and ``emission_reparam`` read
     ``integrator["emitter_samples"]`` and ``["bsdf_samples"]`` (default 1
@@ -116,8 +118,9 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
     ``aov`` its ``aovs`` string (``_aov_names``); the spectral types
     ``wavelengths`` (4) and ``n_bins`` (16).  Each type's depth is
     ``max_depth``, 6 where neither the scene nor the call sets it: the
-    reference's own defaults for ``aov`` (2) and ``moment`` (4) are read
-    after that 6 is set, so never apply (kept as they are).
+    reference's own defaults for ``aov`` (2), ``moment`` and ``stokes``
+    (4) are read after that 6 is set, so never apply (kept as they
+    are).
 
     ``spp_chunk``: render in passes of at most this many samples per pixel
     and average them with Kahan-compensated sums, through which the
@@ -159,6 +162,10 @@ def render(scene, seed: int = 0, spp: int = 0, sensor: int = 0,
         if kind == "moment":
             return aov.render_moment(scene, pass_seed, sensor, pass_spp,
                                      max_depth=int(cfg.get("max_depth", 4)))
+        if kind == "stokes":
+            return polarized.render_stokes(
+                scene, pass_seed, sensor, pass_spp,
+                max_depth=int(cfg.get("max_depth", 4)))
         if kind == "ptracer":
             return ptracer.render_ptracer(
                 scene, pass_seed, sensor, pass_spp,

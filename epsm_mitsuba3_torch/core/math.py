@@ -41,13 +41,13 @@ def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
 
 
 class _Normalize(torch.autograd.Function):
-    """``a / |a|`` with ``|a|^2`` clamped to 1e-37; the tangent is
+    """``a / |a|`` with ``|a|^2`` clamped to ``eps``; the tangent is
     detached where ``|a|^2 <= 1e-24`` (``_normalize_jvp``, :38-48)."""
 
     @staticmethod
-    def forward(ctx, a):
+    def forward(ctx, a, eps):
         n2 = squared_norm(a, keepdim=True)
-        r = _rsqrt(torch.clamp(n2, min=1e-37))
+        r = _rsqrt(torch.clamp(n2, min=eps))
         out = a * r
         ctx.save_for_backward(a, n2, r, out)
         ctx.save_for_forward(a, n2, r, out)
@@ -57,10 +57,10 @@ class _Normalize(torch.autograd.Function):
     def backward(ctx, g):
         a, n2, r, out = ctx.saved_tensors
         w = torch.where(n2 > 1e-24, g, 0.0)
-        return w * r - a * (r * r * dot(w, out, keepdim=True))
+        return w * r - a * (r * r * dot(w, out, keepdim=True)), None
 
     @staticmethod
-    def jvp(ctx, da):
+    def jvp(ctx, da, _):
         a, n2, r, out = ctx.saved_tensors
         dn = dot(a, da, keepdim=True)
         return torch.where(n2 > 1e-24, da * r - out * (r * r * dn), 0.0)
@@ -175,9 +175,10 @@ class _SafeDiv(torch.autograd.Function):
         return dx * r - torch.where(y > 1e-18, x * r * r, 0.0) * dy
 
 
-def normalize(a: torch.Tensor) -> torch.Tensor:
-    """``a / |a|``, with ``|a|^2`` clamped to 1e-37."""
-    return _Normalize.apply(a)
+def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """``a / |a|``, with ``|a|^2`` clamped to ``eps`` (1e-37 where eps is
+    0)."""
+    return _Normalize.apply(a, eps if eps > 0 else 1e-37)
 
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -143,8 +143,9 @@ def render_moment(scene, seed: int = 0, sensor_idx: int = 0, spp: int = 4,
 def render_stokes(scene, seed: int = 0, sensor_idx: int = 0, spp: int = 4,
                   max_depth: int = 4):
     """The RGB pipeline's Stokes stand-in (:101-120): the radiance, then
-    S0 = the radiance again and S1..S3 = 0 in RGB: (H, W, 15).  The
-    ``stokes`` integrator type goes to the polarized renderer, which is
-    not ported; this function is not on ``render``'s dispatch."""
+    S0 = the radiance again and S1..S3 = 0 in RGB: (H, W, 15).  As in the
+    reference it is not on ``render``'s dispatch: the ``stokes``
+    integrator type goes to the polarized renderer
+    (``integrators/polarized.py``)."""
     return common.detached(scene, lambda: _moments(
         scene, seed, sensor_idx, spp, max_depth, True))

@@ -143,11 +143,24 @@ def hit_stage(scene, st: LoopState, max_depth: int, cached: dict = None,
               multi_pop: Optional[int] = None):
     """The part of a bounce that the primal and the PRB replay share: the
     hit, its surface interaction ``si``, the MIS-weighted emission ``le``
-    there, and the masks of the lanes that go on (``active_next``) and
-    that sample an emitter (``active_em``).  Given a recorded ``cached``
-    record the hit is read from it and nothing is traversed (:134-135).
-    ``multi_pop``: the closest hit's schedule (``ops/cuda_traverse.py``).
-    Returns (pi, si, le, active_next, active_em)."""
+    there times ``st.beta``, and the masks of the lanes that go on
+    (``active_next``) and that sample an emitter (``active_em``).  Given a
+    recorded ``cached`` record the hit is read from it and nothing is
+    traversed (:134-135).  ``multi_pop``: the closest hit's schedule
+    (``ops/cuda_traverse.py``).  Returns (pi, si, le, active_next,
+    active_em)."""
+    pi, si, le, active_next, active_em = hit_unweighted(
+        scene, st, max_depth, cached, multi_pop)
+    return pi, si, st.beta * le, active_next, active_em
+
+
+def hit_unweighted(scene, st, max_depth: int, cached: dict = None,
+                   multi_pop: Optional[int] = None):
+    """``hit_stage`` with the emission ``le`` not yet weighted by a
+    throughput, for the polarized bounce, which weights it by its Mueller
+    throughput.  ``st`` needs ``ray_o``, ``ray_d``, ``active``, ``depth``
+    and the previous vertex's ``prev_p``, ``prev_bsdf_pdf`` and
+    ``prev_bsdf_delta``."""
     ray = Ray.make(st.ray_o, st.ray_d,
                    maxt=torch.where(st.active, _INF, 0.0))
     if cached is not None:
@@ -157,9 +170,8 @@ def hit_stage(scene, st: LoopState, max_depth: int, cached: dict = None,
         pi = pi.replace(valid=pi.valid & st.active)
     si = I.compute_surface_interaction(scene, ray, pi, RayFlags.All)
 
-    le = st.beta * _emitter_hit_le(scene, si, st.ray_d, st.prev_p,
-                                   st.prev_bsdf_pdf, st.prev_bsdf_delta,
-                                   st.active)
+    le = _emitter_hit_le(scene, si, st.ray_d, st.prev_p, st.prev_bsdf_pdf,
+                         st.prev_bsdf_delta, st.active)
 
     bsdf_flags = B.flags_of(scene.bsdfs, si.bsdf_index)
     active_next = (st.depth + 1 < max_depth) & si.valid & st.active

@@ -1,12 +1,15 @@
-"""BSDF models (counterpart of ``models/bsdf.py``): every scalar BSDF of
-the reference but the polarization elements -- diffuse, the smooth and
-rough conductors, the smooth, thin and rough dielectrics, the smooth and
-rough plastics (``pplastic`` is the rough one), ``null``, ``principled``,
-``principledthin``, ``blendbsdf`` (a ``mask`` loads as a blend of
-``null`` and its material) and ``measured`` (an RGL table baked at load,
-``models/measured.py``) -- with the two-sided wrapper; each rough kind
-takes GGX or Beckmann.  ``register_bsdf`` adds a kind written by the
-user in torch.
+"""BSDF models (counterpart of ``models/bsdf.py``): every BSDF of the
+reference -- diffuse, the smooth and rough conductors, the smooth, thin
+and rough dielectrics, the smooth and rough plastics (``pplastic`` is the
+rough one), ``null``, ``principled``, ``principledthin``, ``blendbsdf``
+(a ``mask`` loads as a blend of ``null`` and its material), ``measured``
+(an RGL table baked at load, ``models/measured.py``), the polarization
+elements ``polarizer``, ``retarder`` and ``circular`` (delta
+pass-throughs here, whose Mueller matrices ``integrators/polarized.py``
+applies) and ``measured_polarized`` (a pBSDF table baked at load,
+``models/measured_polarized.py``) -- with the two-sided wrapper; each
+rough kind takes GGX or Beckmann.  ``register_bsdf`` adds a kind written
+by the user in torch.
 
 All BSDFs of a scene live in one table of per-slot parameters.  ``sample``
 and ``eval_pdf`` check the kinds present in the scene, evaluate each of
@@ -75,9 +78,7 @@ def has_flag(flags: torch.Tensor, flag: int) -> torch.Tensor:
     return (flags & flag) != 0
 
 
-#: kind ids in the reference's numbering (``KIND_*``, :56-80); the
-#: reference's 13-16 (the polarization elements and
-#: ``measured_polarized``) are not ported
+#: kind ids in the reference's numbering (``KIND_*``, :56-80)
 KIND_DIFFUSE = 0
 KIND_CONDUCTOR = 1
 KIND_ROUGHCONDUCTOR = 2
@@ -91,6 +92,12 @@ KIND_PRINCIPLED = 9
 KIND_BLEND = 10
 KIND_PPLASTIC = 11
 KIND_MEASURED = 12
+#: the polarization elements (src/bsdfs/{polarizer,retarder,circular}.cpp)
+#: and the pBSDF (measured_polarized.cpp), :69-75
+KIND_POLARIZER = 13
+KIND_RETARDER = 14
+KIND_CIRCULAR = 15
+KIND_MEASURED_POLARIZED = 16
 KIND_PRINCIPLEDTHIN = 17
 #: appended to a scene's kinds where a slot takes the Beckmann
 #: distribution: the Beckmann branch is evaluated only then
@@ -104,7 +111,9 @@ KIND_NAMES = {"diffuse": KIND_DIFFUSE, "conductor": KIND_CONDUCTOR,
               "null": KIND_NULL, "principled": KIND_PRINCIPLED,
               "principledthin": KIND_PRINCIPLEDTHIN,
               "blendbsdf": KIND_BLEND, "pplastic": KIND_PPLASTIC,
-              "measured": KIND_MEASURED}
+              "measured": KIND_MEASURED, "polarizer": KIND_POLARIZER,
+              "retarder": KIND_RETARDER, "circular": KIND_CIRCULAR,
+              "measured_polarized": KIND_MEASURED_POLARIZED}
 _F = BSDFFlags
 KIND_FLAGS = {
     KIND_DIFFUSE: _F.DiffuseReflection | _F.FrontSide,
@@ -129,6 +138,10 @@ KIND_FLAGS = {
                           | _F.DiffuseReflection | _F.DiffuseTransmission
                           | _F.FrontSide | _F.BackSide),
     KIND_MEASURED: _F.GlossyReflection | _F.FrontSide,
+    KIND_POLARIZER: _F.Null | _F.FrontSide | _F.BackSide,
+    KIND_RETARDER: _F.Null | _F.FrontSide | _F.BackSide,
+    KIND_CIRCULAR: _F.Null | _F.FrontSide | _F.BackSide,
+    KIND_MEASURED_POLARIZED: _F.GlossyReflection | _F.FrontSide,
 }
 _PLASTIC_FIELDS = ("eta", "diffuse_reflectance", "specular_reflectance")
 #: the table columns each kind reads, beside ``kind`` and ``twosided``;
@@ -155,18 +168,25 @@ KIND_FIELDS = {
                           "diff_trans", "flatness", "spec_tint", "sheen",
                           "sheen_tint"),
     KIND_MEASURED: ("alpha", "reflectance_tex"),
+    KIND_POLARIZER: ("specular_transmittance",),
+    KIND_RETARDER: ("specular_transmittance",),
+    KIND_CIRCULAR: ("specular_transmittance",),
+    KIND_MEASURED_POLARIZED: ("alpha", "reflectance_tex"),
     KIND_SENTINEL_BECKMANN: ("beckmann",),
 }
 #: the float columns of the table and their defaults (``empty_table``,
 #: :144-186), beside the colours: the roughness, the relative IOR, the
-#: principled and principledthin parameters and the blend weight
+#: principled and principledthin parameters, the blend weight and the
+#: polarization elements' axis rotation and retardance in radians
+#: (polarizer.cpp theta, retarder.cpp delta; :181-183)
 DEFAULT_ALPHA, DEFAULT_ETA = 0.1, 1.5046
 SCALAR_DEFAULTS = {"alpha": DEFAULT_ALPHA, "eta": DEFAULT_ETA,
                    "metallic": 0.0, "spec_tint": 0.0, "sheen": 0.0,
                    "sheen_tint": 0.0, "clearcoat": 0.0,
                    "clearcoat_gloss": 1.0, "specular": 0.5,
                    "spec_trans": 0.0, "diff_trans": 0.0, "flatness": 0.0,
-                   "blend_weight": 0.5}
+                   "blend_weight": 0.5, "pol_theta": 0.0,
+                   "pol_delta": math.pi / 2}
 
 
 #: the columns a kind of ``register_bsdf`` is handed: every colour and
@@ -182,8 +202,8 @@ def check_kinds(kinds_present: Tuple[int, ...]) -> None:
     missing = [k for k in kinds_present if k not in KIND_FIELDS]
     if missing:
         raise NotImplementedError(
-            f"BSDF kinds {missing}: the port has every scalar BSDF but "
-            "polarizer, retarder, circular and measured_polarized")
+            f"BSDF kinds {missing}: not a kind of the reference's "
+            "numbering nor one of register_bsdf")
 
 
 def gather_params(table: Dict[str, torch.Tensor], idx: torch.Tensor,
@@ -841,15 +861,36 @@ def _principledthin_sample(p, wi, s1, s2):
     return bs, torch.where(ok[..., None], weight, 0.0), ok
 
 
-def _null_sample(p, wi, s1, s2):
-    """null (null.cpp, :906-915): straight through, weight 1."""
+def _pass_through(wi, weight):
+    """Straight through along -wi, a ``Null`` lobe of pdf 1, at
+    ``weight``."""
     pdf = torch.ones(wi.shape[:-1], dtype=wi.dtype, device=wi.device)
     bs = BSDFSample(wo=-wi, pdf=pdf, eta=torch.ones_like(pdf),
                     sampled_type=torch.full(pdf.shape, BSDFFlags.Null,
                                             dtype=torch.int32,
                                             device=wi.device),
                     hf=torch.zeros_like(wi))
-    return bs, torch.ones_like(wi), torch.ones_like(pdf, dtype=torch.bool)
+    return bs, weight, torch.ones_like(pdf, dtype=torch.bool)
+
+
+def _null_sample(p, wi, s1, s2):
+    """null (null.cpp, :906-915): straight through, weight 1."""
+    return _pass_through(wi, torch.ones_like(wi))
+
+
+def _half_pass_sample(p, wi, s1, s2):
+    """An ideal linear or circular polarizer (``_polarizer_sample``,
+    ``_circular_sample``, :939-955): straight through at the weight of
+    unpolarized light, half its transmittance; ``integrators/polarized.py``
+    applies the element's Mueller matrix."""
+    return _pass_through(wi, 0.5 * p["specular_transmittance"])
+
+
+def _retarder_sample(p, wi, s1, s2):
+    """A retarder (``_retarder_sample``, :944-947) is lossless: S0 passes
+    whole, at its transmittance."""
+    return _pass_through(wi, torch.ones_like(wi)
+                         * p["specular_transmittance"])
 
 
 def _measured_sample(p, wi, s1, s2):
@@ -882,18 +923,73 @@ def _measured_eval_pdf(p, wi, wo):
     return torch.zeros_like(wi), torch.where(ok, pdf, 0.0)
 
 
-def _measured_tex_eval(textures, tex_idx, wi, wo):
-    """f_r (no cosine) of each lane's baked table, by ``tex_idx``
-    (``_measured_tex_eval``, :989-999); 0 where the lane names none."""
+def _table_f(textures, tex_idx, wi, wo, tex_kind):
+    """f_r (no cosine) of each lane's baked table of kind ``tex_kind``, by
+    ``tex_idx``: a measured BSDF's (``measured_brdf``,
+    ``_measured_tex_eval`` :989-999) or a pBSDF's M00 (``pbsdf``,
+    ``_pbsdf_tex_eval`` :1045-1054); 0 where the lane names none."""
     from . import measured as meas_mod
+    from . import measured_polarized as mp_mod
+    fn = {"measured_brdf": meas_mod.eval_table,
+          "pbsdf": mp_mod.eval_m00}[tex_kind]
     items = (textures.items() if isinstance(textures, Mapping)
              else enumerate(textures))
     out = torch.zeros_like(wi)
     for i, tex in items:
-        if tex.kind == "measured_brdf":
-            out = torch.where((tex_idx == i)[..., None],
-                              meas_mod.eval_table(tex, wi, wo), out)
+        if tex.kind == tex_kind:
+            out = torch.where((tex_idx == i)[..., None], fn(tex, wi, wo),
+                              out)
     return out
+
+
+#: the diffuse lobe's pick probability in the pBSDF's sampling mixture
+#: (COSINE_HEMISPHERE_PDF_WEIGHT, measured_polarized.cpp:13)
+PBSDF_DIFFUSE_W = 0.1
+
+
+def _pbsdf_mix_pdf(p, wi, wo):
+    """The pdf of the cosine + GGX(alpha_sample) mixture
+    (``_pbsdf_mix_pdf``, :1006-1016)."""
+    alpha = p["alpha"]
+    h = m.normalize(wi + wo)
+    pdf_m = m.safe_div(warp.ggx_pdf_visible(wi, h, alpha, alpha),
+                       4.0 * torch.abs(m.dot(wo, h)))
+    pdf_d = torch.clamp(wo[..., 2], min=0.0) / math.pi
+    pdf = PBSDF_DIFFUSE_W * pdf_d + (1.0 - PBSDF_DIFFUSE_W) * pdf_m
+    ok = (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0)
+    return torch.where(ok, pdf, 0.0)
+
+
+def _measured_polarized_sample(p, wi, s1, s2):
+    """The pBSDF's cosine / GGX mixture (``_measured_polarized_sample``,
+    :1019-1037); the weight here is a placeholder, which ``sample``
+    replaces by M00 cos / pdf from the baked table."""
+    alpha = p["alpha"]
+    pick_diffuse = s1 < PBSDF_DIFFUSE_W
+    wo_d = warp.square_to_cosine_hemisphere(s2)
+    mvec = warp.ggx_visible_normal_sample(wi, s2, alpha, alpha)
+    wo = torch.where(pick_diffuse[..., None], wo_d, m.reflect_m(wi, mvec))
+    pdf = _pbsdf_mix_pdf(p, wi, wo)
+    bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
+                    sampled_type=torch.full(pdf.shape,
+                                            BSDFFlags.GlossyReflection,
+                                            dtype=torch.int32,
+                                            device=wi.device),
+                    hf=m.normalize(wi + wo))
+    ok = (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0) & (pdf > 1e-12)
+    return bs, torch.ones_like(wi), ok
+
+
+def _measured_polarized_eval_pdf(p, wi, wo):
+    """The mixture's pdf; the value is 0 here and filled in from the
+    baked table by ``_eval_table``."""
+    return torch.zeros_like(wi), _pbsdf_mix_pdf(p, wi, wo)
+
+
+#: the kinds whose value ``sample`` and ``_eval_table`` take from a baked
+#: table after the dispatch: (kind, the table's texture kind)
+_TABLE_KINDS = ((KIND_MEASURED, "measured_brdf"),
+                (KIND_MEASURED_POLARIZED, "pbsdf"))
 
 
 _SAMPLE_FNS = {KIND_DIFFUSE: _diffuse_sample,
@@ -908,7 +1004,11 @@ _SAMPLE_FNS = {KIND_DIFFUSE: _diffuse_sample,
                KIND_PRINCIPLED: _principled_sample,
                KIND_PPLASTIC: _roughplastic_sample,
                KIND_PRINCIPLEDTHIN: _principledthin_sample,
-               KIND_MEASURED: _measured_sample}
+               KIND_MEASURED: _measured_sample,
+               KIND_POLARIZER: _half_pass_sample,
+               KIND_RETARDER: _retarder_sample,
+               KIND_CIRCULAR: _half_pass_sample,
+               KIND_MEASURED_POLARIZED: _measured_polarized_sample}
 _EVAL_PDF_FNS = {KIND_DIFFUSE: _diffuse_eval_pdf,
                  KIND_CONDUCTOR: _zero_eval_pdf,
                  KIND_ROUGHCONDUCTOR: _roughconductor_eval_pdf,
@@ -921,7 +1021,11 @@ _EVAL_PDF_FNS = {KIND_DIFFUSE: _diffuse_eval_pdf,
                  KIND_PRINCIPLED: _principled_eval_pdf,
                  KIND_PPLASTIC: _roughplastic_eval_pdf,
                  KIND_PRINCIPLEDTHIN: _principledthin_eval_pdf,
-                 KIND_MEASURED: _measured_eval_pdf}
+                 KIND_MEASURED: _measured_eval_pdf,
+                 KIND_POLARIZER: _zero_eval_pdf,
+                 KIND_RETARDER: _zero_eval_pdf,
+                 KIND_CIRCULAR: _zero_eval_pdf,
+                 KIND_MEASURED_POLARIZED: _measured_polarized_eval_pdf}
 
 #: the first kind id of ``register_bsdf`` (the reference's
 #: ``_CUSTOM_KIND_BASE``)
@@ -1030,15 +1134,15 @@ def sample(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, s1, s2,
             bs = _select_bs(is_k, bs_k, bs)
             w = torch.where(is_k[..., None], w_k, w)
             ok = torch.where(is_k, ok_k, ok)
-    if KIND_MEASURED in kinds_present:
-        # f_r cos / pdf of the proxy from the baked table (:1213-1222):
-        # unbiased whatever the fit
-        f_val = _measured_tex_eval(textures, p["reflectance_tex"], wi_f,
-                                   bs.wo)
-        w_m = f_val * (torch.clamp(bs.wo[..., 2:3], min=0.0)
-                       / torch.clamp(bs.pdf, min=1e-12)[..., None])
-        w = torch.where(((p["kind"] == KIND_MEASURED) & ok)[..., None], w_m,
-                        w)
+    for kind, tex_kind in _TABLE_KINDS:
+        if kind in kinds_present:
+            # f_r cos / pdf of the proxy or the mixture from the baked
+            # table (:1213-1231): unbiased whatever the fit
+            f_val = _table_f(textures, p["reflectance_tex"], wi_f, bs.wo,
+                             tex_kind)
+            w_m = f_val * (torch.clamp(bs.wo[..., 2:3], min=0.0)
+                           / torch.clamp(bs.pdf, min=1e-12)[..., None])
+            w = torch.where(((p["kind"] == kind) & ok)[..., None], w_m, w)
     bs = bs.replace(wo=_flip_z(bs.wo, flip), hf=_flip_z(bs.hf, flip))
     if active is not None:
         ok = ok & active
@@ -1048,7 +1152,8 @@ def sample(table, kinds_present: Tuple[int, ...], bsdf_idx, wi, s1, s2,
 
 def _eval_table(p, kinds_present, wi, wo, textures):
     """The per-kind eval_pdf selected by each lane's kind; 0 on a blend
-    lane; a measured lane's value from its baked table (``textures``)."""
+    lane; a measured or pBSDF lane's value from its baked table
+    (``textures``)."""
     wi_f, flip = _apply_twosided_in(p, wi)
     wo_f = _flip_z(wo, flip)
     val = torch.zeros_like(wi)
@@ -1058,11 +1163,13 @@ def _eval_table(p, kinds_present, wi, wo, textures):
         is_k = _is_kind(p, kinds)
         val = torch.where(is_k[..., None], val_k, val)
         pdf = torch.where(is_k, pdf_k, pdf)
-    if KIND_MEASURED in kinds_present:
-        f_val = _measured_tex_eval(textures, p["reflectance_tex"], wi_f,
-                                   wo_f)
-        val = torch.where((p["kind"] == KIND_MEASURED)[..., None],
-                          f_val * torch.clamp(wo_f[..., 2:3], min=0.0), val)
+    for kind, tex_kind in _TABLE_KINDS:
+        if kind in kinds_present:
+            f_val = _table_f(textures, p["reflectance_tex"], wi_f, wo_f,
+                             tex_kind)
+            val = torch.where((p["kind"] == kind)[..., None],
+                              f_val * torch.clamp(wo_f[..., 2:3], min=0.0),
+                              val)
     return val, pdf
 
 

@@ -8,10 +8,11 @@ renders: ``rectangle``/``cube``/``disk``/``sphere``/``cylinder`` shapes
 (the sphere tessellated, or analytic with ``analytic``: a row of
 ``Scene.sph_data``, ``ops/quadric.py``), in-memory ``mesh`` shapes and mesh files
 (``obj``, ``ply``, ``serialized``, through ``mesh_io``), ``shapegroup``
-and ``instance`` (flattened at load) and ``merge``; every scalar BSDF of
-``models/bsdf.py`` (all of the reference's but ``polarizer``,
-``retarder``, ``circular`` and ``measured_polarized``; a ``measured``
-table is baked at load into a ``measured_brdf`` texture),
+and ``instance`` (flattened at load) and ``merge``; every BSDF of ``models/bsdf.py``
+(all of the reference's; a ``measured`` table is baked at load into a
+``measured_brdf`` texture, a ``measured_polarized`` one into a ``pbsdf``
+texture; the polarization elements' ``theta`` and ``delta`` in
+degrees),
 its rough kinds with the GGX or the Beckmann distribution, a
 ``blendbsdf`` with a scalar or textured weight and ``mask`` (a blend of
 ``null`` and its material), optionally ``twosided``, ``normalmap`` or
@@ -28,8 +29,8 @@ children), the five samplers of ``models/samplers.py``, ``hdrfilm``
 with any of the six filters of ``models/films.py`` (``gaussian`` where
 none is named); and the ``path``, ``prb``, ``prb_basic``,
 ``prb_reparam``, ``manifold``, ``manifold_caustic``, ``direct``,
-``direct_reparam``, ``emission_reparam``, ``depth``, ``aov``, ``moment``
-and ``ptracer`` integrators; and the kinds given to ``register_shape``,
+``direct_reparam``, ``emission_reparam``, ``depth``, ``aov``, ``moment``,
+``ptracer`` and ``stokes`` integrators; and the kinds given to ``register_shape``,
 ``register_bsdf``, ``register_emitter``, ``register_sensor``,
 ``register_sampler`` and ``register_texture``.  Under a ``*_double``
 variant (``config.py``) every float leaf is cast to float64 at the end
@@ -51,6 +52,7 @@ a ``mesh_attribute`` texture reads ``Scene.vertex_colors``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -274,7 +276,7 @@ _SENSOR_TYPES = sns_mod.KINDS
 _INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "prb_reparam", "manifold",
                      "manifold_caustic", "direct", "direct_reparam",
                      "emission_reparam", "depth", "aov", "moment",
-                     "ptracer")
+                     "ptracer", "stokes")
 #: integrator types that ``render`` runs but the reference's loader does
 #: not list (JAX models/scene.py:1041-1044): a scene naming one is refused
 _RENDER_ONLY_TYPES = ("spectral", "spectral_mono", "spectral_spec")
@@ -410,9 +412,7 @@ def _transform(value) -> np.ndarray:
     return np.asarray(value, np.float32).reshape(4, 4)
 
 
-#: the reference's BSDF plugin names (its ``KIND_NAMES``); the port has
-#: all but the last four (``bsdf.KIND_NAMES``): the polarization elements
-#: raise by name
+#: the reference's BSDF plugin names (its ``KIND_NAMES``)
 _BSDF_PLUGINS = ("diffuse", "conductor", "roughconductor", "dielectric",
                  "thindielectric", "roughdielectric", "plastic",
                  "roughplastic", "null", "principled", "principledthin",
@@ -533,8 +533,22 @@ class _Builder:
                 "a number")
         # a measured BSDF's table, baked from its tensor file (:420-434),
         # is a texture the slot's reflectance_tex names; its alpha is the
-        # fitted roughness of the sampling proxy
+        # fitted roughness of the sampling proxy; a pBSDF's (:436-450) is
+        # a pbsdf texture, its alpha the mixture's alpha_sample
         measured_tex = -1
+        if kind == bsdf_mod.KIND_MEASURED_POLARIZED:
+            from . import measured_polarized as mp_mod
+            grid3d, nodes = mp_mod.texture_arrays(*mp_mod.bake(
+                p["filename"], float(p.get("wavelength", -1.0))))
+            alpha = float(p.get("alpha_sample", 0.1))
+            self.textures.append({
+                "kind": "pbsdf",
+                "data": np.zeros((1, 1, 3), np.float32),
+                "color0": np.zeros(3, np.float32),
+                "color1": np.ones(3, np.float32),
+                "uv_scale": np.ones(2, np.float32),
+                "grid3d": grid3d, "nodes": nodes})
+            measured_tex = len(self.textures) - 1
         if kind == bsdf_mod.KIND_MEASURED:
             from . import measured as meas_mod
             table, ti_nodes, alpha = meas_mod.bake(p["filename"])
@@ -605,7 +619,15 @@ class _Builder:
             # the principled and principledthin parameters (:477-488)
             **{k: float(p.get(k, v))
                for k, v in bsdf_mod.SCALAR_DEFAULTS.items()
-               if k not in ("alpha", "eta", "blend_weight")},
+               if k not in ("alpha", "eta", "blend_weight", "pol_theta",
+                            "pol_delta")},
+            # the polarization elements' axis rotation and retardance,
+            # degrees in the scene (:505-512); a textured one loads as the
+            # default
+            "pol_theta": 0.0 if isinstance(p.get("theta"), dict)
+            else math.radians(float(p.get("theta", 0.0))),
+            "pol_delta": math.pi / 2 if isinstance(p.get("delta"), dict)
+            else math.radians(float(p.get("delta", 90.0))),
             "blend_a": blend_a,
             "blend_b": blend_b,
             # a scalar or textured weight (a mask's opacity, :489-492)

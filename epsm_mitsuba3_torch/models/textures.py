@@ -12,7 +12,10 @@ every texture of the scene, and the BSDFs and normal maps here pass only
 those their slots name (``Scene.bsdf_textures``, ``normal_textures``),
 which gives every lane the same value.  A ``measured_brdf`` texture is
 a measured BSDF's baked table (``models/measured.py``), read by the BSDF
-and skipped here.  ``register_texture`` adds a kind written by the user
+and skipped here; a ``pbsdf`` texture a pBSDF's (``grid3d`` (Np, Nd, Nh,
+48), ``nodes`` its three node vectors end to end;
+``models/measured_polarized.py``), whose colour is its placeholder
+bitmap's texel, 0, as in the reference.  ``register_texture`` adds a kind written by the user
 in torch.  The volume texture is not ported and raises by name."""
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ class Texture:
     color1: torch.Tensor = None
     uv_scale: torch.Tensor = None         # (2,) to_uv scaling
     uv_offset: Optional[torch.Tensor] = None  # (2,) to_uv translation
-    #: a measured BSDF's baked table (Ti, To, Pd, 3) and its theta_i grid
+    #: a measured BSDF's baked table (Ti, To, Pd, 3) and its theta_i grid,
+    #: or a pBSDF's (Np, Nd, Nh, 48) and its phi_d, theta_d, theta_h nodes
     grid3d: Optional[torch.Tensor] = None
     nodes: Optional[torch.Tensor] = None
 
@@ -101,7 +105,8 @@ def register_texture(name: str, eval_fn) -> None:
 
 
 #: the built-in kinds
-KINDS = ("bitmap", "checkerboard", "mesh_attribute", "measured_brdf")
+KINDS = ("bitmap", "checkerboard", "mesh_attribute", "measured_brdf",
+         "pbsdf")
 
 
 def is_kind(kind: str) -> bool:
@@ -163,6 +168,11 @@ def eval_select(textures, tex_idx: torch.Tensor, uv: torch.Tensor,
     out = fallback
     for i, tex in items:
         if tex.kind == "measured_brdf":      # a BRDF table, no colour
+            continue
+        if tex.kind == "pbsdf":
+            # the reference samples the table's placeholder bitmap, a
+            # (1, 1, 3) of zeros
+            out = torch.where((tex_idx == i)[..., None], 0.0, out)
             continue
         if tex.kind == "mesh_attribute":
             if vcolor is not None:

@@ -1,12 +1,14 @@
-"""``core/quad.py``, ``core/spline.py`` and ``utils/chi2.py`` in the port
-against the JAX package, on the same inputs, and JAX's own
-``tests/test_core_extras.py`` checks of the first two on the port.
+"""``core/quad.py``, ``core/spline.py``, ``utils/chi2.py`` and
+``utils/polvis.py`` in the port against the JAX package, on the same
+inputs, JAX's own ``tests/test_core_extras.py`` checks of the first two
+on the port, and ``utils/profiler.py`` and ``utils/sys_info.py``.
 
 Tolerances: quadrature nodes and weights bit for bit (the same numpy
 float64 arithmetic, rounded once to float32); the splines within 2e-6
 (float32 arithmetic in two orders); the chi-square harness's histogram
 exactly (the same samples), its integrated pdf and p-value to 1e-6
-relative (the float32 densities of two libraries)."""
+relative (the float32 densities of two libraries); polvis bit for bit
+(the same numpy code)."""
 import numpy as np
 import pytest
 import torch
@@ -16,10 +18,14 @@ import jax.numpy as jnp
 from epsm_mitsuba3_tpu.core import quad as QJ
 from epsm_mitsuba3_tpu.core import spline as SJ
 from epsm_mitsuba3_tpu.utils import chi2 as CJ
+from epsm_mitsuba3_tpu.utils import polvis as PJ
 
 from epsm_mitsuba3_torch.core import quad as QT
 from epsm_mitsuba3_torch.core import spline as ST
 from epsm_mitsuba3_torch.utils import chi2 as CT
+from epsm_mitsuba3_torch.utils import polvis as PT
+from epsm_mitsuba3_torch.utils import profiler as PR
+from epsm_mitsuba3_torch.utils import sys_info as SI
 
 
 @pytest.mark.parametrize("rule", ["gauss_legendre", "gauss_lobatto",
@@ -141,3 +147,79 @@ def test_chi2_rejects_a_wrong_pdf():
                                                  1 / (2 * np.pi)),
                             sample_count=len(s), res=11, device="cpu")
     assert not test.run()
+
+
+@pytest.mark.parametrize("mode", ["s0", "dolp", "aolp", "docp"])
+def test_polvis_equals_jax(mode):
+    """Each mode on a seeded Stokes stack (S1..S3 within the cone |S| <=
+    S0, some pixels dark); an unknown mode raises in both."""
+    rng = np.random.default_rng(7)
+    s0 = rng.uniform(0.0, 2.0, (9, 7))
+    v = rng.normal(size=(9, 7, 3))
+    v *= (s0 * rng.uniform(0, 1, (9, 7)) / np.linalg.norm(v, axis=-1))[
+        ..., None]
+    img = np.concatenate([s0[..., None], v], -1).astype(np.float32)
+    img[0, 0] = 0.0
+    out = PT.polvis(img, mode)
+    assert out.shape == (9, 7, 3) and np.isfinite(out).all()
+    np.testing.assert_array_equal(out, PJ.polvis(img, mode))
+    with pytest.raises(ValueError, match="unknown polvis mode"):
+        PT.polvis(img, "bogus")
+
+
+def test_profiler_scopes_timer_and_kernel_history():
+    """``scoped_phase`` and ``annotate`` name their block in a
+    ``torch.profiler`` trace; ``timed`` writes its seconds; the kernel
+    history counts the K1-K4 launches of its block only (none on the
+    CPU, where the plain versions run) and leaves the counters as they
+    were."""
+    from epsm_mitsuba3_torch.ops import cuda_intersect as CI
+    from epsm_mitsuba3_torch.ops import cuda_traverse as CT_
+
+    @PR.annotate(PR.ProfilerPhase.BSDFSample)
+    def work(x):
+        return (x * 2).sum()
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        with PR.scoped_phase(PR.ProfilerPhase.Render):
+            work(torch.ones(4))
+    names = {e.name for e in prof.events()}
+    assert {"Render", "BSDFSample"} <= names
+    times = {}
+    with PR.timed("block", times):
+        pass
+    assert times["block"] >= 0.0
+    before = {**CI.launches, **CT_.launches}
+    with PR.KernelHistory() as outer:
+        CI.launches["mt_closest_hit"] += 2
+        with PR.KernelHistory() as inner:
+            CT_.launches["bvh4_any_hit"] += 1
+        CI.launches["mt_closest_hit"] -= 2
+        CT_.launches["bvh4_any_hit"] -= 1
+    assert inner.launches["bvh4_any_hit"] == 1 and inner.total == 1
+    assert outer.total == 0
+    assert {**CI.launches, **CT_.launches} == before
+    import epsm_mitsuba3_torch as mt
+    from epsm_mitsuba3_torch.scenes import cornell_box
+    sc = mt.load_dict(cornell_box(res=4, spp=1), device="cpu")
+    with PR.KernelHistory() as kh:
+        mt.render(sc, spp=1, device="cpu")
+    assert kh.total == 0 and set(kh.launches) == set(before)
+
+
+def test_sys_info_reports_torch_and_the_device():
+    """``info`` names torch's version and the devices (the CPU without
+    CUDA, and then no power limits); ``print_info`` prints each key."""
+    info = SI.info()
+    assert info["torch"] == torch.__version__
+    assert info["framework"] == "epsm_mitsuba3_torch"
+    if not torch.cuda.is_available():
+        assert info["backend"] == "cpu" and info["devices"] == ["cpu"]
+        assert info["device_count"] == 1 and info["power_limits"] is None
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        SI.print_info()
+    assert all(k in buf.getvalue() for k in info)

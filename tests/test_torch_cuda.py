@@ -665,3 +665,43 @@ def test_double_box_launches_equal_float32(cuda):
     a, b = imgs
     assert b.dtype == torch.float64 and a.dtype == torch.float32
     assert float((b - a).abs().mean()) <= 2e-3 * float(a.mean())
+
+
+# -- the polarized slice: the stokes integrator through K1, K2 and K3 -----------
+
+def _plate(d):
+    """``d`` with a linear polarizer plate in front of the back wall and a
+    conductor right wall."""
+    d["plate"] = {"type": "rectangle",
+                  "to_world": mt.ScalarTransform4f.translate(
+                      [0.0, 1.0, 0.2]).scale(0.5),
+                  "bsdf": {"type": "polarizer", "theta": 30.0}}
+    d["right"]["bsdf"] = {"type": "conductor",
+                          "eta": {"type": "rgb", "value": [0.2, 0.9, 1.1]},
+                          "k": {"type": "rgb", "value": [3.0, 2.5, 2.2]}}
+    return d
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_stokes_cuda_matches_plain(cuda, mesh):
+    """``stokes`` at 16^2 x 2 spp, depth 3, through K1 on the box and K2/K3
+    on the mesh (each entry 3 launches, the other kernel none), against
+    the plain versions on the CPU: within 1e-3 of the mean on average."""
+    d = _plate(cornell_box_mesh(res=16, spp=2, max_depth=3, subdiv=46)
+               if mesh else cornell_box(res=16, spp=2, max_depth=3))
+    integ = {"type": "stokes", "max_depth": 3}
+    before = {**CI.launches, **CT.launches}
+    img_c = mt.render(mt.load_dict(d, device=cuda), spp=2, seed=0,
+                      integrator=integ)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in {**CI.launches,
+                                            **CT.launches}.items()}
+    k_hit, k_any = (("bvh4_closest_hit", "bvh4_any_hit") if mesh
+                    else ("mt_closest_hit", "mt_any_hit"))
+    assert counts[k_hit] == 3 and counts[k_any] == 3
+    assert sum(counts.values()) == 6
+    img_h = mt.render(mt.load_dict(d, device="cpu"), spp=2, seed=0,
+                      device="cpu", integrator=integ)
+    assert img_c.shape == (16, 16, 15) and bool(torch.isfinite(img_c).all())
+    assert float((img_c.cpu() - img_h).abs().mean()) <= 1e-3 * float(
+        img_h.abs().mean())

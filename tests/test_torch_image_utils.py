@@ -165,7 +165,7 @@ def test_spectral_types_are_no_scene_element(kind):
 
 def test_unported_types_are_refused_by_name():
     sc = mt.load_dict(cornell_box(res=4, spp=1), device="cpu")
-    for kind in ("stokes", "volpath", "prbvolpath", "volpathmis"):
+    for kind in ("volpath", "prbvolpath", "volpathmis"):
         assert kind not in render_t.TYPES
         with pytest.raises(NotImplementedError,
                            match=f"integrator '{kind}' is not ported"):

@@ -33,7 +33,8 @@ from epsm_mitsuba3_torch.models import samplers as smp_t
 from epsm_mitsuba3_torch.ops import accel
 from epsm_mitsuba3_torch.scenes import cornell_box
 
-from test_torch_render import assert_images_close, port_scene_of
+from test_torch_render import (assert_images_close, jax_leaf_grads,
+                               port_scene_of)
 from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP, DEPTH = 16, 4, 4
@@ -71,15 +72,12 @@ def test_box_gradients_match_jax():
         d[k]["face_normals"] = True
     sj = mi.load_dict(d)
     W = _weights()
-    g = jax.grad(lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0) * W),
-                 allow_int=True)(sj)
-    got = _port_grads(port_scene_of(sj), ("vertices", "bsdfs.reflectance",
-                                          "emitters.radiance"), W)
-    _assert_grad_close(got["vertices"], g.vertices, "vertices")
-    _assert_grad_close(got["bsdfs.reflectance"], g.bsdfs["reflectance"],
-                       "reflectance")
-    _assert_grad_close(got["emitters.radiance"], g.emitters["radiance"],
-                       "radiance")
+    names = ("vertices", "bsdfs.reflectance", "emitters.radiance")
+    _, g = jax_leaf_grads(
+        sj, lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0) * W), names)
+    got = _port_grads(port_scene_of(sj), names, W)
+    for k in names:
+        _assert_grad_close(got[k], g[k], k)
 
 
 @pytest.mark.parametrize("leaf,row,eps", [("bsdfs.reflectance", None, 1e-2),
@@ -264,6 +262,7 @@ def test_leaves_are_leaf_tensors():
                            "bsdfs.clearcoat_gloss", "bsdfs.specular",
                            "bsdfs.spec_trans", "bsdfs.diff_trans",
                            "bsdfs.flatness", "bsdfs.blend_weight",
+                           "bsdfs.pol_theta", "bsdfs.pol_delta",
                            "emitters.radiance", "emitters.intensity",
                            "emitters.irradiance", "emitters.position",
                            "emitters.direction", "emitters.cutoff_cos",

@@ -21,7 +21,6 @@ the box's (the fused replay's remaining radiance, sums in other orders).
 import numpy as np
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import epsm_mitsuba3_tpu as mi
@@ -29,7 +28,7 @@ from scenes import cornell_box as cornell_box_jax
 
 import epsm_mitsuba3_torch as mt
 
-from test_torch_render import port_scene_of
+from test_torch_render import jax_leaf_grads, port_scene_of
 from test_torch_render_bsdfs import SPP, box_b, check_render
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -48,10 +47,8 @@ def prb_matches_jax(d, names):
     st = port_scene_of(sj)
     W = np.random.default_rng(31).uniform(0, 1, (RES, RES, 3)).astype(
         np.float32)
-    g = jax.grad(lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0) * W),
-                 allow_int=True)(sj)
-    ref = {k: (g.vertices if k == "vertices"
-               else g.bsdfs[k.split(".", 1)[1]]) for k in names}
+    _, ref = jax_leaf_grads(
+        sj, lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0) * W), names)
     lv = {k: v.clone().requires_grad_(True)
           for k, v in st.leaves().items() if k in ref}
     assert set(lv) == set(ref)

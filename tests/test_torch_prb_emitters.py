@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import epsm_mitsuba3_tpu as mi
@@ -31,7 +30,8 @@ import epsm_mitsuba3_torch as mt
 from epsm_mitsuba3_torch.models import emitters as ET
 
 from test_torch_emitters import all_kinds_scene
-from test_torch_render import assert_images_close, port_scene_of
+from test_torch_render import (assert_images_close, jax_leaf_grads,
+                               port_scene_of)
 from test_torch_render_emitters import plain
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -56,18 +56,15 @@ def test_all_kinds_gradients_match_jax(tmp_path):
     sj = mi.load_dict(d)
     W = np.random.default_rng(12).uniform(0, 1, (RES, RES, 3)).astype(
         np.float32)
-    g = jax.grad(lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0) * W),
-                 allow_int=True)(sj)
     st = port_scene_of(sj)
     env = st.static.env_texture
     slide = 1 - env                      # the projector's bitmap
     assert st.textures[slide].kind == "bitmap"
-    ref = {"vertices": g.vertices,
-           "bsdfs.reflectance": g.bsdfs["reflectance"],
-           **{f"emitters.{k}": g.emitters[k]
-              for k in ("radiance", "intensity", "irradiance")},
-           f"textures.{env}.data": g.textures[env].data,
-           f"textures.{slide}.data": g.textures[slide].data}
+    _, ref = jax_leaf_grads(
+        sj, lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0) * W),
+        ("vertices", "bsdfs.reflectance", "emitters.radiance",
+         "emitters.intensity", "emitters.irradiance", f"textures.{env}.data",
+         f"textures.{slide}.data"))
     got = _port_grads(st, tuple(ref), W)
     for k, r in ref.items():
         r, gk = np.asarray(r), got[k]

@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import epsm_mitsuba3_tpu as mi
@@ -33,7 +32,8 @@ from scenes import cornell_box as cornell_box_jax
 import epsm_mitsuba3_torch as mt
 from epsm_mitsuba3_torch.ad import prb as prb_t
 
-from test_torch_render import assert_images_close, port_scene_of
+from test_torch_render import (assert_images_close, jax_leaf_vjp,
+                               port_scene_of)
 from torch_threads import one_torch_thread  # noqa: F401
 
 RES, SPP, DEPTH, RAYS = 16, 2, 2, 4
@@ -68,15 +68,12 @@ def port_grads(st, W, integrator, names=NAMES, seed=0, spp=SPP):
 
 
 def jax_grads(sj, W, integrator, seed=0, spp=SPP):
-    """JAX's image and its gradients of sum(image * W), under the
-    port's leaf names."""
-    img, vjp = jax.vjp(lambda s: mi.render(s, spp=spp, seed=seed,
-                                           integrator=integrator), sj)
+    """JAX's image and its gradients of sum(image * W) w.r.t. NAMES, under
+    the port's leaf names."""
+    img, vjp = jax_leaf_vjp(sj, lambda s: mi.render(
+        s, spp=spp, seed=seed, integrator=integrator), NAMES)
     (g,) = vjp(jnp.asarray(W))
-    return np.asarray(img), {
-        "vertices": g.vertices, "emitters.radiance": g.emitters["radiance"],
-        "bsdfs.reflectance": g.bsdfs["reflectance"],
-        "sensors.0.to_world": g.sensors[0].to_world}
+    return np.asarray(img), {k: np.asarray(v) for k, v in zip(NAMES, g)}
 
 
 def box_jax():

@@ -8,6 +8,8 @@ flips changes one path of a pixel.
 """
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -54,6 +56,54 @@ def jax_arrays(sj) -> dict:
         out.update({f"bvh.{k}": np.asarray(getattr(sj.bvh, k))
                     for k in BVH_FIELDS})
     return out
+
+
+def _jax_leaf(sj, name):
+    """The JAX scene's leaf under the port's leaf name (``vertices``,
+    ``bsdfs.reflectance``, ``textures.3.data``, ``sensors.0.to_world``)."""
+    part = name.split(".")
+    if part[0] in ("bsdfs", "emitters"):
+        return getattr(sj, part[0])[part[1]]
+    if part[0] in ("textures", "sensors"):
+        return getattr(getattr(sj, part[0])[int(part[1])], part[2])
+    return getattr(sj, name)
+
+
+def _jax_with_leaf(sj, name, value):
+    """The JAX scene with the leaf ``name`` replaced by ``value``."""
+    part = name.split(".")
+    if part[0] in ("bsdfs", "emitters"):
+        return sj.replace(**{part[0]: {**getattr(sj, part[0]),
+                                       part[1]: value}})
+    if part[0] in ("textures", "sensors"):
+        seq = list(getattr(sj, part[0]))
+        seq[int(part[1])] = seq[int(part[1])].replace(**{part[2]: value})
+        return sj.replace(**{part[0]: tuple(seq)})
+    return sj.replace(**{name: value})
+
+
+def jax_leaf_vjp(sj, fn, names):
+    """``jax.vjp`` of ``fn(scene)`` w.r.t. the leaves ``names`` of the JAX
+    scene ``sj`` only: (the output, the vjp, which maps a cotangent to
+    the leaves' cotangents in the order of ``names``).  The same
+    cotangents as a vjp w.r.t. the whole scene gives those leaves, and
+    XLA compiles the backward of these leaves alone, not of every leaf
+    of the scene (about 30 % less compile time for a PRB render)."""
+    def f(values):
+        s = sj
+        for k, v in zip(names, values):
+            s = _jax_with_leaf(s, k, v)
+        return fn(s)
+    return jax.vjp(f, [_jax_leaf(sj, k) for k in names])
+
+
+def jax_leaf_grads(sj, loss, names):
+    """``jax.value_and_grad`` of the scalar ``loss(scene)`` w.r.t. the
+    leaves ``names`` of ``sj`` only (``jax_leaf_vjp``): (the loss,
+    {name: numpy gradient})."""
+    value, vjp = jax_leaf_vjp(sj, loss, names)
+    (g,) = vjp(jnp.ones_like(value))
+    return value, {k: np.asarray(v) for k, v in zip(names, g)}
 
 
 def port_scene_of(sj, device="cpu"):

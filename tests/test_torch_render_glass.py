@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import epsm_mitsuba3_tpu as mi
@@ -33,7 +32,8 @@ from epsm_mitsuba3_torch.models import films as films_t
 from epsm_mitsuba3_torch.models import samplers as smp_t
 from epsm_mitsuba3_torch.ops import accel
 
-from test_torch_render import assert_images_close, port_scene_of
+from test_torch_render import (assert_images_close, jax_leaf_grads,
+                               port_scene_of)
 from test_torch_prb import _assert_grad_close
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -105,9 +105,8 @@ def test_prb_gradients_match_jax(name, names, integ):
     lobe (alpha, eta)."""
     sj, _ = _jax_scene(name)
     W = _weights()
-    g = jax.grad(lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0,
-                                             integrator=integ) * W),
-                 allow_int=True)(sj)
+    _, g = jax_leaf_grads(sj, lambda s: jnp.sum(mi.render(
+        s, spp=SPP, seed=0, integrator=integ) * W), names)
     st = port_scene_of(sj)
     lv = {k: v.clone().requires_grad_(True)
           for k, v in st.leaves().items() if k in names}
@@ -116,9 +115,7 @@ def test_prb_gradients_match_jax(name, names, integ):
     got = dict(zip(lv, (x.numpy() for x in torch.autograd.grad(
         (img * torch.from_numpy(W)).sum(), list(lv.values())))))
     for k in names:
-        ref = getattr(g, k) if "." not in k else getattr(
-            g, k.split(".")[0])[k.split(".")[1]]
-        _assert_grad_close(got[k], ref, k)
+        _assert_grad_close(got[k], g[k], k)
 
 
 def test_prb_alpha_gradient_sign_matches_fd():

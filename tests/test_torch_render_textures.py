@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import epsm_mitsuba3_tpu as mi
@@ -29,7 +28,8 @@ from scenes import cornell_box as cornell_box_jax
 
 import epsm_mitsuba3_torch as mt
 
-from test_torch_render import assert_images_close, port_scene_of
+from test_torch_render import (assert_images_close, jax_leaf_grads,
+                               port_scene_of)
 from test_torch_textures import case_bsdfs, texture_files
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -77,14 +77,13 @@ def test_prb_gradients_match_jax(files):
     st = port_scene_of(sj)
     W = np.random.default_rng(31).uniform(0, 1, (RES, RES, 3)).astype(
         np.float32)
-    g = jax.grad(lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0) * W),
-                 allow_int=True)(sj)
     refl = int(st.bsdfs["reflectance_tex"][
         st.shape_bsdf[st.static.shape_names.index("back")]])
     assert st.textures[refl].kind == "bitmap"
-    ref = {"vertices": g.vertices, "bsdfs.reflectance": g.bsdfs["reflectance"],
-           "vertex_colors": g.vertex_colors,
-           f"textures.{refl}.data": g.textures[refl].data}
+    _, ref = jax_leaf_grads(
+        sj, lambda s: jnp.sum(mi.render(s, spp=SPP, seed=0) * W),
+        ("vertices", "bsdfs.reflectance", "vertex_colors",
+         f"textures.{refl}.data"))
     lv = {k: v.clone().requires_grad_(True)
           for k, v in st.leaves().items() if k in ref}
     img = mt.render(st.with_leaves(lv), spp=SPP, seed=0, device="cpu")

@@ -217,13 +217,12 @@ def test_load_dict_equals_jax(files, case):
                                         "filename": "t.png"}}}, "bitmap"),
     ({"type": "rectangle", "interior": {"type": "homogeneous"}},
      "homogeneous"),
-    ({"type": "rectangle", "bsdf": {"type": "circular"}}, "circular"),
+    ({"type": "volpath", "max_depth": 4}, "volpath"),
     ({"type": "rectangle", "emitter": {"type": "area", "radiance": {
         "type": "spectrum", "filename": "d65.spd"}}}, "spectrum"),
     ({"type": "my_plugin_shape"}, "my_plugin_shape"),
-    ({"type": "rectangle", "bsdf": {"type": "measured_polarized",
-                                    "filename": "brdf.pbsdf"}},
-     "measured_polarized"),
+    ({"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": {
+        "type": "volume", "filename": "albedo.vol"}}}, "volume"),
 ])
 def test_unported_elements_raise(element, name):
     d, _ = _box("t")

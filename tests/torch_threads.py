@@ -7,13 +7,25 @@ threads as there are cores, a 32^2 render's operations wait on each
 other's threads: ``test_torch_render.py``'s golden Z-test takes ~4 s
 alone and ~90 s beside five other workers.  At the module's end the
 fixture also returns the process's free heap to the system
-(``release_free_memory``)."""
+(``release_free_memory``).
+
+While the module runs, XLA compiles the JAX references with little
+optimization (``jax_disable_most_optimizations``: LLVM at -O0, no
+expensive LLVM passes).  The references are small programs run a few
+times, so compiling them is nearly all of their cost: at -O0 a PRB
+gradient of ``cornell_box(16, 4, 3)`` takes about 40 % less CPU time to
+compile (``tests/jax_cost.py compile``).  The program is the same, so
+its results are the same up to rounding (the code generator fuses fewer
+multiply-adds); the port's tolerances against JAX were set for the
+port's own rounding, which differs from XLA's either way.  The JAX
+package's own tests keep the default."""
 import ctypes
 import ctypes.util
 import gc
 import os
 import sys
 
+import jax
 import pytest
 import torch
 
@@ -53,6 +65,9 @@ def release_free_memory():
 def one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    effort = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
     yield
+    jax.config.update("jax_disable_most_optimizations", effort)
     torch.set_num_threads(n)
     release_free_memory()
